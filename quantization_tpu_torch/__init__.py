@@ -1,0 +1,18 @@
+"""quantization_tpu_torch: the multi-codebook vector quantizer in PyTorch,
+with hand-written CUDA kernels for the NVIDIA H100.
+
+A port of ``quantization_tpu`` (JAX/Pallas on the TPU), which stays beside
+it as the reference.  This package imports neither JAX nor
+``quantization_tpu``.  Entry points run on the GPU unless the caller passes
+``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
+
+Public API: Quantizer, load_quantizer, save_quantizer.
+"""
+
+from . import core
+from .models.quantizer import Quantizer
+from .utils.serialization import load_quantizer, save_quantizer
+
+__version__ = "0.1.0"
+
+__all__ = ["Quantizer", "core", "load_quantizer", "save_quantizer"]

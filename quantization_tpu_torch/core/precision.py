@@ -1,0 +1,19 @@
+"""Matmul precision policy.
+
+The reference computes in CUDA f32, and the JAX package asks every core
+contraction for ``Precision.HIGHEST``.  On the GPU the counterpart is to
+keep TF32 off for both matmuls and convolutions, which this module sets
+when it is imported (``core`` imports it first).  The hand-written kernels
+choose bf16 or int8 operands deliberately, never by accident.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# f32 matmuls run in full f32 (no TF32), like the JAX package's HIGHEST.
+MATMUL_ALLOW_TF32: bool = False
+CUDNN_ALLOW_TF32: bool = False
+
+torch.backends.cuda.matmul.allow_tf32 = MATMUL_ALLOW_TF32
+torch.backends.cudnn.allow_tf32 = CUDNN_ALLOW_TF32

@@ -1,0 +1,178 @@
+"""The slice end to end: the port's ``Quantizer`` on the committed trained
+dim=256 / 4 B quantizer, held against the JAX package on frames sampled by
+the JAX package's own key-42 MLP sampler (the distribution the quantizer
+was trained on).
+
+On the CPU, ``search_method="auto"`` is the exact pair-tree beam in both
+packages, so the byte codes must agree; the seqbeam config that auto runs on
+a card is held to the 1.012 x beam-5 bar of ``tests/test_kernel_quality.py``
+through its plain version.
+"""
+
+import pathlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import quantization_tpu_torch as qtt
+from quantization_tpu.core import codec as jcodec
+from quantization_tpu.data.synthetic import make_mlp_sampler as jax_mlp_sampler
+from quantization_tpu.ops import seqbeam as jseq
+from quantization_tpu.ops.decode import decode_kernel as jax_decode_kernel
+from quantization_tpu.utils.serialization import load_quantizer as jax_load
+from quantization_tpu_torch.core import codec as tcodec
+from quantization_tpu_torch.data import synthetic as tsynth
+from quantization_tpu_torch.ops import decode as tdecode
+from quantization_tpu_torch.ops import seqbeam as tseq
+from quantization_tpu_torch.ops import verify as tverify
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+Q256 = ROOT / "experiments" / "q256_4_full.npz"
+N_FRAMES = 512
+BAR = 1.012  # vs beam-5, as tests/test_kernel_quality.py
+HL_D256 = dict(M=8, R=4, pool_mask="altparity", e_dtype="bf16")
+
+
+@pytest.fixture(scope="module")
+def trained():
+    jq = jax_load(Q256)
+    tq = qtt.load_quantizer(Q256, device="cpu")
+    x = np.asarray(jax_mlp_sampler(256, jax.random.PRNGKey(42))(jax.random.PRNGKey(7), N_FRAMES))
+    return jq, tq, x
+
+
+def _sse(tq, codes, x):
+    recon = tq.decode(codes)
+    return float(((recon - torch.from_numpy(x)) ** 2).sum())
+
+
+def test_auto_encode_equals_jax_on_cpu(trained):
+    jq, tq, x = trained
+    want = np.asarray(jq.encode(jnp.asarray(x)))  # auto -> beam-5 off the TPU
+    before = tseq.SEQBEAM_KERNEL.launches
+    got = tq.encode(torch.from_numpy(x))  # auto -> beam-5 on a CPU tensor
+    assert tseq.SEQBEAM_KERNEL.launches == before
+    assert got.dtype == torch.uint8 and got.shape == (N_FRAMES, 4)
+    # the same search on the same f32 inputs; the f32 sums run in another
+    # order, so a near tie may flip a frame (observed: every frame equal)
+    same = (got.numpy() == want).all(axis=1)
+    assert same.mean() >= 0.99
+    if not same.all():
+        np.testing.assert_allclose(
+            _sse(tq, got[torch.from_numpy(~same)], x[~same]),
+            _sse(tq, torch.from_numpy(want[~same]), x[~same]), rtol=1e-3)
+    # unpacked indexes and the decode of the JAX codes
+    idx = tq.encode(torch.from_numpy(x), as_bytes=False)
+    assert idx.dtype == torch.int32
+    assert torch.equal(tcodec.pack_indexes(idx, 256), got)
+    np.testing.assert_allclose(
+        tq.decode(torch.from_numpy(want)).numpy(), np.asarray(jq.decode(jnp.asarray(want))),
+        rtol=1e-6, atol=1e-6)  # f32 sums of 4 rows, another order
+
+
+def test_seqbeam_auto_config_within_bar(trained):
+    # the d256 config that auto runs on a card, through its plain version
+    jq, tq, x = trained
+    xt = torch.from_numpy(x)
+    beam5 = _sse(tq, tq.encode(xt, search_method="beam"), x)
+    codes = tq.encode(xt, refine_indexes_iters=2, search_method="seqbeam", **HL_D256)
+    kernel = _sse(tq, codes, x)
+    assert kernel <= beam5 * BAR, (kernel / beam5, kernel, beam5)
+    # and the same codes as the JAX kernel in interpret mode on a slice of
+    # the frames (observed: every index equal)
+    n = 128
+    want = np.asarray(jseq.seqbeam_encode_indexes(
+        jq.params, jq.config, jnp.asarray(x[:n]), passes=2, reorder="select",
+        interpret=True, **HL_D256))
+    got = tcodec.unpack_indexes(codes[:n], 256, 4).numpy()
+    assert (got == want).mean() >= 0.99
+
+
+def test_cd_warm_start_and_cd_match_quality(trained):
+    jq, tq, x = trained
+    xt = torch.from_numpy(x)
+    beam5 = _sse(tq, tq.encode(xt, search_method="beam"), x)
+    warm = _sse(tq, tq.encode(xt, refine_indexes_iters=2, search_method="cd2+seqbeam",
+                              **HL_D256), x)
+    assert warm <= beam5 * BAR, warm / beam5
+    cd = tq.encode(xt, refine_indexes_iters=2, search_method="cd")
+    want = np.asarray(jcodec.encode(jq.params, jq.config, jnp.asarray(x), 2,
+                                    search_method="cd"))
+    assert (cd.numpy() == want).all(axis=1).mean() >= 0.99
+    with pytest.raises(ValueError, match="seqbeam"):
+        tq.encode(xt, M=16)  # kernel kwargs with auto on the CPU
+
+
+def test_decode_kernel_path_matches_jax(trained):
+    jq, tq, x = trained
+    codes = tq.encode(torch.from_numpy(x[:256]))
+    want = np.asarray(jax_decode_kernel(jq.params, jq.config, jnp.asarray(codes.numpy()),
+                                        interpret=True))
+    before = tdecode.DECODE_KERNEL.launches
+    got = tq.decode(codes, use_kernel=True)
+    assert tdecode.DECODE_KERNEL.launches == before  # plain version on the CPU
+    np.testing.assert_array_equal(got.numpy(), want)  # bit for bit
+    # bf16 codebooks vs the f32 gather: each of the 4 rows rounds by at
+    # most 2**-9 of the largest codeword entry
+    bound = 4 * 2.0 ** -9 * float(tq.get_centers().detach().abs().max())
+    np.testing.assert_allclose(got.numpy(), tq.decode(codes).numpy(), rtol=0, atol=bound)
+
+
+def test_quantizer_surface_matches_jax(trained):
+    jq, tq, _ = trained
+    assert (tq.dim, tq.codebook_size, tq.num_codebooks) == (256, 256, 4)
+    assert tq.get_id() == jq.get_id()
+    assert tq.config.bytes_per_frame == jq.config.bytes_per_frame == 4
+    np.testing.assert_allclose(tq.get_centers().detach().numpy(), np.asarray(jq.get_centers()),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tq.get_data_mean().numpy(), np.asarray(jq.get_data_mean()),
+                               rtol=1e-5, atol=1e-6)
+    assert tq.show_init_invocation() == jq.show_init_invocation().replace(
+        "quantization_tpu.", "quantization_tpu_torch.")
+
+
+def _gate(monkeypatch, verified, quality):
+    tables = {tverify.VERIFIED: {"results": verified}, tverify.QUALITY: quality}
+    monkeypatch.setattr(tverify, "_read", lambda path: tables[path])
+
+
+def test_auto_ladder_and_gate(monkeypatch):
+    d512 = qtt.core.QuantizerConfig(dim=512, codebook_size=256, num_codebooks=8)
+    d256 = qtt.core.QuantizerConfig(dim=256, codebook_size=256, num_codebooks=4)
+    on_card = types.SimpleNamespace(is_cuda=True)
+    ok = {"ok": True}
+    names = ("seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512", "seqbeam_hl_d256")
+    quality = {"train_ratio_vs_torch": 1.000109,
+               "results": {n: {"max_delta_pct": 0.9} for n in names}}
+    _gate(monkeypatch, {n: ok for n in names}, quality)
+    name, passes, kw = tcodec.auto_choice(d512, on_card, 5)
+    assert (name, passes, kw["e_dtype"], kw["M"]) == ("seqbeam_int8e_d512", 3, "int8", 8)
+    assert tcodec.auto_choice(d256, on_card, 5)[:2] == ("seqbeam_hl_d256", 2)
+    # off the card, or with fewer than 3 iterations: the exact beam
+    assert tcodec.auto_choice(d512, types.SimpleNamespace(is_cuda=False), 5) is None
+    assert tcodec.auto_choice(d512, on_card, 2) is None
+    # a margin past 1% demotes; "!" needs a quality entry; no smoke entry, no kernel
+    quality["results"]["seqbeam_int8e_d512"]["max_delta_pct"] = 0.995
+    assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_hl_d512"
+    del quality["results"]["seqbeam_int8e_d512"]
+    del quality["results"]["seqbeam_hl_d512"]
+    assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_hl_d512"  # unmeasured: allowed
+    _gate(monkeypatch, {"seqbeam_m16_d512": {"ok": False}}, quality)
+    assert tcodec.auto_choice(d512, on_card, 5) is None
+
+
+def test_committed_gate_tables_hold_card_runs():
+    # the port's tables are written on a card by ops/quality_guard.py
+    import json
+
+    for path in (tverify.VERIFIED, tverify.QUALITY):
+        table = json.loads(path.read_text())
+        assert table["device"]["platform"] == "gpu" and "H100" in table["device"]["kind"]
+        assert "W" in table["device"]["nvidia_smi"]
+    quality = json.loads(tverify.QUALITY.read_text())["results"]
+    for name in ("seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512", "seqbeam_hl_d256"):
+        assert set(quality[name]["delta_pct_by_key"]) == {"7", "8", "9"}
