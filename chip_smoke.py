@@ -8,15 +8,19 @@ Phases, each of which raises (and exits nonzero) when its check fails:
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
 3. seqbeam v2 encode (K2) at the auto configs (d512 int8 E, d512 bf16 E,
-   d256 bf16 E): on 8,192 in-distribution frames at least 99.5% of indexes
-   equal to the plain version and summed squared error within 0.1%;
-   kernel and plain times at B=32,768;
+   d256 bf16 E), each on 32,768 in-distribution frames: at least 99.5% of
+   indexes equal to the plain version and summed squared error within 0.1%
+   (``ops.quality_guard.against_plain``); kernel and plain times on the
+   same inputs;
 4. the main path, for the two committed trained quantizers:
    ``load_quantizer`` -> ``Quantizer.encode(x)`` (``search_method="auto"``)
    -> ``decode(codes, use_kernel=True)`` on 32,768 frames, with the launch
-   counts set to 0 just before and read just after; the squared error on
-   8,192 of those frames must be within 1.012 x the port's beam-5 on the
-   same frames; encode and decode vectors/s.
+   counts set to 0 just before and read just after.  The path's own outputs
+   are held against the plain versions on its own inputs: its indexes
+   against the plain seqbeam (the bars of phase 3) and its reconstruction
+   against the plain decode of those indexes (bit-exact).  The squared
+   error on 8,192 of the frames must be within 1.012 x the port's beam-5 on
+   the same frames; encode and decode vectors/s.
 
 The output ends with the card's ``nvidia-smi`` name and power limit, one
 JSON line with the kernels' numbers, and the device line.  Without a CUDA
@@ -47,10 +51,9 @@ ENC_CONFIGS = (  # (guard name, dim): every config on the auto ladder
 DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
-MIN_AGREEMENT = 0.995
-MAX_SSE_REL = 1e-3
 BAR = 1.012
 SEM_KEYS = ("M", "R", "pool_mask", "e_dtype")  # the knobs that change results
+CHECK_KEYS = ("frames", "index_agreement", "sse_rel_diff", "max_abs_err")
 
 
 def check(ok: bool, what: str) -> None:
@@ -99,6 +102,7 @@ def main() -> int:
     from quantization_tpu_torch.ops import cuda_build
     from quantization_tpu_torch.ops import decode as K1
     from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda")
@@ -158,38 +162,29 @@ def main() -> int:
         qq = quantizers[dim]
         passes, kw = ladder[name]
         sem = {k: kw.get(k) for k in SEM_KEYS}
-        centers = qq.get_centers().detach()
-        x = frames(dim, 7, CHECK_B)
-        problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
-        a = K2.seqbeam_cuda(problem)
-        torch.cuda.synchronize()
-        b = K2.seqbeam_plain(problem)
-        err_a = ((codec.decode_indexes(centers, a) - x) ** 2).sum(-1)
-        err_b = ((codec.decode_indexes(centers, b) - x) ** 2).sum(-1)
-        agree = float((a == b).float().mean())
-        sse_rel = float(err_a.sum() / err_b.sum() - 1.0)
-        check(agree >= MIN_AGREEMENT, f"{name}: index agreement {agree} < {MIN_AGREEMENT}")
-        check(abs(sse_rel) <= MAX_SSE_REL, f"{name}: squared error differs by {sse_rel}")
-        xt = frames(dim, 8, TIME_B)
-        pt = K2.seqbeam_problem(qq.params, qq.config, xt, passes=passes, **sem)
+        pt = K2.seqbeam_problem(qq.params, qq.config, frames(dim, 8, TIME_B), passes=passes,
+                                **sem)
+        chk = against_plain(pt, qq.get_centers().detach())
+        check(chk["ok"], f"{name}: kernel vs plain at B={TIME_B}: {chk}")
         entry = {
             "config": name, "shape": f"B={TIME_B} D={dim} nc={qq.num_codebooks} passes={passes}",
-            **sem, "index_agreement": agree, "sse_rel_diff": sse_rel,
-            "max_abs_err": float((err_a - err_b).abs().max()),
+            **sem, **{k: chk[k] for k in CHECK_KEYS},
             "ms": cuda_ms(lambda: K2.seqbeam_cuda(pt), 5),
             "plain_ms": cuda_ms(lambda: K2.seqbeam_plain(pt), 2),
         }
         entry.update(_seqbeam_bound(TIME_B, dim, qq.num_codebooks, passes, sem["M"],
                                     sem["e_dtype"]))
         k2_configs.append(entry)
-        print(f"[seqbeam {name}] agreement {agree:.6f}, sse rel diff {sse_rel:+.2e}; "
-              f"kernel {entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, "
-              f"bound {entry['bound_ms']:.4f} ms ({TIME_B / entry['ms'] * 1e3:,.0f} vec/s)",
-              flush=True)
+        print(f"[seqbeam {name}] B={TIME_B}: agreement {chk['index_agreement']:.6f}, "
+              f"sse rel diff {chk['sse_rel_diff']:+.2e}; kernel {entry['ms']:.3f} ms, "
+              f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({TIME_B / entry['ms'] * 1e3:,.0f} vec/s)", flush=True)
 
     # ---- 4. the main path, per trained quantizer
     paths = []
     launches = {"decode": 0, "seqbeam_v2": 0}
+    k1_checks = [{"where": "phase 2", "shape": k1["shape"], "max_abs_err": k1["max_abs_err"]}]
+    k2_checks = []
     for dim, qq in quantizers.items():
         x = frames(dim, 9, TIME_B)
         K1.DECODE_KERNEL.launches = 0
@@ -206,7 +201,27 @@ def main() -> int:
               f"d{dim}: codes {codes.dtype} {tuple(codes.shape)}")
         check(recon.shape == x.shape and bool(torch.isfinite(recon).all()),
               f"d{dim}: reconstruction {tuple(recon.shape)} not finite")
+        # the main path's own outputs against the plain versions on its inputs
         chosen = codec.auto_choice(qq.config, x, 5)
+        passes, kw = ladder[chosen[0]]
+        sem = {k: kw.get(k) for k in SEM_KEYS}
+        problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
+        indexes = codec.unpack_indexes(codes, qq.codebook_size, qq.num_codebooks)
+        shape = f"B={TIME_B} D={dim} nc={qq.num_codebooks} passes={passes}"
+        chk = against_plain(problem, qq.get_centers().detach(), got=indexes)
+        check(chk["ok"], f"d{dim}: encode(auto) indexes vs the plain seqbeam: {chk}")
+        k2_checks.append({"where": f"main path d{dim}", "config": chosen[0], "shape": shape,
+                          **{k: chk[k] for k in CHECK_KEYS}})
+        cb = scaled_centers(qq.params, qq.config.scale_speed).detach().to(torch.bfloat16)
+        want = K1.decode_plain(indexes, cb)
+        dec_err = float((recon - want).abs().max())
+        check(bool(torch.equal(recon, want)),
+              f"d{dim}: decode(use_kernel=True) is not bit-exact against the plain decode")
+        k1_checks.append({"where": f"main path d{dim}", "max_abs_err": dec_err,
+                          "shape": f"B={TIME_B} nc={qq.num_codebooks} cs={qq.codebook_size} D={dim}"})
+        print(f"[main d{dim}] vs plain on the path's own inputs ({shape}): seqbeam agreement "
+              f"{chk['index_agreement']:.6f}, sse rel diff {chk['sse_rel_diff']:+.2e}; "
+              f"decode bit-exact", flush=True)
         xs, cs_ = x[:CHECK_B], codes[:CHECK_B]
         beam5 = qq.encode(xs, search_method="beam")
         sse_beam = float(((qq.decode(beam5) - xs) ** 2).sum())
@@ -219,15 +234,13 @@ def main() -> int:
         dec_s = host_s(lambda: qq.decode(codes, use_kernel=True), 5)
         # where the encode time goes: the logits-argmax init and the tables,
         # then the kernel (the rest is packing and Python)
-        passes, kw = ladder[chosen[0]]
-        sem = {k: kw.get(k) for k in SEM_KEYS}
         prep_ms = cuda_ms(lambda: K2.seqbeam_problem(qq.params, qq.config, x, passes=passes,
                                                      **sem), 3)
-        problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
         kernel_ms = cuda_ms(lambda: K2.seqbeam_cuda(problem), 3)
         path = {
             "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": chosen[0],
             "batch": TIME_B, "launches": {"seqbeam_v2": n_enc, "decode": n_dec},
+            "seqbeam_vs_plain": k2_checks[-1], "decode_bit_exact": True,
             "quality_delta_pct": (ratio - 1.0) * 100.0,
             "quality_delta_pct_bf16_decode": (sse_auto_k1 / sse_beam - 1.0) * 100.0,
             "encode_vec_per_s": TIME_B / enc_s, "decode_vec_per_s": TIME_B / dec_s,
@@ -242,15 +255,19 @@ def main() -> int:
               f"encode {path['encode_ms']:.3f} ms = init+tables {prep_ms:.3f} + kernel "
               f"{kernel_ms:.3f} + rest; launches {path['launches']}", flush=True)
 
+    # times are those of the d512 main path's config; max_abs_err is the
+    # largest over the main path's own checks, each listed with its shape
     head = next(c for c in k2_configs if c["config"] == paths[0]["config"])
     k2 = {
         "name": "seqbeam_v2", "route": "cuda", "source": "quantization_tpu_torch/csrc/seqbeam.cu",
         "replaces": "quantization_tpu/ops/seqbeam.py:454",
-        **{k: head[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by")},
-        "library_ms": None, "launches": launches["seqbeam_v2"], "configs": k2_configs,
+        **{k: head[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(c["max_abs_err"] for c in k2_checks),
+        "library_ms": None, "launches": launches["seqbeam_v2"], "checks": k2_checks,
+        "configs": k2_configs,
     }
-    k1["launches"] = launches["decode"]
+    k1.update(launches=launches["decode"], checks=k1_checks,
+              max_abs_err=max(c["max_abs_err"] for c in k1_checks))
     print(json.dumps({"paths": paths}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [k1, k2]}), flush=True)

@@ -23,6 +23,7 @@ import argparse
 import json
 import pathlib
 import time
+from typing import Optional
 
 import torch
 
@@ -32,7 +33,8 @@ from ..data.synthetic import make_mlp_sampler
 from ..utils.device import device_record
 from ..utils.serialization import load_quantizer
 from . import cuda_build, verify
-from .seqbeam import SEQBEAM_KERNEL, seqbeam_cuda, seqbeam_plain, seqbeam_problem
+from .seqbeam import (SEQBEAM_KERNEL, SeqbeamProblem, seqbeam_cuda, seqbeam_plain,
+                      seqbeam_problem)
 
 KEYS = (7, 8, 9)
 FRAMES = 8192
@@ -58,6 +60,32 @@ def sse(centers: torch.Tensor, indexes: torch.Tensor, x: torch.Tensor) -> float:
 
 
 @torch.no_grad()
+def against_plain(problem: SeqbeamProblem, centers: torch.Tensor,
+                  got: Optional[torch.Tensor] = None) -> dict:
+    """Hold the kernel's (B, nc) indexes on ``problem`` (``got``, else a new
+    launch) against its plain version on the same inputs, with the f32
+    ``centers`` (nc, cs, D) scoring both.  Returns the share of equal
+    indexes, the summed squared errors and their relative difference, the
+    largest per-frame difference of squared error (``max_abs_err``), and
+    ``ok``: agreement >= MIN_AGREEMENT and |relative difference| <=
+    MAX_SSE_REL."""
+    if got is None:
+        got = seqbeam_cuda(problem)
+    plain = seqbeam_plain(problem)
+    x = problem.x
+    err = ((decode_indexes(centers, got) - x) ** 2).sum(-1)
+    err_plain = ((decode_indexes(centers, plain) - x) ** 2).sum(-1)
+    agree = float((got == plain).float().mean())
+    e, e_plain = float(err.sum()), float(err_plain.sum())
+    rel = e / e_plain - 1.0
+    return {
+        "frames": x.shape[0], "index_agreement": agree, "sse": e, "sse_plain": e_plain,
+        "sse_rel_diff": rel, "max_abs_err": float((err - err_plain).abs().max()),
+        "ok": agree >= MIN_AGREEMENT and abs(rel) <= MAX_SSE_REL,
+    }
+
+
+@torch.no_grad()
 def guard_dim(dim: int, device) -> tuple:
     """(smoke entries, quality entries) of the ladder at ``dim``."""
     q = load_quantizer(EXPERIMENTS / TRAINED[dim], device=device)
@@ -80,15 +108,12 @@ def guard_dim(dim: int, device) -> tuple:
             e = sse(centers, idx, x)
             deltas[str(k)] = round(100.0 * (e / denom[k] / beam5[k] - 1.0), 4)
             if k == KEYS[0]:
-                plain = seqbeam_plain(problem)
-                agree = float((idx == plain).float().mean())
-                e_plain, e_init = sse(centers, plain, x), sse(centers, problem.idx0, x)
-                ok = (agree >= MIN_AGREEMENT and abs(e / e_plain - 1.0) <= MAX_SSE_REL
-                      and e < e_init)
+                chk = against_plain(problem, centers, idx)
+                e_init = sse(centers, problem.idx0, x)
                 smoke[name] = {
-                    "ok": ok,
-                    "detail": (f"err {e_init:.1f} -> {e:.1f} (plain {e_plain:.1f}), "
-                               f"index agreement with plain {agree:.5f}"),
+                    "ok": chk["ok"] and e < e_init,
+                    "detail": (f"err {e_init:.1f} -> {e:.1f} (plain {chk['sse_plain']:.1f}), "
+                               f"index agreement with plain {chk['index_agreement']:.5f}"),
                 }
         smoke[name]["launches"] = SEQBEAM_KERNEL.launches - launches
         smoke[name]["elapsed_s"] = round(time.perf_counter() - t0, 2)

@@ -276,13 +276,9 @@ def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
         raise ValueError("seqbeam_cuda needs CUDA tensors")
     if x.dtype != torch.float32 or x.shape != (B, D):
         raise ValueError(f"expected (B, {D}) float32 frames, got {x.dtype} {tuple(x.shape)}")
-    if idx0.shape != (B, nc):
-        raise ValueError(f"expected ({B}, {nc}) initial indexes, got {tuple(idx0.shape)}")
-    if len(masks) != passes or passes > MAX_PASSES:
-        raise ValueError(f"need one pool mask per pass (<= {MAX_PASSES}), got {len(masks)}")
-    if not (cs == 256 and D % 128 == 0 and D <= 1024 and nc in (2, 4, 8, 16)
-            and M in (8, 16, 32, 64) and M * R <= 512):
-        raise ValueError(f"kernel does not take nc={nc} cs={cs} D={D} M={M} R={R}")
+    if idx0.shape != (B, nc) or len(masks) != passes:
+        raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
+                         f"got {tuple(idx0.shape)} and {len(masks)}")
     int8 = e_dtype == "int8"
     if tables.centers_bf16.dtype != torch.bfloat16 or tables.gmod_bf16.dtype != torch.bfloat16 or (
             int8 and tables.centers_i8.dtype != torch.int8):
@@ -365,14 +361,6 @@ def seqbeam_encode_indexes(
             f"seqbeam requant={requant!r} is not ported yet (ROADMAP B3)")
     if lazy_r1:
         raise NotImplementedError("seqbeam lazy_r1 is not ported yet (ROADMAP B3)")
-    if not SEQBEAM_SUPPORTED(config):
-        raise ValueError(f"seqbeam does not support {config}")
-    if e_dtype not in E_DTYPES:
-        raise ValueError(f"unknown e_dtype {e_dtype!r}")
-    if M not in (8, 16, 32, 64) or R < 1 or M * R > 512:
-        raise ValueError(f"seqbeam needs M in (8, 16, 32, 64) and M*R <= 512, got M={M}, R={R}")
-    if not 1 <= passes <= MAX_PASSES:
-        raise ValueError(f"passes must be in [1, {MAX_PASSES}], got {passes}")
     problem = seqbeam_problem(
         params, config, x, M, R, passes, pool_mask, e_dtype, init_indexes, init_precision)
     if x.device.type == "cuda":
@@ -397,7 +385,16 @@ def seqbeam_problem(
 ) -> SeqbeamProblem:
     """The kernel's inputs for (B, dim) frames ``x``, on ``x``'s device:
     the initial indexes (the logits argmax unless ``init_indexes`` is
-    given), the codebook tables and the per-pass pool schedule."""
+    given), the codebook tables and the per-pass pool schedule.  Raises
+    ValueError for a config or beam shape the kernel does not take."""
+    if not SEQBEAM_SUPPORTED(config):
+        raise ValueError(f"seqbeam does not support {config}")
+    if e_dtype not in E_DTYPES:
+        raise ValueError(f"unknown e_dtype {e_dtype!r}")
+    if M not in (8, 16, 32, 64) or R < 1 or M * R > 512:
+        raise ValueError(f"seqbeam needs M in (8, 16, 32, 64) and M*R <= 512, got M={M}, R={R}")
+    if not 1 <= passes <= MAX_PASSES:
+        raise ValueError(f"passes must be in [1, {MAX_PASSES}], got {passes}")
     x = x.float().contiguous()
     if init_indexes is None:
         idx0 = init_indexes_from_logits(params, config, x, init_precision)

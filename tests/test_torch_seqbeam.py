@@ -18,6 +18,7 @@ from quantization_tpu import core as jcore
 from quantization_tpu.ops import seqbeam as jseq
 from quantization_tpu_torch import core as tcore
 from quantization_tpu_torch.ops import seqbeam as tseq
+from quantization_tpu_torch.ops.quality_guard import MAX_SSE_REL, MIN_AGREEMENT, against_plain
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
 
 DIM, CS, B = 128, 256, 128
@@ -119,6 +120,25 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tseq.seqbeam_encode_indexes(
             p, tcore.QuantizerConfig(dim=DIM, codebook_size=16, num_codebooks=4), xt)
+
+
+def test_against_plain_holds_indexes_to_the_bars():
+    # the check chip_smoke.py and the quality guard apply to the kernel's
+    # indexes, here given the plain version's own and a damaged copy
+    arrays, x, init = _problem(4, 2)
+    tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=4)
+    problem = tseq.seqbeam_problem(
+        params_from_numpy(arrays), tc, torch.from_numpy(x), M=8, R=4, passes=2,
+        pool_mask="altparity", e_dtype="int8", init_indexes=torch.from_numpy(init))
+    centers = torch.from_numpy(arrays["centers"])
+    plain = tseq.seqbeam_plain(problem)
+    same = against_plain(problem, centers, plain)
+    assert same["ok"] and same["frames"] == B
+    assert same["index_agreement"] == 1.0 and same["sse_rel_diff"] == 0.0
+    assert same["max_abs_err"] == 0.0
+    bad = against_plain(problem, centers, problem.idx0)  # the unsearched init
+    assert not bad["ok"] and bad["index_agreement"] < MIN_AGREEMENT
+    assert bad["sse_rel_diff"] > MAX_SSE_REL and bad["max_abs_err"] > 0.0
 
 
 def test_scheduling_knobs_do_not_change_results():
