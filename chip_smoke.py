@@ -3,7 +3,7 @@
 
 Phases, each of which raises (and exits nonzero) when its check fails:
 
-1. build the two CUDA kernels from ``quantization_tpu_torch/csrc``, one
+1. build the three CUDA kernels from ``quantization_tpu_torch/csrc``, one
    ``nvcc`` per source, started together;
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
@@ -20,11 +20,32 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    against the plain seqbeam (the bars of phase 3) and its reconstruction
    against the plain decode of those indexes (bit-exact).  The squared
    error on 8,192 of the frames must be within 1.012 x the port's beam-5 on
-   the same frames; encode and decode vectors/s.
+   the same frames; encode and decode vectors/s;
+5. the Gram-table encode (K3) on the serving path: ``Quantizer.encode(x,
+   search_method="gramv3")`` (5 passes, M=8, R=4) on the same 32,768 frames
+   of both trained quantizers, with bf16 and int8 tables, and at d512 also
+   with the ``altparity`` schedule; each launches K3 (counted around the
+   call), its indexes are held against the plain gramv3 on the same problem
+   (every index equal, or the bars of phase 3), and its squared error
+   against 1.012 x beam-5; kernel, plain, bound and the encode time split
+   into precompute (XC, table, init) + kernel + rest;
+6. training at full width: ``QuantizerTrainer(dim=512, bytes_per_frame=8,
+   phase_one_iters=4, phase_two_iters=6)`` on batches of 600 frames, driven
+   with ``step_many`` across the phase switch, for ``train_search`` "auto"
+   (the exact beam), "gramv3", "gramv3-int8" and "seqbeam" (with
+   ``beam_finetune_iters=0``, so that phase 2 runs the kernel).  Checks: K3
+   (K2 for "seqbeam") launches in phase 2, the config switches from 16 x 16
+   to 8 x 256, every loss term is finite, the kernel's indexes on a phase-2
+   batch equal its plain version's (K2: the bars of phase 3), and a
+   checkpoint saved mid-phase-2 and loaded gives, after two more steps on
+   both trainers, equal parameters.  Phase-1 and phase-2 steps/s: the
+   median over whole fresh runs, the searches interleaved, of each phase's
+   ``step_many`` time.
 
-The output ends with the card's ``nvidia-smi`` name and power limit, one
-JSON line with the kernels' numbers, and the device line.  Without a CUDA
-card it exits nonzero before printing any result.
+The output ends with the ``paths`` JSON line, the card's ``nvidia-smi``
+name and power limit, one JSON line with the kernels' numbers, and the
+device line.  Without a CUDA card it exits nonzero before printing any
+result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -33,13 +54,18 @@ from __future__ import annotations
 
 import json
 import pathlib
+import statistics
 import sys
+import tempfile
 import time
 
 import torch
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# dense tensor-core rates for bf16 and int8; "f32" is the rate of a plain
+# FP32 add outside the tensor cores: the 67e12/s of the data sheet counts an
+# FMA as two operations, so one add a cycle is half of it
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 33.5e12}
 ROOT = pathlib.Path(__file__).resolve().parent
 TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz"}
 ENC_CONFIGS = (  # (guard name, dim): every config on the auto ladder
@@ -53,6 +79,14 @@ CHECK_B = 8192
 TIME_B = 32768
 BAR = 1.012
 SEM_KEYS = ("M", "R", "pool_mask", "e_dtype")  # the knobs that change results
+GRAM_CONFIGS = ((512, "bf16", None), (512, "int8", None), (512, "bf16", "altparity"),
+                (256, "bf16", None), (256, "int8", None))  # (dim, g_dtype, pool_mask)
+GRAM_PASSES = 5  # encode's default refine_indexes_iters
+TRAIN_BATCH = 600  # the CLI's default batch (quantization_tpu/cli.py:243)
+TRAIN = dict(dim=512, bytes_per_frame=8, phase_one_iters=4, phase_two_iters=6, seed=0,
+             diagnostics=False)
+TRAIN_SEARCHES = ("auto", "gramv3", "gramv3-int8", "seqbeam")
+TRAIN_TIME_ROUNDS = 5  # whole runs of each search, interleaved, for step times
 CHECK_KEYS = ("frames", "index_agreement", "sse_rel_diff", "max_abs_err")
 
 
@@ -101,6 +135,7 @@ def main() -> int:
     from quantization_tpu_torch.data.synthetic import make_mlp_sampler
     from quantization_tpu_torch.ops import cuda_build
     from quantization_tpu_torch.ops import decode as K1
+    from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.device import nvidia_smi_line
@@ -111,9 +146,9 @@ def main() -> int:
           f" | {smi}", flush=True)
 
     # ---- 1. build
-    build_s = cuda_build.build(["decode", "seqbeam"])
+    build_s = cuda_build.build(["decode", "seqbeam", "gramv3"])
     print(f"[build] {build_s:.1f} s", flush=True)
-    for name in ("decode", "seqbeam"):
+    for name in ("decode", "seqbeam", "gramv3"):
         regs = [l.strip() for l in cuda_build.build_log(name).splitlines() if "registers" in l]
         print(f"[build] {name}: {len(regs)} kernels; {regs[0] if regs else ''}", flush=True)
 
@@ -182,6 +217,7 @@ def main() -> int:
 
     # ---- 4. the main path, per trained quantizer
     paths = []
+    main_frames = {}  # dim -> (frames, beam-5 squared error on the first CHECK_B)
     launches = {"decode": 0, "seqbeam_v2": 0}
     k1_checks = [{"where": "phase 2", "shape": k1["shape"], "max_abs_err": k1["max_abs_err"]}]
     k2_checks = []
@@ -225,6 +261,7 @@ def main() -> int:
         xs, cs_ = x[:CHECK_B], codes[:CHECK_B]
         beam5 = qq.encode(xs, search_method="beam")
         sse_beam = float(((qq.decode(beam5) - xs) ** 2).sum())
+        main_frames[dim] = (x, sse_beam)
         sse_auto = float(((qq.decode(cs_) - xs) ** 2).sum())
         sse_auto_k1 = float(((recon[:CHECK_B] - xs) ** 2).sum())
         ratio = sse_auto / sse_beam
@@ -255,6 +292,14 @@ def main() -> int:
               f"encode {path['encode_ms']:.3f} ms = init+tables {prep_ms:.3f} + kernel "
               f"{kernel_ms:.3f} + rest; launches {path['launches']}", flush=True)
 
+    # ---- 5. K3 on the serving path; 6. training at full width
+    gram_paths, k3_configs, k3_checks, n_k3 = gram_phase(quantizers, main_frames)
+    train_paths, train_checks = train_phase(samplers[512], dev)
+    for c in train_checks:
+        (k3_checks if c["kernel"] == "gramv3" else k2_checks).append(c)
+        launches[c["kernel"]] = launches.get(c["kernel"], 0) + c["launches"]
+    launches["gramv3"] = launches.get("gramv3", 0) + n_k3
+
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
     head = next(c for c in k2_configs if c["config"] == paths[0]["config"])
@@ -268,13 +313,221 @@ def main() -> int:
     }
     k1.update(launches=launches["decode"], checks=k1_checks,
               max_abs_err=max(c["max_abs_err"] for c in k1_checks))
-    print(json.dumps({"paths": paths}), flush=True)
+    # K3's times are those of d512 with bf16 tables on the serving path
+    k3 = {
+        "name": "gramv3", "route": "cuda", "source": "quantization_tpu_torch/csrc/gramv3.cu",
+        "replaces": "quantization_tpu/ops/gramv3.py:257,379",
+        **{k: k3_configs[0][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(c["max_abs_err"] for c in k3_checks),
+        "library_ms": None, "launches": launches["gramv3"], "checks": k3_checks,
+        "configs": k3_configs,
+    }
+    print(json.dumps({"paths": paths + gram_paths + train_paths}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+@torch.no_grad()
+def gram_phase(quantizers: dict, main_frames: dict):
+    """Phase 5: ``encode(search_method="gramv3")`` on the main path's frames
+    of both trained quantizers, for each of GRAM_CONFIGS.  Returns the path
+    entries, K3's per-config entries, its checks and its launches."""
+    from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops.quality_guard import against_plain
+
+    paths, configs, checks, launches = [], [], [], 0
+    for dim, g_dtype, pool_mask in GRAM_CONFIGS:
+        qq = quantizers[dim]
+        nc = qq.num_codebooks
+        x, sse_beam = main_frames[dim]
+        kw = dict(g_dtype=g_dtype, pool_mask=pool_mask)
+        name = f"gramv3_{g_dtype}{'_' + pool_mask if pool_mask else ''}_d{dim}"
+        K3.GRAMV3_KERNEL.launches = 0
+        codes = qq.encode(x, search_method="gramv3", **kw)
+        torch.cuda.synchronize()
+        n = K3.GRAMV3_KERNEL.launches
+        check(n > 0, f"{name}: encode(search_method='gramv3') did not launch the gramv3 kernel")
+        launches += n
+        check(codes.dtype == torch.uint8 and codes.shape == (TIME_B, qq.config.bytes_per_frame),
+              f"{name}: codes {codes.dtype} {tuple(codes.shape)}")
+        problem = K3.gramv3_problem(qq.params, qq.config, x, passes=GRAM_PASSES, **kw)
+        indexes = codec.unpack_indexes(codes, qq.codebook_size, nc)
+        chk = against_plain(problem, qq.get_centers().detach(), got=indexes)
+        check(chk["ok"], f"{name}: encode indexes vs the plain gramv3: {chk}")
+        shape = f"B={TIME_B} D={dim} nc={nc} passes={GRAM_PASSES} M=8 R=4"
+        checks.append({"where": f"serving path {name}", "shape": shape,
+                       **{k: chk[k] for k in CHECK_KEYS}})
+        xs = x[:CHECK_B]
+        ratio = float(((qq.decode(codes[:CHECK_B]) - xs) ** 2).sum()) / sse_beam
+        check(ratio <= BAR, f"{name}: gramv3/beam-5 squared error {ratio} > {BAR}")
+        enc_s = host_s(lambda: qq.encode(x, search_method="gramv3", **kw), 3)
+        prep_ms = cuda_ms(lambda: K3.gramv3_problem(qq.params, qq.config, x,
+                                                    passes=GRAM_PASSES, **kw), 3)
+        entry = {"config": name, "shape": shape, "g_dtype": g_dtype, "pool_mask": pool_mask,
+                 **{k: chk[k] for k in CHECK_KEYS},
+                 "ms": cuda_ms(lambda: K3.gramv3_cuda(problem), 5),
+                 "plain_ms": cuda_ms(lambda: K3.gramv3_plain(problem), 2)}
+        entry.update(_gramv3_bound(TIME_B, nc, GRAM_PASSES, 8, g_dtype))
+        configs.append(entry)
+        paths.append({
+            "path": "encode(search_method='gramv3')", "dim": dim,
+            "bytes_per_frame": qq.config.bytes_per_frame, "config": name, "batch": TIME_B,
+            "launches": {"gramv3": n}, "quality_delta_pct": (ratio - 1.0) * 100.0,
+            "encode_vec_per_s": TIME_B / enc_s, "encode_ms": enc_s * 1e3,
+            "encode_precompute_ms": prep_ms, "encode_kernel_ms": entry["ms"],
+            "encode_rest_ms": enc_s * 1e3 - prep_ms - entry["ms"]})
+        print(f"[gramv3 {name}] {shape}: agreement with plain {chk['index_agreement']:.6f}; "
+              f"quality {(ratio - 1.0) * 100.0:+.3f}% vs beam-5; kernel {entry['ms']:.3f} ms, "
+              f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}); encode {enc_s * 1e3:.3f} ms = precompute {prep_ms:.3f} + "
+              f"kernel {entry['ms']:.3f} + rest; launches {n}", flush=True)
+    return paths, configs, checks, launches
+
+
+def train_phase(sampler, dev):
+    """Phase 6: TRAIN at full width on TRAIN_BATCH-frame batches for each of
+    TRAIN_SEARCHES.  Returns the path entries and, per kernel search, a
+    check entry with the kernel's phase-2 launches and its times at the
+    training shape."""
+    from quantization_tpu_torch import QuantizerTrainer
+    from quantization_tpu_torch.core.types import scaled_centers
+    from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
+
+    p1, p2 = TRAIN["phase_one_iters"], TRAIN["phase_two_iters"]
+    dim, nc_bytes = TRAIN["dim"], TRAIN["bytes_per_frame"]
+    n = p1 + p2 + 1  # the steps of a whole run
+    xs = sampler(torch.Generator().manual_seed(11), n * TRAIN_BATCH).reshape(n, TRAIN_BATCH, dim)
+    paths, checks = [], []
+    # untimed warm-up: the first steps on a card pay one-time set-up (library
+    # handles, allocator growth), which would otherwise land on "auto"
+    QuantizerTrainer(device=dev, **TRAIN).step_many(xs[:p1 + 2])
+    kernels = {"gramv3": "gramv3", "gramv3-int8": "gramv3", "seqbeam": "seqbeam_v2"}
+
+    def new_trainer(search):
+        kw = dict(TRAIN, train_search=search)
+        if search in kernels:
+            kw["beam_finetune_iters"] = 0  # else every step of this short phase 2 is beam
+        return QuantizerTrainer(device=dev, **kw)
+
+    for search in TRAIN_SEARCHES:
+        kernel = kernels.get(search)
+        counter = {"gramv3": K3.GRAMV3_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL}.get(kernel)
+        t = new_trainer(search)
+        check((t.config.num_codebooks, t.config.codebook_size) == (2 * nc_bytes, 16),
+              f"train {search}: phase-1 config {t.config}")
+        if counter:
+            counter.launches = 0
+        # one call across the phase switch: p1 + 1 phase-1 steps, 3 of phase 2
+        losses = t.step_many(xs[:p1 + 4])
+        torch.cuda.synchronize()
+        n_k = counter.launches if counter else 0
+        check(not kernel or n_k == 3,
+              f"train {search}: {n_k} {kernel} launches, not one in each of 3 phase-2 steps")
+        check((t.config.num_codebooks, t.config.codebook_size) == (nc_bytes, 256),
+              f"train {search}: phase-2 config {t.config}")
+        # mid-phase-2 checkpoint, then two more steps on both trainers
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            path = pathlib.Path(d) / "ckpt.npz"
+            t.save_checkpoint(path)
+            t2 = QuantizerTrainer.load_checkpoint(path, device=dev, diagnostics=False)
+        check(t2.cur_iter == t.cur_iter == p1 + 4, f"train {search}: resumed at {t2.cur_iter}")
+        for x in xs[p1 + 4:p1 + 6]:
+            losses.append(t.step(x))
+            t2.step(x)
+        diffs = {f: float((getattr(t.params, f) - getattr(t2.params, f)).detach().abs().max())
+                 for f in PARAM_FIELDS}
+        check(all(torch.equal(getattr(t.params, f), getattr(t2.params, f)) for f in PARAM_FIELDS),
+              f"train {search}: resumed parameters differ: {diffs}")
+        check(all(bool(torch.isfinite(v).all()) for step in losses for v in step),
+              f"train {search}: a loss term is not finite")
+        entry = {"path": "QuantizerTrainer.step_many", "train_search": search,
+                 "batch": TRAIN_BATCH, **TRAIN, "launches": {kernel: n_k} if kernel else {},
+                 "final_losses": {k: float(v) for k, v in losses[-1]._asdict().items()},
+                 "resume_equal": True}
+        if kernel:
+            # the kernel against its plain version on a phase-2 batch, at the
+            # trainer's own search shape
+            xb, params, cfg = xs[p1 + 5], t.params.detach(), t.config
+            centers = scaled_centers(params, cfg.scale_speed)
+            if kernel == "gramv3":
+                g_dtype = "int8" if search == "gramv3-int8" else "bf16"
+                problem = K3.gramv3_problem(params, cfg, xb, passes=1, g_dtype=g_dtype)
+                run, plain = K3.gramv3_cuda, K3.gramv3_plain
+                shape = f"B={TRAIN_BATCH} D={dim} nc={cfg.num_codebooks} passes=1 M=8 R=4"
+                bound = _gramv3_bound(TRAIN_BATCH, cfg.num_codebooks, 1, 8, g_dtype)
+            else:
+                problem = K2.seqbeam_problem(params, cfg, xb, M=16, R=8, passes=1)
+                run, plain = K2.seqbeam_cuda, K2.seqbeam_plain
+                shape = f"B={TRAIN_BATCH} D={dim} nc={cfg.num_codebooks} passes=1 M=16 R=8 f32 E"
+                bound = _seqbeam_bound(TRAIN_BATCH, dim, cfg.num_codebooks, 1, 16, "f32")
+            chk = against_plain(problem, centers)
+            check(chk["ok"] and (kernel != "gramv3" or chk["index_agreement"] == 1.0),
+                  f"train {search}: kernel vs plain on a phase-2 batch: {chk}")
+            checks.append({"where": f"training {search}", "kernel": kernel, "shape": shape,
+                           "launches": n_k, **{k: chk[k] for k in CHECK_KEYS},
+                           "ms": cuda_ms(lambda: run(problem), 20),
+                           "plain_ms": cuda_ms(lambda: plain(problem), 3), **bound})
+            entry["kernel_vs_plain"] = checks[-1]
+        paths.append(entry)
+        print(f"[train {search}] d{dim}/{nc_bytes}B batch {TRAIN_BATCH}: launches "
+              f"{entry['launches']}; resume equal; final losses {entry['final_losses']}"
+              + (f"; kernel {checks[-1]['ms']:.3f} ms vs plain {checks[-1]['plain_ms']:.3f} ms, "
+                 f"agreement {checks[-1]['index_agreement']:.6f}" if kernel else ""), flush=True)
+
+    # step times: whole runs of fresh trainers (their launches are not
+    # counted above), one step_many call a phase, the searches interleaved
+    # round by round so that the host's noise falls on all alike; per search
+    # and phase, the median over the runs, with their range
+    runs = {(s, ph): [] for s in TRAIN_SEARCHES for ph in (1, 2)}
+    for _ in range(TRAIN_TIME_ROUNDS):
+        for search in TRAIN_SEARCHES:
+            t3 = new_trainer(search)
+            runs[search, 1].append(step_ms(t3, xs[:p1 + 1]))
+            runs[search, 2].append(step_ms(t3, xs[p1 + 1:]))
+    for entry in paths:
+        for ph in (1, 2):
+            ms = runs[entry["train_search"], ph]
+            med = statistics.median(ms)
+            entry.update({f"phase{ph}_step_ms": med, f"phase{ph}_steps_per_s": 1e3 / med,
+                          f"phase{ph}_step_ms_range": [min(ms), max(ms)]})
+        print(f"[train {entry['train_search']}] steps/s over {TRAIN_TIME_ROUNDS} runs: phase 1 "
+              f"{entry['phase1_steps_per_s']:.2f} ({entry['phase1_step_ms']:.3f} ms, runs "
+              f"{entry['phase1_step_ms_range'][0]:.3f}-{entry['phase1_step_ms_range'][1]:.3f}), "
+              f"phase 2 {entry['phase2_steps_per_s']:.2f} ({entry['phase2_step_ms']:.3f} ms, runs "
+              f"{entry['phase2_step_ms_range'][0]:.3f}-{entry['phase2_step_ms_range'][1]:.3f})",
+              flush=True)
+    return paths, checks
+
+
+def step_ms(trainer, batches) -> float:
+    """Host milliseconds a step of one ``step_many`` call over ``batches``,
+    ending in a synchronize (the steps run ahead of the card as in training)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.step_many(batches)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def _gramv3_bound(B: int, nc: int, passes: int, M: int, g_dtype: str) -> dict:
+    """Per frame and pass, one root row and M rows for each later codebook,
+    each the sum of nc table rows of 256: B x passes x (1 + (nc-1) M) x nc x
+    256 adds, counted at the f32 add rate (the int8 tables' int32 sums are
+    exact in f32 too); the bytes are XC, the initial indexes, the root
+    scores, the table and the output."""
+    cs = 256
+    K = nc * cs
+    adds = B * passes * (1 + (nc - 1) * M) * nc * cs
+    nbytes = B * K * 4 + B * nc * 4 + B * 4 + K * K * (1 if g_dtype == "int8" else 2) + B * nc * 4
+    return _bound(nbytes, {"f32": adds})
 
 
 def _bound(nbytes: float, ops_by_type: dict) -> dict:

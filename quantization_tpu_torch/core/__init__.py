@@ -15,7 +15,10 @@ from .codec import (
     pack_indexes,
     unpack_indexes,
 )
+from .diagnostics import codebook_correlations
+from .growth import product_params
 from .init import init_quantizer_params, random_id
+from .losses import compute_loss
 from .search import (
     compute_indexes,
     compute_logits,
@@ -26,6 +29,7 @@ from .search import (
 )
 from .types import (
     QuantizerConfig,
+    QuantizerLosses,
     QuantizerParams,
     data_mean,
     resolve_device,
@@ -34,9 +38,12 @@ from .types import (
 
 __all__ = [
     "QuantizerConfig",
+    "QuantizerLosses",
     "QuantizerParams",
+    "codebook_correlations",
     "compute_indexes",
     "compute_logits",
+    "compute_loss",
     "data_mean",
     "decode",
     "decode_indexes",
@@ -45,6 +52,7 @@ __all__ = [
     "init_quantizer_params",
     "k_cutoff_schedule",
     "pack_indexes",
+    "product_params",
     "random_id",
     "refine_indexes",
     "refine_indexes_cd",

@@ -114,11 +114,22 @@ def encode(
       * "cdN+seqbeam" (e.g. "cd2+seqbeam"): N coordinate-descent sweeps as a
         warm start, then the kernel;
       * "cd": exact coordinate descent alone;
+      * "gramv3": the Gram-table kernel (ops/gramv3.py), any dim,
+        codebook_size 256, at most 8 codebooks; ``refine_indexes_iters``
+        counts beam sweeps and ``g_dtype="int8"`` selects the int8 table;
       * "auto": the fastest measured config within the quality bar on the
         GPU (see :func:`auto_choice`), else "beam".
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, config.dim).float()
+    if search_method == "gramv3":
+        from ..ops.gramv3 import gramv3_encode_indexes
+
+        indexes = gramv3_encode_indexes(
+            params, config, x2, passes=refine_indexes_iters, **search_kwargs)
+        if as_bytes:
+            indexes = pack_indexes(indexes, config.codebook_size)
+        return indexes.reshape(*lead, -1)
     if search_method == "auto":
         chosen = auto_choice(config, x2, refine_indexes_iters)
         if chosen is not None:

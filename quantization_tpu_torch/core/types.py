@@ -10,6 +10,7 @@ on.  :class:`~quantization_tpu_torch.models.quantizer.Quantizer` is the
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -74,6 +75,21 @@ class QuantizerParams:
     to_logits_b: torch.Tensor
     logits_scale: torch.Tensor
     centers_scale: torch.Tensor
+
+    def detach(self) -> "QuantizerParams":
+        """The same tensors, detached from any autograd graph."""
+        return QuantizerParams(**{f.name: getattr(self, f.name).detach()
+                                  for f in dataclasses.fields(self)})
+
+
+class QuantizerLosses(NamedTuple):
+    """The four loss terms of ``compute_loss``
+    (`quantization/quantization.py:193-209`)."""
+
+    rel_reconstruction_loss: torch.Tensor
+    logprob_loss: torch.Tensor
+    logits_entropy_loss: torch.Tensor
+    index_entropy_loss: torch.Tensor
 
 
 def scaled_centers(params: QuantizerParams, scale_speed: float) -> torch.Tensor:

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from .. import core
-from ..core.types import QuantizerConfig, QuantizerParams, resolve_device
+from ..core.types import QuantizerConfig, QuantizerLosses, QuantizerParams, resolve_device
 
 
 class Quantizer(nn.Module):
@@ -135,6 +135,8 @@ class Quantizer(nn.Module):
           counts beam sweeps.
         * "cdN+seqbeam": N coordinate-descent warm-start sweeps + kernel.
         * "cd": exact coordinate descent alone.
+        * "gramv3": the Gram-table kernel (ops/gramv3.py); ``g_dtype="int8"``
+          selects its int8 table.
 
         Extra ``search_kwargs`` (e.g. ``M=16``, ``R=4``) go to the kernel."""
         x = torch.as_tensor(x, device=self.device)
@@ -149,3 +151,27 @@ class Quantizer(nn.Module):
         fused bf16 decode (ops/decode.py)."""
         indexes = torch.as_tensor(indexes, device=self.device)
         return core.decode(self.params, self.config, indexes, use_kernel=use_kernel)
+
+    def compute_loss(self, x: torch.Tensor, refine_indexes_iters: int = 0) -> QuantizerLosses:
+        """The four loss terms on ``x`` with the exact beam search, with
+        gradients into the module's parameters."""
+        x = torch.as_tensor(x, device=self.device)
+        return core.compute_loss(self.params, self.config, x, refine_indexes_iters)
+
+    def compute_codebook_correlations(self) -> torch.Tensor:
+        return core.codebook_correlations(self.params, self.config)
+
+    def get_product_quantizer(self) -> "Quantizer":
+        """New Quantizer with codebook_size**2 / num_codebooks//2, each output
+        codebook formed from sums of pairs of input codebooks
+        (`quantization/quantization.py:81-112`), on the same device, with a
+        fresh identity like the reference's brand-new module."""
+        new_config = self.config.product_config()
+        return Quantizer(
+            new_config.dim,
+            new_config.codebook_size,
+            new_config.num_codebooks,
+            params=core.product_params(self.params, self.config),
+            scale_speed=new_config.scale_speed,
+            device=self.device,
+        )

@@ -23,7 +23,7 @@ import argparse
 import json
 import pathlib
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -33,6 +33,7 @@ from ..data.synthetic import make_mlp_sampler
 from ..utils.device import device_record
 from ..utils.serialization import load_quantizer
 from . import cuda_build, verify
+from .gramv3 import Gramv3Problem, gramv3_cuda, gramv3_plain
 from .seqbeam import (SEQBEAM_KERNEL, SeqbeamProblem, seqbeam_cuda, seqbeam_plain,
                       seqbeam_problem)
 
@@ -60,18 +61,21 @@ def sse(centers: torch.Tensor, indexes: torch.Tensor, x: torch.Tensor) -> float:
 
 
 @torch.no_grad()
-def against_plain(problem: SeqbeamProblem, centers: torch.Tensor,
+def against_plain(problem: Union[SeqbeamProblem, Gramv3Problem], centers: torch.Tensor,
                   got: Optional[torch.Tensor] = None) -> dict:
-    """Hold the kernel's (B, nc) indexes on ``problem`` (``got``, else a new
-    launch) against its plain version on the same inputs, with the f32
-    ``centers`` (nc, cs, D) scoring both.  Returns the share of equal
-    indexes, the summed squared errors and their relative difference, the
-    largest per-frame difference of squared error (``max_abs_err``), and
-    ``ok``: agreement >= MIN_AGREEMENT and |relative difference| <=
-    MAX_SSE_REL."""
+    """Hold a search kernel's (B, nc) indexes on ``problem`` (``got``, else
+    a new launch) against its plain version on the same inputs, with the f32
+    ``centers`` (nc, cs, D) scoring both: seqbeam for a
+    :class:`SeqbeamProblem`, gramv3 for a :class:`Gramv3Problem`.  Returns
+    the share of equal indexes, the summed squared errors and their relative
+    difference, the largest per-frame difference of squared error
+    (``max_abs_err``), and ``ok``: agreement >= MIN_AGREEMENT and |relative
+    difference| <= MAX_SSE_REL."""
+    kernel, plain_fn = ((gramv3_cuda, gramv3_plain) if isinstance(problem, Gramv3Problem)
+                        else (seqbeam_cuda, seqbeam_plain))
     if got is None:
-        got = seqbeam_cuda(problem)
-    plain = seqbeam_plain(problem)
+        got = kernel(problem)
+    plain = plain_fn(problem)
     x = problem.x
     err = ((decode_indexes(centers, got) - x) ** 2).sum(-1)
     err_plain = ((decode_indexes(centers, plain) - x) ** 2).sum(-1)
