@@ -40,7 +40,20 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    checkpoint saved mid-phase-2 and loaded gives, after two more steps on
    both trainers, equal parameters.  Phase-1 and phase-2 steps/s: the
    median over whole fresh runs, the searches interleaved, of each phase's
-   ``step_many`` time.
+   ``step_many`` time;
+7. the rest of seqbeam, on phase 4's 32,768 frames of both trained
+   quantizers, through ``Quantizer.encode(x, search_method="seqbeam",
+   refine_indexes_iters=passes, **kw)``: v1 (``impl="v1"``, M=16, R=8, 3
+   passes) at d512 and d256, and at d512 int8 E with ``requant="pass"``, the
+   guard's ``bound``, ``bound_fi`` and ``lazy`` candidates, and bf16 E with
+   ``lazy_r1``.  Each launches its kernel (v1 its own count, counted around
+   the call), its indexes pass the bars of phase 3 against the plain version
+   on the same problem, and its squared error is within 1.012 x beam-5.
+   v1 holds to ported v2 at the same M, R and passes (f32 E, all-pool) as
+   in the JAX tests (>= 95% of indexes equal, squared error within 1e-3),
+   each lazy config to its eager twin (>= 98%, within 2e-3), and pass and
+   bound end below their initial indexes' error.  Quality vs beam-5,
+   kernel, plain and bound ms, and encode vec/s.
 
 The output ends with the ``paths`` JSON line, the card's ``nvidia-smi``
 name and power limit, one JSON line with the kernels' numbers, and the
@@ -78,7 +91,8 @@ DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
 BAR = 1.012
-SEM_KEYS = ("M", "R", "pool_mask", "e_dtype")  # the knobs that change results
+V1 = dict(impl="v1", M=16, R=8)  # the JAX wrapper's defaults
+V1_PASSES = 3
 GRAM_CONFIGS = ((512, "bf16", None), (512, "int8", None), (512, "bf16", "altparity"),
                 (256, "bf16", None), (256, "int8", None))  # (dim, g_dtype, pool_mask)
 GRAM_PASSES = 5  # encode's default refine_indexes_iters
@@ -137,7 +151,7 @@ def main() -> int:
     from quantization_tpu_torch.ops import decode as K1
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain
     from quantization_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda")
@@ -196,7 +210,7 @@ def main() -> int:
     for name, dim in ENC_CONFIGS:
         qq = quantizers[dim]
         passes, kw = ladder[name]
-        sem = {k: kw.get(k) for k in SEM_KEYS}
+        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
         pt = K2.seqbeam_problem(qq.params, qq.config, frames(dim, 8, TIME_B), passes=passes,
                                 **sem)
         chk = against_plain(pt, qq.get_centers().detach())
@@ -240,7 +254,7 @@ def main() -> int:
         # the main path's own outputs against the plain versions on its inputs
         chosen = codec.auto_choice(qq.config, x, 5)
         passes, kw = ladder[chosen[0]]
-        sem = {k: kw.get(k) for k in SEM_KEYS}
+        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
         problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
         indexes = codec.unpack_indexes(codes, qq.codebook_size, qq.num_codebooks)
         shape = f"B={TIME_B} D={dim} nc={qq.num_codebooks} passes={passes}"
@@ -299,6 +313,12 @@ def main() -> int:
         (k3_checks if c["kernel"] == "gramv3" else k2_checks).append(c)
         launches[c["kernel"]] = launches.get(c["kernel"], 0) + c["launches"]
     launches["gramv3"] = launches.get("gramv3", 0) + n_k3
+    # ---- 7. the rest of seqbeam
+    rest = rest_phase(quantizers, main_frames, ladder)
+    for kernel, n in rest["launches"].items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    k2_configs += rest["configs"]["seqbeam_v2"]
+    k2_checks += rest["checks"]["seqbeam_v2"]
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -311,6 +331,16 @@ def main() -> int:
         "library_ms": None, "launches": launches["seqbeam_v2"], "checks": k2_checks,
         "configs": k2_configs,
     }
+    # v1's times are those of d512
+    v1_configs, v1_checks = rest["configs"]["seqbeam_v1"], rest["checks"]["seqbeam_v1"]
+    k_v1 = {
+        "name": "seqbeam_v1", "route": "cuda", "source": "quantization_tpu_torch/csrc/seqbeam.cu",
+        "replaces": "quantization_tpu/ops/seqbeam.py:179",
+        **{k: v1_configs[0][k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "max_abs_err": max(c["max_abs_err"] for c in v1_checks),
+        "library_ms": None, "launches": launches["seqbeam_v1"], "checks": v1_checks,
+        "configs": v1_configs,
+    }
     k1.update(launches=launches["decode"], checks=k1_checks,
               max_abs_err=max(c["max_abs_err"] for c in k1_checks))
     # K3's times are those of d512 with bf16 tables on the serving path
@@ -322,9 +352,9 @@ def main() -> int:
         "library_ms": None, "launches": launches["gramv3"], "checks": k3_checks,
         "configs": k3_configs,
     }
-    print(json.dumps({"paths": paths + gram_paths + train_paths}), flush=True)
+    print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"]}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k_v1]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -505,6 +535,104 @@ def train_phase(sampler, dev):
               f"{entry['phase2_step_ms_range'][0]:.3f}-{entry['phase2_step_ms_range'][1]:.3f})",
               flush=True)
     return paths, checks
+
+
+@torch.no_grad()
+def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
+    """Phase 7: seqbeam v1 and v2's pass/bound/lazy semantics through
+    ``encode(search_method="seqbeam")`` on the main path's frames.  Returns
+    the path entries and, per kernel ("seqbeam_v1", "seqbeam_v2"), its
+    per-config entries, checks and launches."""
+    from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import CANDIDATES, SEMANTIC_KEYS, against_plain
+
+    cand = {name: (passes, kw) for name, passes, kw in CANDIDATES[512]}
+    int8e, hl = ladder["seqbeam_int8e_d512"], ladder["seqbeam_hl_d512"]
+    # (name, dim, passes, encode kwargs, what it is held to)
+    configs = [
+        ("seqbeam_v1_d512", 512, V1_PASSES, V1, "v2"),
+        ("seqbeam_v1_d256", 256, V1_PASSES, V1, "v2"),
+        ("seqbeam_int8e_pass_d512", 512, int8e[0], dict(int8e[1], requant="pass"), "init"),
+        ("seqbeam_int8e_bound_d512", 512, *cand["seqbeam_int8e_bound_d512"], "init"),
+        ("seqbeam_int8e_bound_fi_d512", 512, *cand["seqbeam_int8e_bound_fi_d512"], "init"),
+        ("seqbeam_int8e_lazy_d512", 512, *cand["seqbeam_int8e_lazy_d512"], "eager"),
+        ("seqbeam_hl_lazy_d512", 512, hl[0], dict(hl[1], lazy_r1=True), "eager"),
+    ]
+    out = {"paths": [], "configs": {"seqbeam_v1": [], "seqbeam_v2": []},
+           "checks": {"seqbeam_v1": [], "seqbeam_v2": []},
+           "launches": {"seqbeam_v1": 0, "seqbeam_v2": 0}}
+    for name, dim, passes, kw, twin in configs:
+        qq = quantizers[dim]
+        nc = qq.num_codebooks
+        x, sse_beam = main_frames[dim]
+        centers = qq.get_centers().detach()
+        kernel = "seqbeam_v1" if kw.get("impl") == "v1" else "seqbeam_v2"
+        counter, other = ((K2.SEQBEAM_V1_KERNEL, K2.SEQBEAM_KERNEL) if kernel == "seqbeam_v1"
+                          else (K2.SEQBEAM_KERNEL, K2.SEQBEAM_V1_KERNEL))
+        counter.launches = other.launches = 0
+        codes = qq.encode(x, search_method="seqbeam", refine_indexes_iters=passes, **kw)
+        torch.cuda.synchronize()
+        n = counter.launches
+        check(n > 0 and other.launches == 0,
+              f"{name}: {n} {kernel} launches, {other.launches} of the other kernel")
+        out["launches"][kernel] += n
+        check(codes.dtype == torch.uint8 and codes.shape == (TIME_B, qq.config.bytes_per_frame),
+              f"{name}: codes {codes.dtype} {tuple(codes.shape)}")
+        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
+        problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
+        indexes = codec.unpack_indexes(codes, qq.codebook_size, nc)
+        chk = against_plain(problem, centers, got=indexes)
+        check(chk["ok"], f"{name}: encode indexes vs the plain version: {chk}")
+        shape = (f"B={TIME_B} D={dim} nc={nc} passes={passes} M={sem['M']} R={sem['R']} "
+                 f"{sem.get('e_dtype', 'f32')} E")
+        sse = float(((codec.decode_indexes(centers, indexes) - x) ** 2).sum())
+        if twin == "init":
+            sse_twin = float(((codec.decode_indexes(centers, problem.idx0) - x) ** 2).sum())
+            check(sse < sse_twin, f"{name}: squared error {sse} not below the init's {sse_twin}")
+            relation = {"held_to": "initial indexes", "sse_init": sse_twin}
+        else:
+            # v1 against ported v2 at the same M, R and passes (f32 E,
+            # all-pool); a lazy config against its eager twin
+            tw = (dict(M=sem["M"], R=sem["R"]) if twin == "v2"
+                  else {k: v for k, v in sem.items() if k != "lazy_r1"})
+            other_idx = K2.seqbeam_cuda(K2.seqbeam_problem(qq.params, qq.config, x,
+                                                            passes=passes, **tw))
+            sse_twin = float(((codec.decode_indexes(centers, other_idx) - x) ** 2).sum())
+            agree = float((other_idx == indexes).float().mean())
+            # the JAX tests' bars (tests/test_search_alternatives.py:195-211,
+            # :698-731)
+            min_agree, max_rel = (0.95, 1e-3) if twin == "v2" else (0.98, 2e-3)
+            check(agree >= min_agree and abs(sse / sse_twin - 1.0) <= max_rel,
+                  f"{name}: vs {twin} twin {tw}: agreement {agree}, squared error {sse} vs "
+                  f"{sse_twin}")
+            relation = {"held_to": f"{twin} twin", "twin": tw, "agreement": agree,
+                        "sse_rel_diff": sse / sse_twin - 1.0}
+        xs = x[:CHECK_B]
+        ratio = float(((qq.decode(codes[:CHECK_B]) - xs) ** 2).sum()) / sse_beam
+        check(ratio <= BAR, f"{name}: seqbeam/beam-5 squared error {ratio} > {BAR}")
+        enc_s = host_s(lambda: qq.encode(x, search_method="seqbeam",
+                                         refine_indexes_iters=passes, **kw), 3)
+        entry = {"config": name, "shape": shape, **sem, **{k: chk[k] for k in CHECK_KEYS},
+                 "ms": cuda_ms(lambda: K2.seqbeam_cuda(problem), 3),
+                 "plain_ms": cuda_ms(lambda: K2.seqbeam_plain(problem), 1),
+                 **_seqbeam_bound(TIME_B, dim, nc, passes, sem["M"], sem.get("e_dtype", "f32"))}
+        out["configs"][kernel].append(entry)
+        out["checks"][kernel].append({"where": f"encode path {name}", "shape": shape,
+                                      "launches": n, **{k: chk[k] for k in CHECK_KEYS}})
+        out["paths"].append({
+            "path": "encode(search_method='seqbeam')", "dim": dim,
+            "bytes_per_frame": qq.config.bytes_per_frame, "config": name, "batch": TIME_B,
+            "launches": {kernel: n}, "quality_delta_pct": (ratio - 1.0) * 100.0,
+            "encode_vec_per_s": TIME_B / enc_s, "encode_ms": enc_s * 1e3,
+            "encode_kernel_ms": entry["ms"], **relation})
+        print(f"[rest {name}] {shape}: agreement with plain {chk['index_agreement']:.6f}; "
+              f"vs {relation['held_to']} {json.dumps(relation)}; quality "
+              f"{(ratio - 1.0) * 100.0:+.3f}% vs beam-5; kernel {entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}); {TIME_B / enc_s:,.0f} encode vec/s; launches {n}",
+              flush=True)
+    return out
 
 
 def step_ms(trainer, batches) -> float:

@@ -1,20 +1,29 @@
-// Fused sequential-beam encode (seqbeam v2): for each frame, an M-wide beam
-// sweeps the codebooks in order for `passes` passes and emits (B, nc) int32
-// codebook indexes.
+// Fused sequential-beam encode (seqbeam v2, and v1 as a variant of the same
+// kernel): for each frame, an M-wide beam sweeps the codebooks in order for
+// `passes` passes and emits (B, nc) int32 codebook indexes.
 //
-// Replaces: quantization_tpu/ops/seqbeam.py::_seqbeam_kernel_v2 with
-// requant="step" and no lazy_r1, for e_dtype f32, bf16 and int8 and any
-// per-pass pool/R1 schedule.  Its semantics are reproduced step for step:
-// the root error recomputed from the winner every pass, the M-way fan-out at
-// t = 0, the rescore E_m . C_t^T (bf16 x bf16 -> f32, or int8 x int8 ->
-// int32 then dequantized by the row scale x codebook scale), the score
-// assembly ((ss - 2 Ec) - ccn) + shared + 2 cross, the packed-mantissa
+// Replaces: quantization_tpu/ops/seqbeam.py::_seqbeam_kernel_v2 for e_dtype
+// f32, bf16 and int8, any per-pass pool/R1 schedule, requant "step", "pass"
+// and "bound", and lazy_r1; and, through qtt_seqbeam_v1_launch,
+// quantization_tpu/ops/seqbeam.py::_seqbeam_kernel (v1).  The semantics are
+// reproduced step for step: the root error recomputed from the winner every
+// pass, the M-way fan-out at t = 0, the rescore E_m . C_t^T (bf16 x bf16 ->
+// f32, or int8 x int8 -> int32 then dequantized by the row scale x codebook
+// scale), the score assembly (v2: ((ss - 2 Ec) - ccn) + shared + 2 cross;
+// v1: ((ss - 2 Ec + cc) + csq) + 2 (cross - q)), the packed-mantissa
 // selection (scores clamped at 0, the lane id in the 8 low mantissa bits,
 // the truncated value carried forward as next step's ss), the top-R per
-// parent then top-M of the M*R pool with the parent id above the lane bits,
-// the in-place R1 step, the extension E_child = E_parent + (c_t[j] - c_t[i])
-// with per-row int8 requantization (round half to even, scale
-// max|e| * (1/127)), and the pass-end winner by packed (ss, m) minimum.
+// parent then top-M of the M*R pool (v2: the parent id above the lane bits;
+// v1: the truncated values repacked with the pool lane m*R + r, parent =
+// lane / R), the in-place R1 step, the extension E_child = E_parent +
+// (c_t[j] - c_t[i]) with int8 requantization (round half to even): "step"
+// requantizes each row with scale max|e| * (1/127); "pass" keeps the root's
+// scale for the whole pass and adds round(dc8 * (csc / s0)), clipped;
+// "bound" grows the parent's scale by cmax_t / 127.  lazy_r1: an R1 step
+// that is neither first nor last skips its extension; the next (pool) step
+// adds Gx_t[j'] - Gx_t[i'] to its rescore and applies both deltas in its
+// move, j' taken from the destination's parent slot.  The pass-end winner
+// is the packed (ss, m) minimum.
 //
 // Bound: operations.  Per frame and pass the rescore is (1 + (nc-1) M)
 // products of length D against all 256 codewords; everything else is
@@ -49,14 +58,19 @@ constexpr uint32_t kNone = 0xFFFFFFFFu;
 constexpr float kInv127 = (float)(1.0 / 127.0);
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum { kStep = 0, kPass = 1, kBound = 2 };
 
 struct Args {
   const float* x;           // (B, D)
   const int32_t* idx0;      // (B, nc) initial solution
   const uint16_t* C;        // (nc * 256, D) bf16 centers
-  const uint16_t* gmod;     // (nc * 256, 256) bf16: csq[t, j] - 2 c_t(i).c_t(j)
+  const uint16_t* gmod;     // v2: (nc * 256, 256) bf16: csq[t, j] - 2 c_t(i).c_t(j)
   const int8_t* C8;         // (nc * 256, D) int8 centers (int8 E only)
   const float* csc;         // (nc,) int8 center scales (int8 E only)
+  const float* cmax;        // (nc,) max_d (max_j - min_j) c8 (requant "bound" only)
+  const uint16_t* gx;       // (nc * 256, 256) bf16 C_{t-1} . C_t^T (lazy_r1 only)
+  const float* qg;          // v1: (nc * 256, 256) f32 Gram of the bf16 centers
+  const float* csq;         // v1: (nc * 256,) f32 |c|^2 of the f32 centers
   int32_t* out;             // (B, nc)
   int B, D, nc, R, passes, F;
   uint32_t pool[kMaxPasses];  // bit t of pool[p]: step t of pass p is a pool step
@@ -64,9 +78,10 @@ struct Args {
 
 struct Layout {
   int rows;          // F * M candidate rows
+  int xrows;         // rows rounded up to the rescore's 16-row tiles
   int e_stride;      // bytes per candidate row (padded: no bank conflicts)
   int er_stride;     // floats per root-error row
-  size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, rkeys;
+  size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys;
   size_t total;
 };
 
@@ -76,10 +91,12 @@ __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
   return at;
 }
 
-__host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R) {
+__host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
+                                              bool lazy) {
   Layout L;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
+  L.xrows = (L.rows + 15) / 16 * 16;
   L.e_stride = D * esize + 16;
   L.er_stride = D + 4;
   const size_t rows = (size_t)L.rows;
@@ -87,7 +104,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.e0 = take(&off, rows * L.e_stride);
   L.e1 = take(&off, rows * L.e_stride);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
-  L.xs = take(&off, rows * kXS * 4);
+  L.xs = take(&off, (size_t)L.xrows * kXS * 4);
   L.srow = take(&off, (size_t)F * kCS * 4);
   L.sc0 = take(&off, rows * 4);
   L.sc1 = take(&off, rows * 4);
@@ -99,6 +116,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.sol = take(&off, (size_t)F * nc * 4);
   L.selj = take(&off, rows * 4);
   L.selp = take(&off, rows * 4);
+  L.jdef = take(&off, lazy ? rows * 4 : 0);  // lazy_r1 only
   L.rkeys = take(&off, rows * R * 4);
   L.total = off;
   return L;
@@ -143,6 +161,8 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
   return v;
 }
+
+__device__ __forceinline__ float clip127(float v) { return fminf(fmaxf(v, -127.0f), 127.0f); }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -282,16 +302,26 @@ __device__ void rescore_s8(const unsigned char* A, int stride, int mtiles,
   }
 }
 
-// Keys of row scores S[j] = (base + shared[j]) + 2 cross[j]; lane l holds
-// codewords l, l + 32, ..., l + 224.
-__device__ __forceinline__ void row_keys(const float* xr, const float* sr, float base, int lane,
-                                         uint32_t (&keys)[8]) {
+// Keys of one candidate's row scores; lane l holds codewords l, l + 32,
+// ..., l + 224.  v2: S[j] = (base + shared[j]) + 2 cross[j] with shared the
+// Gmod row; v1: S[j] = (base + csq[j]) + 2 (cross[j] - q[j]) with q the
+// Gram row (`sr`) and csq the codebook's squared norms.
+template <bool V1>
+__device__ __forceinline__ void row_keys(const float* xr, const float* sr, const float* csq,
+                                         float base, int lane, uint32_t (&keys)[8]) {
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     const int j = lane + 32 * q;
-    const float s = (base + sr[j]) + 2.0f * xr[j];
+    const float s = V1 ? (base + csq[j]) + 2.0f * (xr[j] - sr[j]) : (base + sr[j]) + 2.0f * xr[j];
     keys[q] = pack_key(s, (uint32_t)j);
   }
+}
+
+// The score's per-row constant: v2 (ss - 2 Ec) - ccn with ccn = Gmod[i, i];
+// v1 (ss - 2 Ec) + cc with cc = q[i].
+template <bool V1>
+__device__ __forceinline__ float row_base(float ss, float ec, float si) {
+  return V1 ? (ss - 2.0f * ec) + si : (ss - 2.0f * ec) - si;
 }
 
 template <int ET>
@@ -321,83 +351,143 @@ __device__ __forceinline__ void store_row4(unsigned char* row, int d, const floa
   }
 }
 
+// The 4 bf16 differences c[j, d..d+3] - c[i, d..d+3] of one codebook's rows.
+__device__ __forceinline__ void bf16_delta4(const uint16_t* cj, const uint16_t* ci, int d,
+                                            float (&dv)[4]) {
+  const uint2 wj = *reinterpret_cast<const uint2*>(cj + d);
+  const uint2 wi = *reinterpret_cast<const uint2*>(ci + d);
+  dv[0] = __uint_as_float(wj.x << 16) - __uint_as_float(wi.x << 16);
+  dv[1] = __uint_as_float(wj.x & 0xFFFF0000u) - __uint_as_float(wi.x & 0xFFFF0000u);
+  dv[2] = __uint_as_float(wj.y << 16) - __uint_as_float(wi.y << 16);
+  dv[3] = __uint_as_float(wj.y & 0xFFFF0000u) - __uint_as_float(wi.y & 0xFFFF0000u);
+}
+
+// The 4 int8 differences c8[j, d..d+3] - c8[i, d..d+3], exact in f32.
+__device__ __forceinline__ void i8_delta4(const int8_t* cj, const int8_t* ci, int d, float (&dv)[4]) {
+  const char4 pj = *reinterpret_cast<const char4*>(cj + d);
+  const char4 pi = *reinterpret_cast<const char4*>(ci + d);
+  dv[0] = (float)((int)pj.x - (int)pi.x);
+  dv[1] = (float)((int)pj.y - (int)pi.y);
+  dv[2] = (float)((int)pj.z - (int)pi.z);
+  dv[3] = (float)((int)pj.w - (int)pi.w);
+}
+
 // One warp extends candidate row r:
 //   E_dst[r] = E_src[src_row] + (c_t[j] - c_t[i])
+// plus, with LAZY and jp >= 0, the deferred delta c_{t-1}[jp] - c_{t-1}[ip].
 // f32/bf16: in f32, stored in the E type.  int8 (not first): in csc[t]
-// units, q * (s / csc) + (c8[j] - c8[i]), requantized per row, scale
-// s_new * csc stored.  first: the source is the f32 root error, and int8
-// requantizes the absolute f32 sum.
-template <int ET, bool FIRST>
-__device__ void extend_row(const Args& a, int D, int t, int it, int j,
+// units, q * (s / csc) + (c8[j] - c8[i]) [+ (c8'[jp] - c8'[ip]) * (csc' /
+// csc)], requantized by the REQ rule, scale s_new * csc stored; kPass adds
+// round((c8[j] - c8[i]) * (csc / s)) to q and keeps s.  first: the source is
+// the f32 root error, and int8 quantizes the absolute f32 sum (scale from the
+// extended row, or from the root for kPass).
+template <int ET, bool FIRST, int REQ, bool LAZY>
+__device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, int jp,
                            const unsigned char* src, unsigned char* dst, float src_scale,
                            float* dst_scale, float csc_t, int lane) {
-  const uint16_t* cj = a.C + ((size_t)t * kCS + j) * D;
-  const uint16_t* ci = a.C + ((size_t)t * kCS + it) * D;
+  constexpr bool I8 = ET == kI8 && !FIRST;
+  const bool prev = LAZY && jp >= 0;
   const int nchunk = D / 128;
   float ef[kMaxChunks][4];
-  float sadj = 0.0f;
-  if (ET == kI8 && !FIRST) sadj = src_scale * (1.0f / csc_t);
+  float sadj = 0.0f, rprev = 0.0f, col = 0.0f, vmax = 0.0f;
+  if (I8) {
+    const float inv_csc = 1.0f / csc_t;
+    sadj = src_scale * inv_csc;
+    if (prev) rprev = a.csc[t - 1] * inv_csc;
+    if (REQ == kPass) col = csc_t * (1.0f / src_scale);
+  }
 #pragma unroll
   for (int k = 0; k < kMaxChunks; ++k) {
     if (k < nchunk) {
       const int d = 4 * (lane + 32 * k);
-      float v[4];
+      float v[4], dv[4];
       if (FIRST) {
         const float4 w = *reinterpret_cast<const float4*>(src + (size_t)d * 4);
         v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
       } else {
         load_row4<ET>(src, d, v);
       }
-      if (ET == kI8 && !FIRST) {
-        const char4 pj = *reinterpret_cast<const char4*>(a.C8 + ((size_t)t * kCS + j) * D + d);
-        const char4 pi = *reinterpret_cast<const char4*>(a.C8 + ((size_t)t * kCS + it) * D + d);
-        ef[k][0] = v[0] * sadj + (float)((int)pj.x - (int)pi.x);
-        ef[k][1] = v[1] * sadj + (float)((int)pj.y - (int)pi.y);
-        ef[k][2] = v[2] * sadj + (float)((int)pj.z - (int)pi.z);
-        ef[k][3] = v[3] * sadj + (float)((int)pj.w - (int)pi.w);
+      if (I8) {
+        i8_delta4(a.C8 + ((size_t)t * kCS + j) * D, a.C8 + ((size_t)t * kCS + it) * D, d, dv);
+        if (REQ == kPass) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) ef[k][u] = v[u] + rintf(dv[u] * col);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) ef[k][u] = v[u] * sadj + dv[u];
+          if (prev) {
+            float pv[4];
+            i8_delta4(a.C8 + ((size_t)(t - 1) * kCS + jp) * D,
+                      a.C8 + ((size_t)(t - 1) * kCS + ip) * D, d, pv);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) ef[k][u] = ef[k][u] + pv[u] * rprev;
+          }
+        }
       } else {
-        const uint2 wj = *reinterpret_cast<const uint2*>(cj + d);
-        const uint2 wi = *reinterpret_cast<const uint2*>(ci + d);
-        ef[k][0] = v[0] + (__uint_as_float(wj.x << 16) - __uint_as_float(wi.x << 16));
-        ef[k][1] = v[1] + (__uint_as_float(wj.x & 0xFFFF0000u) - __uint_as_float(wi.x & 0xFFFF0000u));
-        ef[k][2] = v[2] + (__uint_as_float(wj.y << 16) - __uint_as_float(wi.y << 16));
-        ef[k][3] = v[3] + (__uint_as_float(wj.y & 0xFFFF0000u) - __uint_as_float(wi.y & 0xFFFF0000u));
+        bf16_delta4(a.C + ((size_t)t * kCS + j) * D, a.C + ((size_t)t * kCS + it) * D, d, dv);
+        if (prev) {
+          float pv[4];
+          bf16_delta4(a.C + ((size_t)(t - 1) * kCS + jp) * D,
+                      a.C + ((size_t)(t - 1) * kCS + ip) * D, d, pv);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) dv[u] = dv[u] + pv[u];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) ef[k][u] = v[u] + dv[u];
+        if (FIRST && ET == kI8 && REQ == kPass)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) vmax = fmaxf(vmax, fabsf(v[u]));
       }
       if (ET != kI8) store_row4<ET>(dst, d, ef[k]);
     }
   }
-  if (ET == kI8) {
-    float amax = 0.0f;
+  if (ET != kI8) return;
+  float s;
+  if (!FIRST && REQ == kPass) {
+    s = src_scale;  // frozen for the pass; ef already holds the new q
+  } else {
+    float amax = vmax;  // kPass, first: the root error's
+    if (!(FIRST && REQ == kPass)) {
+#pragma unroll
+      for (int k = 0; k < kMaxChunks; ++k)
+        if (k < nchunk)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) amax = fmaxf(amax, fabsf(ef[k][u]));
+    }
+    amax = warp_max(amax);
+    s = (!FIRST && REQ == kBound) ? sadj + a.cmax[t] * kInv127 : fmaxf(amax * kInv127, 1e-20f);
+    const float inv = 1.0f / s;
 #pragma unroll
     for (int k = 0; k < kMaxChunks; ++k)
       if (k < nchunk)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) amax = fmaxf(amax, fabsf(ef[k][u]));
-    amax = warp_max(amax);
-    const float s = fmaxf(amax * kInv127, 1e-20f);
-    const float inv = 1.0f / s;
-#pragma unroll
-    for (int k = 0; k < kMaxChunks; ++k) {
-      if (k < nchunk) {
-        const int d = 4 * (lane + 32 * k);
-        char4 w;
-        w.x = (signed char)(int)rintf(ef[k][0] * inv);
-        w.y = (signed char)(int)rintf(ef[k][1] * inv);
-        w.z = (signed char)(int)rintf(ef[k][2] * inv);
-        w.w = (signed char)(int)rintf(ef[k][3] * inv);
-        *reinterpret_cast<char4*>(dst + d) = w;
-      }
-    }
-    if (lane == 0) *dst_scale = FIRST ? s : s * csc_t;
+        for (int u = 0; u < 4; ++u) ef[k][u] = rintf(ef[k][u] * inv);
   }
+  // step requant never leaves [-127, 127]: its scale is the row's max
+#pragma unroll
+  for (int k = 0; k < kMaxChunks; ++k) {
+    if (k < nchunk) {
+      const int d = 4 * (lane + 32 * k);
+      char4 w;
+      w.x = (signed char)(int)(REQ == kStep ? ef[k][0] : clip127(ef[k][0]));
+      w.y = (signed char)(int)(REQ == kStep ? ef[k][1] : clip127(ef[k][1]));
+      w.z = (signed char)(int)(REQ == kStep ? ef[k][2] : clip127(ef[k][2]));
+      w.w = (signed char)(int)(REQ == kStep ? ef[k][3] : clip127(ef[k][3]));
+      *reinterpret_cast<char4*>(dst + d) = w;
+    }
+  }
+  if (lane == 0) *dst_scale = (FIRST || REQ == kPass) ? s : s * csc_t;
 }
 
-template <int ET, int M>
-__global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
+// V1: the v1 kernel (f32 E, every step a pool step, v1's score and pool
+// packing); it reads qg/csq in place of gmod.  REQ: the int8 requant rule
+// (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).
+template <int ET, int M, bool V1, int REQ, bool LAZY>
+__global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  const Layout L = make_layout(ET, M, F, D, nc, R);
-  const int RW = L.rows, mtiles = RW / 16;
+  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY);
+  const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fb = blockIdx.x * F;
 
@@ -413,7 +503,17 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
   int* sol = reinterpret_cast<int*>(smem + L.sol);
   int* selj = reinterpret_cast<int*>(smem + L.selj);
   int* selp = reinterpret_cast<int*>(smem + L.selp);
+  int* jdef = reinterpret_cast<int*>(smem + L.jdef);
   uint32_t* rkeys = reinterpret_cast<uint32_t*>(smem + L.rkeys);
+
+  // the per-frame score row of codebook t: v2 Gmod_t[sol_t, :], v1 q_t[sol_t, :]
+  auto load_srow = [&](int t) {
+    for (int i = tid; i < F * kCS; i += kThreads) {
+      const int f = i / kCS;
+      const size_t at = ((size_t)t * kCS + sol[f * nc + t]) * kCS + (i % kCS);
+      srow[i] = V1 ? a.qg[at] : bf2f(a.gmod[at]);
+    }
+  };
 
   for (int i = tid; i < F * nc; i += kThreads) {
     const int b = fb + i / nc;
@@ -430,11 +530,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
       for (int s = 0; s < nc; ++s) e = e + bf2f(a.C[((size_t)s * kCS + sol[f * nc + s]) * D + d]);
       Er[f * L.er_stride + d] = e;
     }
-    // shared score row of codebook 0: Gmod_0[sol_0, :]
-    for (int i = tid; i < F * kCS; i += kThreads) {
-      const int f = i / kCS;
-      srow[i] = bf2f(a.gmod[((size_t)sol[f * nc] * kCS) + (i % kCS)]);
-    }
+    load_srow(0);
     __syncthreads();
     for (int f = warp; f < F; f += kWarps) {
       float acc = 0.0f;
@@ -453,9 +549,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
       const int i0 = sol[f * nc];
       const float* xr = X + f * kXS;
       const float* sr = srow + f * kCS;
-      const float base = (ss0[f] - 2.0f * xr[i0]) - sr[i0];
       uint32_t keys[8];
-      row_keys(xr, sr, base, lane, keys);
+      row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], sr[i0]), lane, keys);
       for (int m = 0; m < M; ++m) {
         const uint32_t w = extract_min(keys);
         if (lane == 0) {
@@ -471,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
     }
     for (int r = warp; r < RW; r += kWarps) {
       const int f = r / M;
-      extend_row<ET, true>(a, D, 0, sol[f * nc], selj[r],
+      extend_row<ET, true, REQ, LAZY>(a, D, 0, sol[f * nc], selj[r], -1, -1,
                            reinterpret_cast<const unsigned char*>(Er + f * L.er_stride),
                            E[0] + (size_t)r * L.e_stride, 0.0f, sc[0] + r,
                            ET == kI8 ? a.csc[0] : 1.0f, lane);
@@ -479,14 +574,13 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
     __syncthreads();
 
     int cur = 0;
+    bool pend = false;  // lazy_r1: step t-1 deferred its E update (jdef)
     for (int t = 1; t < nc; ++t) {
-      const bool pool = (a.pool[p] >> t) & 1u;
+      const bool pool = V1 || ((a.pool[p] >> t) & 1u);
       const bool last = t == nc - 1;
+      const bool defer = LAZY && !pool && !last;
       const float csc_t = ET == kI8 ? a.csc[t] : 1.0f;
-      for (int i = tid; i < F * kCS; i += kThreads) {
-        const int f = i / kCS;
-        srow[i] = bf2f(a.gmod[((size_t)t * kCS + sol[f * nc + t]) * kCS + (i % kCS)]);
-      }
+      load_srow(t);
       if (ET == kI8)
         for (int r = tid; r < RW; r += kThreads) rsc[r] = sc[cur][r] * csc_t;
       __syncthreads();
@@ -504,11 +598,23 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
       for (int r = warp; r < RW; r += kWarps) {
         const int f = r / M;
         const int it = sol[f * nc + t];
-        const float* xr = X + r * kXS;
+        float* xr = X + r * kXS;
         const float* sr = srow + f * kCS;
-        const float base = (ss[r] - 2.0f * xr[it]) - sr[it];
+        if (LAZY && pend) {
+          // the row still lacks codebook t-1's deferred delta: correct its
+          // cross by Gx_t[j'] - Gx_t[i'] (bf16 values, f32 difference)
+          const uint16_t* gj = a.gx + ((size_t)t * kCS + jdef[r]) * kCS;
+          const uint16_t* gi = a.gx + ((size_t)t * kCS + sol[f * nc + t - 1]) * kCS;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int j = lane + 32 * q;
+            xr[j] = xr[j] + (bf2f(gj[j]) - bf2f(gi[j]));
+          }
+          __syncwarp();
+        }
         uint32_t keys[8];
-        row_keys(xr, sr, base, lane, keys);
+        row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS, row_base<V1>(ss[r], xr[it], sr[it]), lane,
+                     keys);
         if (!pool) {
           // R1: each parent keeps its best child in place
           const uint32_t w = extract_min(keys);
@@ -517,6 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
             selp[r] = r - f * M;
             ss[r] = __uint_as_float(w & ~kLaneMask);
             ch[cur][r * nc + t] = (int)(w & kLaneMask);
+            if (defer) jdef[r] = (int)(w & kLaneMask);
           }
         } else {
           for (int k = 0; k < R; ++k) {
@@ -527,23 +634,32 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
       }
       __syncthreads();
       if (pool) {
-        // ---- top-M of each frame's M*R pool, parent id above the lane bits
+        // ---- top-M of each frame's M*R pool.  v2: the parent id above
+        // the lane bits; v1: the pool lane m*R + r in the lane bits
         const uint32_t mbits = (uint32_t)(M - 1) << 8;
         for (int f = warp; f < F; f += kWarps) {
+          const uint32_t* fk = rkeys + f * M * R;
           uint32_t keys[16];
 #pragma unroll
           for (int q = 0; q < 16; ++q) {
             const int e = lane + 32 * q;
-            keys[q] = e < M * R
-                          ? (rkeys[f * M * R + e] & ~mbits) | ((uint32_t)(e / R) << 8)
-                          : kNone;
+            keys[q] = e >= M * R ? kNone
+                      : V1       ? (fk[e] & ~kLaneMask) | (uint32_t)e
+                                 : (fk[e] & ~mbits) | ((uint32_t)(e / R) << 8);
           }
           for (int n = 0; n < M; ++n) {
             const uint32_t w = extract_min(keys);
             if (lane == 0) {
-              selj[f * M + n] = (int)(w & kLaneMask);
-              selp[f * M + n] = (int)((w >> 8) & (uint32_t)(M - 1));
-              ss[f * M + n] = __uint_as_float(w & ~(mbits | kLaneMask));
+              if (V1) {
+                const int e = (int)(w & kLaneMask);
+                selj[f * M + n] = (int)(fk[e] & kLaneMask);
+                selp[f * M + n] = e / R;
+                ss[f * M + n] = __uint_as_float(w & ~kLaneMask);
+              } else {
+                selj[f * M + n] = (int)(w & kLaneMask);
+                selp[f * M + n] = (int)((w >> 8) & (uint32_t)(M - 1));
+                ss[f * M + n] = __uint_as_float(w & ~(mbits | kLaneMask));
+              }
             }
           }
         }
@@ -554,19 +670,21 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
           ch[cur ^ 1][i] = s == t ? selj[r] : ch[cur][(f * M + selp[r]) * nc + s];
         }
       }
-      // ---- extension (the last step of a pass has none)
-      if (!last) {
+      // ---- extension (none on the last step of a pass, or a deferring R1 step)
+      if (!last && !defer) {
         const int dst = pool ? cur ^ 1 : cur;
         for (int r = warp; r < RW; r += kWarps) {
           const int f = r / M;
           const int src_row = f * M + selp[r];
-          extend_row<ET, false>(a, D, t, sol[f * nc + t], selj[r],
+          extend_row<ET, false, REQ, LAZY>(a, D, t, sol[f * nc + t], selj[r],
+                                pend ? sol[f * nc + t - 1] : -1, pend ? jdef[src_row] : -1,
                                 E[cur] + (size_t)src_row * L.e_stride,
                                 E[dst] + (size_t)r * L.e_stride,
                                 ET == kI8 ? sc[cur][src_row] : 0.0f, sc[dst] + r, csc_t, lane);
         }
       }
       if (pool) cur ^= 1;
+      pend = defer;
       __syncthreads();
     }
     // ---- pass end: the best candidate by packed (ss, m) becomes the root
@@ -585,66 +703,129 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_v2_kernel(const Args a) {
   }
 }
 
-template <int ET, int M>
+template <int ET, int M, bool V1, int REQ, bool LAZY>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(seqbeam_v2_kernel<ET, M>,
+  const cudaError_t e = cudaFuncSetAttribute(seqbeam_kernel<ET, M, V1, REQ, LAZY>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((a.B + a.F - 1) / a.F);
-  if (blocks > 0) seqbeam_v2_kernel<ET, M><<<blocks, kThreads, smem, stream>>>(a);
+  if (blocks > 0) seqbeam_kernel<ET, M, V1, REQ, LAZY><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int ET>
+template <int ET, int REQ, bool LAZY>
 int launch_m(const Args& a, int M, size_t smem, cudaStream_t stream) {
   switch (M) {
-    case 8: return launch<ET, 8>(a, smem, stream);
-    case 16: return launch<ET, 16>(a, smem, stream);
-    case 32: return launch<ET, 32>(a, smem, stream);
-    case 64: return launch<ET, 64>(a, smem, stream);
+    case 8: return launch<ET, 8, false, REQ, LAZY>(a, smem, stream);
+    case 16: return launch<ET, 16, false, REQ, LAZY>(a, smem, stream);
+    case 32: return launch<ET, 32, false, REQ, LAZY>(a, smem, stream);
+    case 64: return launch<ET, 64, false, REQ, LAZY>(a, smem, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The valid (e_dtype, requant, lazy) variants: "pass" and "bound" are int8
+// only, lazy_r1 takes "step" only.
+int launch_v2(const Args& a, int e_dtype, int M, int requant, bool lazy, size_t smem,
+              cudaStream_t s) {
+  if (lazy) {
+    switch (e_dtype) {
+      case kF32: return launch_m<kF32, kStep, true>(a, M, smem, s);
+      case kBF16: return launch_m<kBF16, kStep, true>(a, M, smem, s);
+      case kI8: return launch_m<kI8, kStep, true>(a, M, smem, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (e_dtype == kI8 && requant == kPass) return launch_m<kI8, kPass, false>(a, M, smem, s);
+  if (e_dtype == kI8 && requant == kBound) return launch_m<kI8, kBound, false>(a, M, smem, s);
+  switch (e_dtype) {
+    case kF32: return launch_m<kF32, kStep, false>(a, M, smem, s);
+    case kBF16: return launch_m<kBF16, kStep, false>(a, M, smem, s);
+    case kI8: return launch_m<kI8, kStep, false>(a, M, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
+  switch (M) {
+    case 8: return launch<kF32, 8, true, kStep, false>(a, smem, stream);
+    case 16: return launch<kF32, 16, true, kStep, false>(a, smem, stream);
+    case 24: return launch<kF32, 24, true, kStep, false>(a, smem, stream);
+    case 32: return launch<kF32, 32, true, kStep, false>(a, smem, stream);
+    case 40: return launch<kF32, 40, true, kStep, false>(a, smem, stream);
+    case 48: return launch<kF32, 48, true, kStep, false>(a, smem, stream);
+    case 56: return launch<kF32, 56, true, kStep, false>(a, smem, stream);
+    case 64: return launch<kF32, 64, true, kStep, false>(a, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Frames per block for a configuration: the most (F * M <= 64 candidate
+// rows, at least 16) whose shared memory fits; 0 if none does.
+int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy) {
+  for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
+    if (make_layout(e_dtype, M, F, D, nc, R, lazy).total <= kMaxSmem) return F;
+  return 0;
+}
+
+Args make_args(const void* x, const void* idx0, const void* centers, void* out, int B, int D,
+               int nc, int R, int passes) {
+  Args a = {};
+  a.x = (const float*)x;
+  a.idx0 = (const int32_t*)idx0;
+  a.C = (const uint16_t*)centers;
+  a.out = (int32_t*)out;
+  a.B = B; a.D = D; a.nc = nc; a.R = R; a.passes = passes;
+  return a;
 }
 
 }  // namespace
 
-// Frames per block for a configuration: the most (F * M <= 64 candidate
-// rows) whose shared memory fits; 0 if none does.
-extern "C" int qtt_seqbeam_v2_frames_per_block(int e_dtype, int M, int D, int nc, int R) {
-  for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
-    if (make_layout(e_dtype, M, F, D, nc, R).total <= kMaxSmem) return F;
-  return 0;
-}
-
 // x (B, D) f32; idx0 (B, nc) int32; centers (nc * 256, D) bf16; gmod
 // (nc * 256, 256) bf16; centers_i8 (nc * 256, D) int8 and csc (nc,) f32 for
-// e_dtype 2 (int8), else null; out (B, nc) int32.  pool_masks: `passes`
-// host words, bit t set where step t is a pool step.  e_dtype: 0 f32, 1
-// bf16, 2 int8.  Shapes are checked by the caller: D % 128 == 0, D <= 1024,
-// nc even and <= 16, M in {8, 16, 32, 64}, M * R <= 512.
+// e_dtype 2 (int8), else null; cmax (nc,) f32 for requant 2 ("bound"), else
+// null; gx (nc * 256, 256) bf16 for lazy != 0, else null; out (B, nc)
+// int32.  pool_masks: `passes` host words, bit t set where step t is a pool
+// step.  e_dtype: 0 f32, 1 bf16, 2 int8.  requant: 0 step, 1 pass, 2 bound
+// (int8 only).  Shapes and combinations are checked by the caller: D % 128
+// == 0, D <= 1024, nc even and <= 16, M in {8, 16, 32, 64}, M * R <= 512;
+// with lazy, no deferring R1 step is followed by another R1 step.
 extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void* centers,
                                      const void* gmod, const void* centers_i8, const void* csc,
-                                     void* out, int B, int D, int nc, int M, int R, int passes,
-                                     const void* pool_masks, int e_dtype, void* stream) {
-  if (passes > kMaxPasses || passes < 0) return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = (const float*)x;
-  a.idx0 = (const int32_t*)idx0;
-  a.C = (const uint16_t*)centers;
+                                     const void* cmax, const void* gx, void* out, int B, int D,
+                                     int nc, int M, int R, int passes, const void* pool_masks,
+                                     int e_dtype, int requant, int lazy, void* stream) {
+  if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
+    return (int)cudaErrorInvalidValue;
+  if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
+      (requant == kBound && !cmax) || (lazy && !gx))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
   a.gmod = (const uint16_t*)gmod;
   a.C8 = (const int8_t*)centers_i8;
   a.csc = (const float*)csc;
-  a.out = (int32_t*)out;
-  a.B = B; a.D = D; a.nc = nc; a.R = R; a.passes = passes;
+  a.cmax = (const float*)cmax;
+  a.gx = (const uint16_t*)gx;
   for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
-  a.F = qtt_seqbeam_v2_frames_per_block(e_dtype, M, D, nc, R);
+  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
   if (a.F == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(e_dtype, M, a.F, D, nc, R).total;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (e_dtype) {
-    case kF32: return launch_m<kF32>(a, M, smem, s);
-    case kBF16: return launch_m<kBF16>(a, M, smem, s);
-    case kI8: return launch_m<kI8>(a, M, smem, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const size_t smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0).total;
+  return launch_v2(a, e_dtype, M, requant, lazy != 0, smem, (cudaStream_t)stream);
+}
+
+// The v1 kernel: x, idx0, centers and out as above; qgram (nc * 256, 256)
+// f32, the Gram of the bf16 centers; csq (nc * 256,) f32, the squared norms
+// of the f32 centers.  f32 E, every step after the fan-out a pool step.
+// Checked by the caller: M a multiple of 8 in [8, 64], M * R <= 256.
+extern "C" int qtt_seqbeam_v1_launch(const void* x, const void* idx0, const void* centers,
+                                     const void* qgram, const void* csq, void* out, int B, int D,
+                                     int nc, int M, int R, int passes, void* stream) {
+  if (passes > kMaxPasses || passes < 0 || M * R > kCS) return (int)cudaErrorInvalidValue;
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
+  a.qg = (const float*)qgram;
+  a.csq = (const float*)csq;
+  a.F = frames_per_block(kF32, M, D, nc, R, false);
+  if (a.F == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = make_layout(kF32, M, a.F, D, nc, R, false).total;
+  return launch_v1(a, M, smem, (cudaStream_t)stream);
 }

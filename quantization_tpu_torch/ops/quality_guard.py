@@ -1,8 +1,9 @@
 """Write the GPU tables behind ``search_method="auto"``.
 
-For each kernel configuration on the auto ladder (``core.codec``), on the
-committed trained quantizers and 8,192 in-distribution frames per eval seed
-(7, 8, 9) from the key-42 MLP sampler, this measures on the card:
+For each kernel configuration on the auto ladder (``core.codec``), and for
+the promotion candidates in :data:`CANDIDATES` that auto does not run, on
+the committed trained quantizers and 8,192 in-distribution frames per eval
+seed (7, 8, 9) from the key-42 MLP sampler, this measures on the card:
 
 * ``verified.json`` (smoke): the kernel builds, launches, agrees with its
   plain PyTorch version on the card (at least 99.5% of indexes equal, summed
@@ -47,6 +48,27 @@ TRAIN_RATIO_SOURCE = (
     "vs torch reference, identical data + schedule)")
 MIN_AGREEMENT = 0.995
 MAX_SSE_REL = 1e-3
+# Promotion candidates measured beside the ladder, as the JAX package's
+# guard lists them (experiments/quality_guard.py:55-87): each needs its own
+# measured rows before it may join the ladder.  (name, passes, kwargs).
+_INT8E_D512 = dict(M=8, R=4, pool_mask="altparity", block_b=512, interleave=2,
+                   reorder="select", e_dtype="int8")
+CANDIDATES = {
+    512: [
+        ("seqbeam_int8e_fi_d512", 3, dict(_INT8E_D512, init_precision="default")),
+        ("seqbeam_int8e_bound_d512", 3, dict(_INT8E_D512, requant="bound")),
+        ("seqbeam_int8e_bound_fi_d512", 3,
+         dict(_INT8E_D512, requant="bound", init_precision="default")),
+        ("seqbeam_int8e_lazy_d512", 3, dict(_INT8E_D512, zip_skew=1, lazy_r1=True)),
+    ],
+    256: [
+        ("seqbeam_int8e_d256", 2, dict(M=8, R=4, pool_mask="altparity", block_b=256,
+                                       interleave=2, reorder="select", e_dtype="int8")),
+    ],
+}
+# the seqbeam_problem arguments; the rest are the TPU's scheduling knobs
+SEMANTIC_KEYS = ("M", "R", "pool_mask", "e_dtype", "init_precision", "impl", "requant",
+                 "lazy_r1")
 
 
 def eval_frames(dim: int, device) -> dict:
@@ -91,7 +113,8 @@ def against_plain(problem: Union[SeqbeamProblem, Gramv3Problem], centers: torch.
 
 @torch.no_grad()
 def guard_dim(dim: int, device) -> tuple:
-    """(smoke entries, quality entries) of the ladder at ``dim``."""
+    """(smoke entries, quality entries) of the ladder and the candidates at
+    ``dim``."""
     q = load_quantizer(EXPERIMENTS / TRAINED[dim], device=device)
     params, config = q.params, q.config
     centers, mean = q.get_centers(), q.get_data_mean()
@@ -100,10 +123,9 @@ def guard_dim(dim: int, device) -> tuple:
     beam5 = {k: sse(centers, search.compute_indexes(params, config, x, 5, "beam"), x)
              / denom[k] for k, x in xs.items()}
     smoke, quality = {}, {}
-    for name, passes, kw in _auto_candidates(config):
+    for name, passes, kw in _auto_candidates(config) + CANDIDATES[dim]:
         name = name.rstrip("!")
-        kw = {k: v for k, v in kw.items()
-              if k in ("M", "R", "pool_mask", "e_dtype", "init_precision")}
+        kw = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
         t0, launches = time.perf_counter(), SEQBEAM_KERNEL.launches
         deltas = {}
         for k, x in xs.items():

@@ -87,6 +87,54 @@ def test_cuda_seqbeam_matches_plain(cuda, e_dtype):
     assert chk["ok"], chk
 
 
+def _seqbeam_case(cuda, seed, nc, dim, B, **kw):
+    """A seqbeam problem on trained-like codebooks, and the f32 centers."""
+    rng = np.random.default_rng(seed)
+    arrays = _trained_like(rng, nc, 256, dim)
+    centers = arrays["centers"]
+    x = (centers[np.arange(nc)[None], rng.integers(0, 256, (B, nc))].sum(1)
+         + 2.0 * rng.standard_normal((B, dim))).astype(np.float32)
+    problem = tseq.seqbeam_problem(
+        params_from_numpy(arrays, device=cuda), QuantizerConfig(dim, 256, nc),
+        torch.from_numpy(x).to(cuda), passes=2, **kw)
+    return problem, torch.from_numpy(centers).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,R,dim", [(16, 8, 128), (24, 4, 256), (40, 4, 128), (64, 4, 128)])
+def test_cuda_seqbeam_v1_matches_plain(cuda, M, R, dim):
+    # v1 has its own entry point and count; M=24 and 40 leave a partial
+    # 16-row tile, B=257 a ragged last block
+    problem, centers = _seqbeam_case(cuda, 6, 4, dim, 257, M=M, R=R, impl="v1")
+    v1, v2 = tseq.SEQBEAM_V1_KERNEL.launches, tseq.SEQBEAM_KERNEL.launches
+    got = tseq.seqbeam_cuda(problem)
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_V1_KERNEL.launches == v1 + 1 and tseq.SEQBEAM_KERNEL.launches == v2
+    # f32 E: the bf16 rescores sum in mma.sync order on the card, in the
+    # plain matmul's order in the plain version; the bars of against_plain
+    chk = against_plain(problem, centers, got)
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc,dim,kw", [
+    (4, 256, dict(e_dtype="int8", requant="pass")),
+    (4, 256, dict(e_dtype="int8", requant="bound", pool_mask="altparity")),
+    (8, 128, dict(e_dtype="int8", lazy_r1=True, pool_mask="altparity")),
+    (8, 128, dict(e_dtype="f32", lazy_r1=True, pool_mask="altparity")),
+    (4, 256, dict(e_dtype="bf16", lazy_r1=True,
+                  pool_mask=((True, False, True, True), (True, True, False, True)))),
+])
+def test_cuda_seqbeam_b3_matches_plain(cuda, nc, dim, kw):
+    problem, centers = _seqbeam_case(cuda, 7, nc, dim, 513, M=8, R=4, **kw)
+    before = tseq.SEQBEAM_KERNEL.launches
+    got = tseq.seqbeam_cuda(problem)
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_KERNEL.launches == before + 1
+    chk = against_plain(problem, centers, got)
+    assert chk["ok"], chk
+
+
 @pytest.mark.gpu
 def test_main_path_on_card_launches_both_kernels(cuda):
     q = qtt.load_quantizer(Q256, device=cuda)

@@ -106,9 +106,12 @@ def test_unported_options_raise():
     arrays, x, _ = _problem(4, 2)
     tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=4)
     p, xt = params_from_numpy(arrays), torch.from_numpy(x)
-    for kw, item in ((dict(impl="v1"), "B4"), (dict(lazy_r1=True), "B3"),
-                     (dict(requant="bound"), "B3"), (dict(requant="pass"), "B3")):
-        with pytest.raises(NotImplementedError, match=item):
+    # combinations the TPU wrapper refuses: v1 takes f32 E only, lazy_r1 a
+    # static schedule, and "pass"/"bound" int8 E only
+    for kw, what in ((dict(impl="v1", e_dtype="int8"), "v1"), (dict(lazy_r1=True), "lazy_r1"),
+                     (dict(requant="bound"), "int8"), (dict(requant="pass", e_dtype="bf16"),
+                                                       "int8")):
+        with pytest.raises(ValueError, match=what):
             tseq.seqbeam_encode_indexes(p, tc, xt, **kw)
     for kw in (dict(M=12), dict(M=64, R=16), dict(e_dtype="fp8"), dict(passes=0),
                dict(pool_mask="nope"), dict(init_indexes=torch.full((B, 4), CS)),
