@@ -3,7 +3,7 @@
 
 Phases, each of which raises (and exits nonzero) when its check fails:
 
-1. build the three CUDA kernels from ``quantization_tpu_torch/csrc``, one
+1. build the five CUDA sources of ``quantization_tpu_torch/csrc``, one
    ``nvcc`` per source, started together;
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
@@ -53,7 +53,19 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    in the JAX tests (>= 95% of indexes equal, squared error within 1e-3),
    each lazy config to its eager twin (>= 98%, within 2e-3), and pass and
    bound end below their initial indexes' error.  Quality vs beam-5,
-   kernel, plain and bound ms, and encode vec/s.
+   kernel, plain and bound ms, and encode vec/s;
+8. the primitive probes, ``quantization_tpu_torch.experiments.prim_bench``
+   (P1-P4: minround, gather, matmul, assembly) and ``.int8_mxu_probe`` (P5,
+   P6: the "bf16" and int8 rescore chains), at the JAX scripts' shapes and
+   K on seeded inputs with the scripts' distributions.  Each probe's own
+   path (the per-iteration slope through its dispatcher; one timed run of
+   each chain) runs with its launch count set to 0 just before and read
+   just after, and must launch its kernel.  Each kernel is then held
+   against its plain version on the same inputs at both K: P1, P2, P4 and
+   P6 bit-exact, P3 within 1e-5 of the sum of |terms|, P5 at >= 99.99% of
+   elements equal, the rest within one bf16 ulp, and every element the
+   chain changes equal.  Per-iteration (P1-P4) or per-chain (P5, P6)
+   kernel, plain, bound and library times.
 
 The output ends with the ``paths`` JSON line, the card's ``nvidia-smi``
 name and power limit, one JSON line with the kernels' numbers, and the
@@ -109,21 +121,6 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` launches (CUDA
-    events around the run, after ``warmup`` untimed calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def host_s(fn, reps: int) -> float:
     """Best host seconds of ``fn`` (ending in a synchronize) over ``reps``."""
     best = float("inf")
@@ -152,7 +149,7 @@ def main() -> int:
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain
-    from quantization_tpu_torch.utils.device import nvidia_smi_line
+    from quantization_tpu_torch.utils.device import device_ms, nvidia_smi_line
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -160,9 +157,10 @@ def main() -> int:
           f" | {smi}", flush=True)
 
     # ---- 1. build
-    build_s = cuda_build.build(["decode", "seqbeam", "gramv3"])
+    sources = ("decode", "seqbeam", "gramv3", "prim_bench", "int8_mxu_probe")
+    build_s = cuda_build.build(sources)
     print(f"[build] {build_s:.1f} s", flush=True)
-    for name in ("decode", "seqbeam", "gramv3"):
+    for name in sources:
         regs = [l.strip() for l in cuda_build.build_log(name).splitlines() if "registers" in l]
         print(f"[build] {name}: {len(regs)} kernels; {regs[0] if regs else ''}", flush=True)
 
@@ -191,9 +189,9 @@ def main() -> int:
         "shape": f"B={DECODE_B} nc={nc} cs={cs} D={D}",
         "max_abs_err": float((got - want).abs().max()),
         "library_max_abs_diff": float((lib_out - want).abs().max()),
-        "ms": cuda_ms(lambda: K1.decode_cuda(idx, cb), 50),
-        "plain_ms": cuda_ms(lambda: K1.decode_plain(idx, cb), 10),
-        "library_ms": cuda_ms(lambda: F.embedding_bag(flat, table, mode="sum"), 50),
+        "ms": device_ms(lambda: K1.decode_cuda(idx, cb), 50),
+        "plain_ms": device_ms(lambda: K1.decode_plain(idx, cb), 10),
+        "library_ms": device_ms(lambda: F.embedding_bag(flat, table, mode="sum"), 50),
     }
     k1_bytes = DECODE_B * nc * 4 + nc * cs * D * 2 + DECODE_B * D * 4
     k1_ops = DECODE_B * nc * D
@@ -218,8 +216,8 @@ def main() -> int:
         entry = {
             "config": name, "shape": f"B={TIME_B} D={dim} nc={qq.num_codebooks} passes={passes}",
             **sem, **{k: chk[k] for k in CHECK_KEYS},
-            "ms": cuda_ms(lambda: K2.seqbeam_cuda(pt), 5),
-            "plain_ms": cuda_ms(lambda: K2.seqbeam_plain(pt), 2),
+            "ms": device_ms(lambda: K2.seqbeam_cuda(pt), 5),
+            "plain_ms": device_ms(lambda: K2.seqbeam_plain(pt), 2),
         }
         entry.update(_seqbeam_bound(TIME_B, dim, qq.num_codebooks, passes, sem["M"],
                                     sem["e_dtype"]))
@@ -285,9 +283,9 @@ def main() -> int:
         dec_s = host_s(lambda: qq.decode(codes, use_kernel=True), 5)
         # where the encode time goes: the logits-argmax init and the tables,
         # then the kernel (the rest is packing and Python)
-        prep_ms = cuda_ms(lambda: K2.seqbeam_problem(qq.params, qq.config, x, passes=passes,
+        prep_ms = device_ms(lambda: K2.seqbeam_problem(qq.params, qq.config, x, passes=passes,
                                                      **sem), 3)
-        kernel_ms = cuda_ms(lambda: K2.seqbeam_cuda(problem), 3)
+        kernel_ms = device_ms(lambda: K2.seqbeam_cuda(problem), 3)
         path = {
             "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": chosen[0],
             "batch": TIME_B, "launches": {"seqbeam_v2": n_enc, "decode": n_dec},
@@ -319,6 +317,8 @@ def main() -> int:
         launches[kernel] = launches.get(kernel, 0) + n
     k2_configs += rest["configs"]["seqbeam_v2"]
     k2_checks += rest["checks"]["seqbeam_v2"]
+    # ---- 8. the primitive probes
+    probes = probe_phase(dev)
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -352,9 +352,25 @@ def main() -> int:
         "library_ms": None, "launches": launches["gramv3"], "checks": k3_checks,
         "configs": k3_configs,
     }
+    # rule 2's ranking: per kernel, the sum over the paths' runs of launches
+    # x (kernel ms - bound ms), each run at its own config
+    bounds = {c["config"]: c["bound_ms"] for c in k2_configs + k3_configs + v1_configs}
+    runs = [("seqbeam_v2", p["launches"]["seqbeam_v2"], p["encode_kernel_ms"], bounds[p["config"]])
+            for p in paths]
+    runs += [("gramv3", p["launches"]["gramv3"], p["encode_kernel_ms"], bounds[p["config"]])
+             for p in gram_paths]
+    runs += [(c["kernel"], c["launches"], c["ms"], c["bound_ms"]) for c in train_checks]
+    runs += [(k, n, p["encode_kernel_ms"], bounds[p["config"]])
+             for p in rest["paths"] for k, n in p["launches"].items()]
+    for k in (k2, k3, k_v1):
+        k["launches_x_excess_ms"] = sum(n * (ms - b) for name, n, ms, b in runs
+                                        if name == k["name"])
+    print("[rule 2] launches x (ms - bound ms) over the paths: " + ", ".join(
+        f"{k['name']} {k['launches_x_excess_ms']:.3f}"
+        for k in sorted((k2, k3, k_v1), key=lambda k: -k["launches_x_excess_ms"])), flush=True)
     print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"]}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k_v1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k_v1, *probes]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -369,6 +385,7 @@ def gram_phase(quantizers: dict, main_frames: dict):
     from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.utils.device import device_ms
 
     paths, configs, checks, launches = [], [], [], 0
     for dim, g_dtype, pool_mask in GRAM_CONFIGS:
@@ -396,12 +413,12 @@ def gram_phase(quantizers: dict, main_frames: dict):
         ratio = float(((qq.decode(codes[:CHECK_B]) - xs) ** 2).sum()) / sse_beam
         check(ratio <= BAR, f"{name}: gramv3/beam-5 squared error {ratio} > {BAR}")
         enc_s = host_s(lambda: qq.encode(x, search_method="gramv3", **kw), 3)
-        prep_ms = cuda_ms(lambda: K3.gramv3_problem(qq.params, qq.config, x,
+        prep_ms = device_ms(lambda: K3.gramv3_problem(qq.params, qq.config, x,
                                                     passes=GRAM_PASSES, **kw), 3)
         entry = {"config": name, "shape": shape, "g_dtype": g_dtype, "pool_mask": pool_mask,
                  **{k: chk[k] for k in CHECK_KEYS},
-                 "ms": cuda_ms(lambda: K3.gramv3_cuda(problem), 5),
-                 "plain_ms": cuda_ms(lambda: K3.gramv3_plain(problem), 2)}
+                 "ms": device_ms(lambda: K3.gramv3_cuda(problem), 5),
+                 "plain_ms": device_ms(lambda: K3.gramv3_plain(problem), 2)}
         entry.update(_gramv3_bound(TIME_B, nc, GRAM_PASSES, 8, g_dtype))
         configs.append(entry)
         paths.append({
@@ -429,6 +446,7 @@ def train_phase(sampler, dev):
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.utils.device import device_ms
     from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
 
     p1, p2 = TRAIN["phase_one_iters"], TRAIN["phase_two_iters"]
@@ -503,8 +521,8 @@ def train_phase(sampler, dev):
                   f"train {search}: kernel vs plain on a phase-2 batch: {chk}")
             checks.append({"where": f"training {search}", "kernel": kernel, "shape": shape,
                            "launches": n_k, **{k: chk[k] for k in CHECK_KEYS},
-                           "ms": cuda_ms(lambda: run(problem), 20),
-                           "plain_ms": cuda_ms(lambda: plain(problem), 3), **bound})
+                           "ms": device_ms(lambda: run(problem), 20),
+                           "plain_ms": device_ms(lambda: plain(problem), 3), **bound})
             entry["kernel_vs_plain"] = checks[-1]
         paths.append(entry)
         print(f"[train {search}] d{dim}/{nc_bytes}B batch {TRAIN_BATCH}: launches "
@@ -538,6 +556,157 @@ def train_phase(sampler, dev):
 
 
 @torch.no_grad()
+def probe_phase(dev) -> list:
+    """Phase 8: the primitive probes (``experiments/prim_bench.py`` and
+    ``experiments/int8_mxu_probe.py``) at the JAX scripts' shapes and K.
+    The probes' own path (the slope of each of P1-P4 through its
+    dispatcher, one timed run of each chain) runs with the launch counts
+    set to 0 just before and read just after; then each kernel is held
+    against its plain version on the same inputs at both K.  Returns the
+    ``kernels`` entries."""
+    from quantization_tpu_torch.experiments import int8_mxu_probe as P56
+    from quantization_tpu_torch.experiments import prim_bench as P14
+    from quantization_tpu_torch.utils.device import device_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products (default)
+    entries = []
+    for p in P14.probes(dev):
+        counter = P14.KERNELS[p.name]
+        counter.launches = 0
+        us = P14.slope_us(p.run, *p.Ks)
+        torch.cuda.synchronize()
+        n = counter.launches
+        check(n > 0, f"probe {p.name}: the kernel was not launched")
+        errs = []
+        for K in p.Ks:
+            got, want = p.run(K), p.plain(K)
+            if p.name == "matmul":
+                check(P14.matmul_close(got, want, *p.inputs, K),
+                      f"probe matmul K={K}: beyond {P14.MATMUL_RTOL} of the sum of |terms|")
+            else:
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"probe {p.name} K={K}: not bit-exact against its plain version")
+            errs.append(float(torch.where(got == want, 0.0, (got - want).abs()).max()))
+        K1, K2 = p.Ks
+        entry = {
+            "name": p.name, "route": "cuda",
+            "source": "quantization_tpu_torch/csrc/prim_bench.cu",
+            "replaces": PROBE_REPLACES[p.name],
+            "shape": f"{' x '.join(str(tuple(t.shape)) for t in p.inputs)}, K={K1},{K2}",
+            "unit": f"ms an iteration: device time at K={K2} less K={K1}, over {K2 - K1}",
+            "launches": n, "max_abs_err": max(errs), "ms": us * 1e-3,
+            "plain_ms": P14.slope_us(p.plain, *p.Ks, reps=3) * 1e-3,
+            # an iteration moves no bytes off chip: the slope cancels the
+            # call's one read of the inputs and write of the output
+            **_bound(0, _probe_ops(p.name, p.inputs)),
+            "library_ms": _matmul_library_ms(*p.inputs) if p.name == "matmul" else None,
+        }
+        entries.append(entry)
+        print(f"[probe {p.name}] {p.label}: {us:.5f} {p.unit} (plain "
+              f"{entry['plain_ms'] * 1e3:.5f}, bound {entry['bound_ms'] * 1e3:.5f}"
+              + (f", torch.matmul bf16 {entry['library_ms'] * 1e3:.5f}" if entry["library_ms"]
+                 else "") + f"); launches {n}; max_abs_err {max(errs):.3g}", flush=True)
+    for ch in P56.chains(dev):
+        counter = P56.KERNELS[ch.name]
+        counter.launches = 0
+        ms = device_ms(ch.run, 20)
+        torch.cuda.synchronize()
+        n = counter.launches
+        check(n > 0, f"probe {ch.name}: the kernel was not launched")
+        got, want = ch.run(), ch.plain()
+        e, c = ch.inputs
+        if ch.name == "bf16_chain":
+            chk = P56.bf16_chain_agreement(got, want, e)
+            check(chk["ok"], f"probe bf16_chain vs its plain version: {chk}")
+            err, agreement = chk["max_abs_err"], chk
+        else:
+            check(torch.equal(got, want), "probe int8_chain: not bit-exact against its plain version")
+            err, agreement = 0.0, {"bit_exact": True}
+        mb, d = e.shape
+        cs = c.shape[0]
+        prods = [(mb, d, cs), (mb, cs, d)]  # the two products of a step
+        dtype = torch.float32 if ch.name == "bf16_chain" else torch.int8
+        library = sum(device_ms(_mm(m, k, n2, dtype, dev), 20) for m, k, n2 in prods)
+        entry = {
+            "name": ch.name, "route": "cuda",
+            "source": "quantization_tpu_torch/csrc/int8_mxu_probe.cu",
+            "replaces": PROBE_REPLACES[ch.name],
+            "shape": f"E {tuple(e.shape)} x c {tuple(c.shape)} f32, {P56.STEPS} steps",
+            "unit": "ms a chain (one launch)", "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": device_ms(ch.plain, 3),
+            # E and c read once, the output written once
+            **_bound((2 * e.numel() + c.numel()) * 4, _chain_ops(ch.name, mb, d, cs)),
+            "library_ms": library * P56.STEPS, "agreement": agreement,
+            "tflops": P56.FLOPS / (ms * 1e-3) / 1e12,
+        }
+        entries.append(entry)
+        print(f"[probe {ch.name}] {ch.label}: {ms:.4f} ms/chain {entry['tflops']:.1f} TFLOP/s "
+              f"(plain {entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f} "
+              f"({entry['bound_by']}), library {entry['library_ms']:.4f}); launches {n}; "
+              f"vs plain {json.dumps(agreement)}", flush=True)
+    return entries
+
+
+def _matmul_library_ms(a, b) -> float:
+    """One bf16 ``torch.matmul`` of P3's shape, per product."""
+    from quantization_tpu_torch.utils.device import device_ms
+
+    a16, bt = a.to(torch.bfloat16), b.T
+    return device_ms(lambda: a16 @ bt, 50)
+
+
+def _mm(m: int, k: int, n: int, dtype, dev):
+    """One library product of (m, k) by (k, n): f32 ``torch.matmul`` (TF32
+    off) or int8 ``torch._int_mm``; returns the call to time."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    if dtype == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+        b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
+        return lambda: torch._int_mm(a, b)
+    a, b = torch.randn(m, k, generator=gen).to(dev), torch.randn(k, n, generator=gen).to(dev)
+    return lambda: a @ b
+
+
+PROBE_REPLACES = {
+    "minround": "experiments/prim_bench.py:35", "gather": "experiments/prim_bench.py:49",
+    "matmul": "experiments/prim_bench.py:57", "assembly": "experiments/prim_bench.py:68",
+    "bf16_chain": "experiments/int8_mxu_probe.py:39",
+    "int8_chain": "experiments/int8_mxu_probe.py:57",
+}
+
+
+def _probe_ops(name: str, inputs) -> dict:
+    """Operations of ONE iteration of a prim_bench probe, by type.  minround:
+    a min, a compare and a select an element a round; gather: one add an
+    element; matmul: 2 M N D bf16 products-and-sums, plus M D adds of i and
+    M N adds into the sum; assembly: 5 operations an element (the products
+    by 2 included)."""
+    x = inputs[0]
+    if name == "minround":
+        return {"f32": 3 * x.numel()}
+    if name == "gather":
+        return {"f32": x.numel()}
+    if name == "matmul":
+        (M, D), N = x.shape, inputs[1].shape[0]
+        return {"bf16": 2 * M * N * D, "f32": M * D + M * N}
+    return {"f32": 5 * x.numel()}
+
+
+def _chain_ops(name: str, mb: int, d: int, cs: int) -> dict:
+    """Operations of one chain of STEPS steps, by type.  "bf16" (c in f32):
+    2 mb d cs f32 multiply-adds a step, plus the bf16 rounding of cross and
+    the scale, add and rounding of E; int8: 2 x 2 mb d cs int8 operations a
+    step, plus 7 elementwise f32 operations an element of cross (dequantize
+    2, |.| and max 2, divide, scale and round 3) and of E (scale upd 1, ef
+    2, |.| and max 2, divide and round 2)."""
+    from quantization_tpu_torch.experiments.int8_mxu_probe import STEPS
+
+    if name == "bf16_chain":
+        return {"f32": STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)}
+    return {"int8": STEPS * 2 * 2 * mb * d * cs, "f32": STEPS * 7 * (mb * cs + mb * d)}
+
+
+@torch.no_grad()
 def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
     """Phase 7: seqbeam v1 and v2's pass/bound/lazy semantics through
     ``encode(search_method="seqbeam")`` on the main path's frames.  Returns
@@ -546,6 +715,7 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
     from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.quality_guard import CANDIDATES, SEMANTIC_KEYS, against_plain
+    from quantization_tpu_torch.utils.device import device_ms
 
     cand = {name: (passes, kw) for name, passes, kw in CANDIDATES[512]}
     int8e, hl = ladder["seqbeam_int8e_d512"], ladder["seqbeam_hl_d512"]
@@ -614,8 +784,8 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
         enc_s = host_s(lambda: qq.encode(x, search_method="seqbeam",
                                          refine_indexes_iters=passes, **kw), 3)
         entry = {"config": name, "shape": shape, **sem, **{k: chk[k] for k in CHECK_KEYS},
-                 "ms": cuda_ms(lambda: K2.seqbeam_cuda(problem), 3),
-                 "plain_ms": cuda_ms(lambda: K2.seqbeam_plain(problem), 1),
+                 "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
+                 "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 1),
                  **_seqbeam_bound(TIME_B, dim, nc, passes, sem["M"], sem.get("e_dtype", "f32"))}
         out["configs"][kernel].append(entry)
         out["checks"][kernel].append({"where": f"encode path {name}", "shape": shape,

@@ -1,0 +1,290 @@
+"""Micro-benchmarks of the seqbeam kernel's primitive units on the card.
+
+Counterpart of ``experiments/prim_bench.py``.  Each probe repeats ONE
+primitive K times on data held on chip, in one launch of a hand-written
+kernel (``csrc/prim_bench.cu``), so that the cost of one iteration is the
+slope of the device time between two values of K (the launch cost cancels):
+
+- ``minround``: K rounds of packed-min selection over (rows, 128) f32, the
+  selection unit.  The key is ``max(x, 0)``'s bits with the 8 low bits
+  replaced by the lane; each round, every row's smallest key (unsigned
+  order) becomes 1e30;
+- ``gather``: K gathers along the 8 rows of an (8, N) f32 table,
+  ``acc[r, n] += x[(idx[r, n] + i) mod 8, n]``, the M=8 reorder unit;
+- ``matmul``: K products ``bf16(a + i) . b^T`` with f32 sums, added up in
+  f32, the rescore unit;
+- ``assembly``: K passes of the fused elementwise score assembly
+  ``((acc - 2 col) + row) + 2 (acc - row)`` over (rows, cs).
+
+Each has a plain PyTorch version (``*_plain``), step for step the JAX
+kernel's arithmetic, and the kernel (``*_cuda``); the dispatcher of each
+probe runs the kernel on a CUDA tensor and the plain version on a CPU
+tensor.
+
+Run on the card:  python -m quantization_tpu_torch.experiments.prim_bench
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import sys
+from dataclasses import dataclass
+from typing import Callable, List, Tuple
+
+import torch
+
+from ..ops.cuda_build import CudaKernel
+from ..utils.device import device_ms, dispatch, nvidia_smi_line
+
+INF = 1e30
+MASK = 255
+INF_BITS = struct.unpack("<I", struct.pack("<f", INF))[0]
+LANES = 128
+GATHER_ROWS = 8
+
+MINROUND_KERNEL = CudaKernel(
+    "prim_bench", "qtt_minround_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p])
+GATHER_KERNEL = CudaKernel(
+    "prim_bench", "qtt_gather_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p])
+MATMUL_KERNEL = CudaKernel(
+    "prim_bench", "qtt_matmul_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
+ASSEMBLY_KERNEL = CudaKernel(
+    "prim_bench", "qtt_assembly_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p])
+KERNELS = {"minround": MINROUND_KERNEL, "gather": GATHER_KERNEL, "matmul": MATMUL_KERNEL,
+           "assembly": ASSEMBLY_KERNEL}
+
+MATMUL_COLS_BLOCK = 64  # csrc/prim_bench.cu: a block's columns of the product
+MATMUL_MAX_D = 896  # the rows of a and b a block keeps in shared memory
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError(f"{name} needs its tensors on one CUDA device")
+
+
+# ---- minround: the selection unit
+
+
+def minround_plain(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K rounds of packed-min selection over (rows, 128) float32.  Keys are
+    compared as unsigned 32-bit integers (held in int64 here), which is the
+    order of the packed floats for every non-negative input."""
+    lane = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    bits = torch.clamp_min(x, 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = (bits & ~MASK) | lane
+    for _ in range(K):
+        pos = key.min(dim=1, keepdim=True).values & MASK
+        key = torch.where(lane == pos, INF_BITS, key)
+    return torch.where(key >= 2**31, key - 2**32, key).to(torch.int32).view(torch.float32)
+
+
+def minround_cuda(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel on the same inputs as :func:`minround_plain`."""
+    _check_cuda("minround_cuda", x)
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != LANES:
+        raise ValueError(f"expected (rows, {LANES}) float32, got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    MINROUND_KERNEL(x.data_ptr(), out.data_ptr(), x.shape[0], K, _stream(x))
+    return out
+
+
+def minround(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K packed-min rounds: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    return dispatch("minround", x.device, minround_cuda, minround_plain, x, K)
+
+
+# ---- gather: the M=8 reorder unit
+
+
+def gather_plain(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """``acc[r, n] = sum_{i<K} x[(idx[r, n] + i) mod 8, n]`` over (8, N)
+    float32, summed in order from 0.  The mod is a floor mod, as ``jnp``'s
+    ``%``: negative indexes land in [0, 8) too."""
+    acc = torch.zeros_like(x)
+    for i in range(K):
+        acc = acc + torch.gather(x, 0, torch.remainder(idx + i, GATHER_ROWS).long())
+    return acc
+
+
+def gather_cuda(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel on the same inputs as :func:`gather_plain`."""
+    _check_cuda("gather_cuda", x, idx)
+    if (x.dtype != torch.float32 or idx.dtype != torch.int32 or x.ndim != 2
+            or x.shape[0] != GATHER_ROWS or idx.shape != x.shape):
+        raise ValueError(f"expected (8, N) float32 and int32, got {x.dtype} {tuple(x.shape)}, "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    x, idx = x.contiguous(), idx.contiguous()
+    out = torch.empty_like(x)
+    GATHER_KERNEL(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[1], K, _stream(x))
+    return out
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """K grouped 8-row gathers: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    return dispatch("gather", x.device, gather_cuda, gather_plain, x, idx, K)
+
+
+# ---- matmul: the rescore unit
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
+    """``sum_{i<K} bf16(a + i) . b^T`` for f32 a (M, D) and bf16 b (N, D):
+    each product in f32, added to the f32 sum in order."""
+    bf = b.float()
+    acc = torch.zeros(a.shape[0], b.shape[0], dtype=torch.float32, device=a.device)
+    for i in range(K):
+        acc = acc + (a + i).to(torch.bfloat16).float() @ bf.T
+    return acc
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel (``mma.sync`` m16n8k16 bf16, b in shared memory) on the
+    same inputs as :func:`matmul_plain`."""
+    _check_cuda("matmul_cuda", a, b)
+    M, D = a.shape
+    N = b.shape[0]
+    if a.dtype != torch.float32 or b.dtype != torch.bfloat16 or b.shape != (N, D):
+        raise ValueError(f"expected (M, D) float32 and (N, D) bfloat16, got {a.dtype} "
+                         f"{tuple(a.shape)}, {b.dtype} {tuple(b.shape)}")
+    if N % MATMUL_COLS_BLOCK or D % 16 or D > MATMUL_MAX_D:
+        raise ValueError(f"matmul_cuda takes N % {MATMUL_COLS_BLOCK} == 0 and D % 16 == 0, "
+                         f"D <= {MATMUL_MAX_D}; got N={N}, D={D}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(M, N, dtype=torch.float32, device=a.device)
+    MATMUL_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, D, K, _stream(a))
+    return out
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
+    """K rescore products: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    return dispatch("matmul", a.device, matmul_cuda, matmul_plain, a, b, K)
+
+
+MATMUL_RTOL = 1e-5
+
+
+def matmul_close(got: torch.Tensor, want: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 K: int) -> bool:
+    """Whether two results of ``matmul`` differ by at most MATMUL_RTOL of
+    the sum of |terms| (``sum_i |bf16(a + i)| . |b|^T``): the same products,
+    summed in another order."""
+    bf = b.float().abs()
+    scale = sum((a + i).to(torch.bfloat16).float().abs() @ bf.T for i in range(K))
+    return bool(((got - want).abs() <= MATMUL_RTOL * scale).all())
+
+
+# ---- assembly: the fused score assembly
+
+
+def assembly_plain(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K passes of ``acc <- ((acc - 2 col) + row) + 2 (acc - row)`` from
+    ``acc = x``, with ``col = x[:, 0:1]`` and ``row = x[0:1, :]``."""
+    col, row = x[:, 0:1], x[0:1, :]
+    acc = x
+    for _ in range(K):
+        acc = ((acc - 2.0 * col) + row) + 2.0 * (acc - row)
+    return acc
+
+
+def assembly_cuda(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel on the same inputs as :func:`assembly_plain`."""
+    _check_cuda("assembly_cuda", x)
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"expected (rows, cs) float32, got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ASSEMBLY_KERNEL(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], K, _stream(x))
+    return out
+
+
+def assembly(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K assembly passes: the kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    return dispatch("assembly", x.device, assembly_cuda, assembly_plain, x, K)
+
+
+# ---- the probes at the JAX script's shapes
+
+ROWS = 1024
+GATHER_N = 128 * 512
+MATMUL_D, MATMUL_N = 512, 256
+ASSEMBLY_CS = 256
+
+
+@dataclass
+class Probe:
+    """One probe on its inputs: ``run(K)`` goes through the dispatcher,
+    ``plain(K)`` is the plain version on the same inputs."""
+
+    name: str
+    label: str  # the JAX script's line
+    unit: str
+    Ks: Tuple[int, int]  # the two K of the slope
+    inputs: Tuple[torch.Tensor, ...]
+    run: Callable[[int], torch.Tensor]
+    plain: Callable[[int], torch.Tensor]
+
+
+def probes(device: torch.device) -> List[Probe]:
+    """The four probes at the JAX script's shapes and K, on inputs drawn
+    from a generator seeded with 0 with the script's distributions: uniform
+    in [1, 2) for minround, in [0, 1) otherwise, and all-zero gather
+    indexes."""
+    gen = torch.Generator().manual_seed(0)
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=gen).to(device)
+
+    x1 = uniform(ROWS, LANES) + 1.0
+    tbl, idx = uniform(GATHER_ROWS, GATHER_N), torch.zeros(GATHER_ROWS, GATHER_N,
+                                                          dtype=torch.int32, device=device)
+    a, b = uniform(ROWS, MATMUL_D), uniform(MATMUL_N, MATMUL_D).to(torch.bfloat16)
+    xa = uniform(ROWS, ASSEMBLY_CS)
+    return [
+        Probe("minround", f"packed-min round ({ROWS},{LANES})", "us/round", (32, 96), (x1,),
+              lambda K: minround(x1, K), lambda K: minround_plain(x1, K)),
+        Probe("gather", f"8-row gather ({GATHER_ROWS},{GATHER_N}) f32", "us/gather", (16, 48),
+              (tbl, idx), lambda K: gather(tbl, idx, K), lambda K: gather_plain(tbl, idx, K)),
+        Probe("matmul", f"matmul ({ROWS},{MATMUL_D})x({MATMUL_D},{MATMUL_N}) bf16", "us/mm",
+              (16, 48), (a, b), lambda K: matmul(a, b, K), lambda K: matmul_plain(a, b, K)),
+        Probe("assembly", f"fused assembly pass ({ROWS},{ASSEMBLY_CS})", "us/pass", (32, 96),
+              (xa,), lambda K: assembly(xa, K), lambda K: assembly_plain(xa, K)),
+    ]
+
+
+def slope_us(fn: Callable[[int], object], K1: int, K2: int, reps: int = 20) -> float:
+    """Microseconds an iteration: the device time of ``fn(K2)`` less that
+    of ``fn(K1)``, over ``K2 - K1`` (the JAX script's slope; the launch
+    cost cancels)."""
+    t1 = device_ms(lambda: fn(K1), reps)
+    t2 = device_ms(lambda: fn(K2), reps)
+    return (t2 - t1) / (K2 - K1) * 1e3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("prim_bench: no CUDA device is available; the probes run only on a card",
+              file=sys.stderr)
+        return 2
+    for p in probes(torch.device("cuda")):
+        print(f"{p.label}: {slope_us(p.run, *p.Ks):9.4f} {p.unit}", flush=True)
+    print(nvidia_smi_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

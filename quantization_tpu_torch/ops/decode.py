@@ -15,6 +15,7 @@ import torch
 
 from ..core import codec as _codec
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
+from ..utils.device import dispatch
 from .cuda_build import CudaKernel
 
 DECODE_KERNEL = CudaKernel(
@@ -78,10 +79,5 @@ def decode_kernel(
     lead = indexes.shape[:-1]
     idx = _codec.unpack_indexes(indexes.reshape(-1, indexes.shape[-1]), cs, nc)
     centers = scaled_centers(params, config.scale_speed).to(torch.bfloat16)
-    if idx.device.type == "cuda":
-        out = decode_cuda(idx, centers)
-    elif idx.device.type == "cpu":
-        out = decode_plain(idx, centers)
-    else:
-        raise ValueError(f"decode runs on CUDA (kernel) or CPU (plain) tensors, not {idx.device}")
+    out = dispatch("decode", idx.device, decode_cuda, decode_plain, idx, centers)
     return out.reshape(*lead, D)

@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
+from ..utils.device import dispatch
 from .cuda_build import CudaKernel
 from .seqbeam import LANE_BITS, LANE_MASK, _as_float, _keys, init_indexes_from_logits, pool_bits
 
@@ -288,8 +289,4 @@ def gramv3_encode_indexes(
     if loop == "fori" and _pass_modes(problem.masks, config.num_codebooks) is None:
         raise ValueError(
             f"loop='fori' needs a per-pass-uniform pool schedule; got {pool_mask!r}")
-    if x.device.type == "cuda":
-        return gramv3_cuda(problem)
-    if x.device.type == "cpu":
-        return gramv3_plain(problem)
-    raise ValueError(f"gramv3 runs on CUDA (kernel) or CPU (plain) tensors, not {x.device}")
+    return dispatch("gramv3", x.device, gramv3_cuda, gramv3_plain, problem)

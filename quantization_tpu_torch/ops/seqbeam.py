@@ -60,6 +60,7 @@ import torch
 
 from ..core import search as _search
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
+from ..utils.device import dispatch
 from .cuda_build import CudaKernel
 
 LANE_BITS = 8
@@ -531,11 +532,7 @@ def seqbeam_encode_indexes(
     problem = seqbeam_problem(
         params, config, x, M, R, passes, pool_mask, e_dtype, init_indexes, init_precision,
         impl=impl, requant=requant, lazy_r1=lazy_r1)
-    if x.device.type == "cuda":
-        return seqbeam_cuda(problem)
-    if x.device.type == "cpu":
-        return seqbeam_plain(problem)
-    raise ValueError(f"seqbeam runs on CUDA (kernel) or CPU (plain) tensors, not {x.device}")
+    return dispatch("seqbeam", x.device, seqbeam_cuda, seqbeam_plain, problem)
 
 
 def _check_variant(M: int, R: int, nc: int, passes: int, pool_mask, e_dtype: str, impl: str,

@@ -19,6 +19,8 @@ import torch
 import quantization_tpu_torch as qtt
 from quantization_tpu_torch.core import QuantizerConfig
 from quantization_tpu_torch.data.synthetic import make_mlp_sampler
+from quantization_tpu_torch.experiments import int8_mxu_probe as tprobe
+from quantization_tpu_torch.experiments import prim_bench as tprim
 from quantization_tpu_torch.ops import decode as tdecode
 from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
@@ -184,3 +186,86 @@ def test_trainer_steps_on_card_launch_the_kernel(cuda, train_search, kernel):
     assert t.done() and (t.config.codebook_size, t.config.num_codebooks) == (256, 2)
     assert counter.launches - before == 3  # one search per phase-2 step
     assert all(bool(torch.isfinite(v).all()) for step in losses for v in step)
+
+
+def _uniform(cuda, seed, *shape, low=0.0, high=1.0):
+    u = torch.rand(*shape, generator=torch.Generator().manual_seed(seed))
+    return (u * (high - low) + low).to(cuda)
+
+
+def _launched_once(counter, fn):
+    before = counter.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    return out
+
+
+# the primitive probes at the JAX scripts' shapes, and at a ragged shape each
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,low", [(1024, 1.0), (1001, 1.0), (1001, -0.5)])
+def test_cuda_minround_bit_exact_vs_plain(cuda, rows, low):
+    # [-0.5, 2) gives keys of the lane alone (denormal floats): unsigned
+    # order on both sides
+    x = _uniform(cuda, 1, rows, 128, low=low, high=2.0)
+    for K in (32, 96, 130):
+        got = _launched_once(tprim.MINROUND_KERNEL, lambda: tprim.minround_cuda(x, K))
+        assert torch.equal(got.view(torch.int32), tprim.minround_plain(x, K).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [65536, 1000])
+@pytest.mark.parametrize("kind", ["zero", "random", "negative"])
+def test_cuda_gather_bit_exact_vs_plain(cuda, N, kind):
+    x = _uniform(cuda, 2, 8, N)
+    gen = torch.Generator().manual_seed(3)
+    idx = {"zero": torch.zeros(8, N, dtype=torch.int32),
+           "random": torch.randint(0, 8, (8, N), generator=gen, dtype=torch.int32),
+           "negative": torch.randint(-1000, 0, (8, N), generator=gen, dtype=torch.int32)}[kind]
+    idx = idx.to(cuda)
+    for K in (16, 48):
+        got = _launched_once(tprim.GATHER_KERNEL, lambda: tprim.gather_cuda(x, idx, K))
+        assert torch.equal(got, tprim.gather_plain(x, idx, K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1024, 1000])
+def test_cuda_matmul_matches_plain(cuda, M):
+    a = _uniform(cuda, 4, M, 512)
+    b = _uniform(cuda, 5, 256, 512).to(torch.bfloat16)
+    for K in (16, 48):
+        got = _launched_once(tprim.MATMUL_KERNEL, lambda: tprim.matmul_cuda(a, b, K))
+        # the same products in mma.sync order: within 1e-5 of the sum of |terms|
+        assert tprim.matmul_close(got, tprim.matmul_plain(a, b, K), a, b, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1024, 1001])
+def test_cuda_assembly_bit_exact_vs_plain(cuda, rows):
+    x = _uniform(cuda, 6, rows, 256)
+    for K in (32, 96):  # 96 overflows to +-inf
+        got = _launched_once(tprim.ASSEMBLY_KERNEL, lambda: tprim.assembly_cuda(x, K))
+        assert torch.equal(got, tprim.assembly_plain(x, K))
+
+
+def _chain_inputs(cuda, MB):
+    gen = torch.Generator().manual_seed(7)
+    e = torch.randn(MB, 512, generator=gen).to(cuda)
+    return e, (torch.randn(256, 512, generator=gen) * 0.05).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("MB", [2048, 1000])  # 1000: not a multiple of the 16-row block
+def test_cuda_bf16_chain_matches_plain(cuda, MB):
+    e, c = _chain_inputs(cuda, MB)
+    got = _launched_once(tprobe.BF16_CHAIN_KERNEL, lambda: tprobe.bf16_chain_cuda(e, c))
+    chk = tprobe.bf16_chain_agreement(got, tprobe.bf16_chain_plain(e, c), e)
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("MB", [2048, 1000])
+def test_cuda_int8_chain_bit_exact_vs_plain(cuda, MB):
+    e, c = _chain_inputs(cuda, MB)
+    got = _launched_once(tprobe.INT8_CHAIN_KERNEL, lambda: tprobe.int8_chain_cuda(e, c))
+    assert torch.equal(got, tprobe.int8_chain_plain(e, c))
