@@ -11,7 +11,10 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    d256 bf16 E), each on 32,768 in-distribution frames: at least 99.5% of
    indexes equal to the plain version and summed squared error within 0.1%
    (``ops.quality_guard.against_plain``); kernel and plain times on the
-   same inputs;
+   same inputs.  At auto's two rungs (d512 int8 E, d256 bf16 E) the
+   stage-timed build (``ops.seqbeam.seqbeam_stages``) gives the same
+   indexes and prints the ``[seqbeam stages]`` line: each stage's share of
+   the warps' cycles and its microseconds a block-step;
 4. the main path, for the two committed trained quantizers:
    ``load_quantizer`` -> ``Quantizer.encode(x)`` (``search_method="auto"``)
    -> ``decode(codes, use_kernel=True)`` on 32,768 frames, with the launch
@@ -99,6 +102,7 @@ ENC_CONFIGS = (  # (guard name, dim): every config on the auto ladder
     ("seqbeam_m16_d512", 512),
     ("seqbeam_hl_d256", 256),
 )
+STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256")  # auto's rungs: the timed build
 DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
@@ -204,7 +208,7 @@ def main() -> int:
     for dim, qq in quantizers.items():
         for name, passes, kw in codec._auto_candidates(qq.config):
             ladder[name.rstrip("!")] = (passes, kw)
-    k2_configs = []
+    k2_configs, stage_lines = [], []
     for name, dim in ENC_CONFIGS:
         qq = quantizers[dim]
         passes, kw = ladder[name]
@@ -226,6 +230,11 @@ def main() -> int:
               f"sse rel diff {chk['sse_rel_diff']:+.2e}; kernel {entry['ms']:.3f} ms, "
               f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({TIME_B / entry['ms'] * 1e3:,.0f} vec/s)", flush=True)
+        if name in STAGE_CONFIGS:
+            entry["stages"] = stage_breakdown(pt)
+            stage_lines.append(f"{name} ({entry['stages']['summary']})")
+    print("[seqbeam stages] share of the warps' cycles, us a block-step: "
+          + "; ".join(stage_lines), flush=True)
 
     # ---- 4. the main path, per trained quantizer
     paths = []
@@ -375,6 +384,45 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+@torch.no_grad()
+def stage_breakdown(problem) -> dict:
+    """Where K2's time goes on ``problem``, from its stage-timed build
+    (``ops.seqbeam.seqbeam_stages``), whose indexes must equal the shipped
+    kernel's: per stage, its share of the warps' summed cycles and its
+    microseconds a block-step (the per-warp mean over blocks, at the clock
+    rate that the blocks' own cycles over their nanoseconds give, over
+    passes x nc steps); and the timed build's device time beside the
+    shipped kernel's."""
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.utils.device import device_ms
+
+    got, stages = K2.seqbeam_stages(problem)
+    check(torch.equal(got, K2.seqbeam_cuda(problem)),
+          "the stage-timed seqbeam's indexes differ from the shipped kernel's")
+    st = stages.double().cpu()
+    blocks, n = st.shape[0], len(K2.STAGES)
+    cycles = st[:, :n].sum(0)
+    ghz = float(st[:, n].sum() / st[:, n + 1].sum())
+    steps = problem.passes * problem.tables.centers_bf16.shape[0]
+    us = cycles / (blocks * K2.KERNEL_WARPS) / (ghz * 1e3) / steps
+    share = cycles / cycles.sum()
+    out = {
+        "blocks": blocks, "ghz": ghz, "steps": steps,
+        # the warps' stage sums against the block's own lifetime
+        "coverage": float(cycles.sum() / K2.KERNEL_WARPS / st[:, n].sum()),
+        "timed_ms": device_ms(lambda: K2.seqbeam_stages(problem), 3),
+        "kernel_ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
+        "share": {k: float(v) for k, v in zip(K2.STAGES, share)},
+        "us_per_block_step": {k: float(v) for k, v in zip(K2.STAGES, us)},
+    }
+    out["summary"] = (
+        f"{blocks} blocks, {ghz:.3f} GHz, coverage {out['coverage']:.4f}, timed "
+        f"{out['timed_ms']:.3f} ms vs {out['kernel_ms']:.3f} ms: " + ", ".join(
+            f"{k} {100 * out['share'][k]:.1f}% {out['us_per_block_step'][k]:.3f}"
+            for k in K2.STAGES) + f", total {float(us.sum()):.3f} us")
+    return out
 
 
 @torch.no_grad()

@@ -59,6 +59,10 @@ constexpr float kInv127 = (float)(1.0 / 127.0);
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
 enum { kStep = 0, kPass = 1, kBound = 2 };
+// the stages of the stage-timed build, in the columns of its output
+enum { kStRoot, kStSrow, kStRescore, kStSelect, kStPool, kStReorder, kStExtend, kStBarrier,
+       kStages };
+constexpr int kStageCols = kStages + 2;  // then the block's own cycles and nanoseconds
 
 struct Args {
   const float* x;           // (B, D)
@@ -72,6 +76,7 @@ struct Args {
   const float* qg;          // v1: (nc * 256, 256) f32 Gram of the bf16 centers
   const float* csq;         // v1: (nc * 256,) f32 |c|^2 of the f32 centers
   int32_t* out;             // (B, nc)
+  long long* stages;        // (blocks, kStageCols) int64, zeroed (stage-timed build only)
   int B, D, nc, R, passes, F;
   uint32_t pool[kMaxPasses];  // bit t of pool[p]: step t of pass p is a pool step
 };
@@ -123,6 +128,56 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
 }
 
 __device__ __forceinline__ float bf2f(uint16_t h) { return __uint_as_float((uint32_t)h << 16); }
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Per-warp clock64() cycles of each stage; ON = false compiles to nothing.
+// lap(s) charges the cycles since the last lap to stage s; sync(s) charges
+// the work before the barrier to s and the wait in it to kStBarrier.
+template <bool ON>
+struct StageClock {
+  long long acc[kStages];
+  long long t0, last, ns0;
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) {
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) acc[s] = 0;
+      ns0 = global_ns();
+      t0 = last = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int s) {
+    if constexpr (ON) {
+      const long long now = clock64();
+      acc[s] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void sync(int s) {
+    lap(s);
+    __syncthreads();
+    lap(kStBarrier);
+  }
+  // lane 0 of each warp adds its sums to the block's row; thread 0 also
+  // writes the block's own cycles and nanoseconds
+  __device__ __forceinline__ void finish(long long* row, int tid) {
+    if constexpr (ON) {
+      if ((tid & 31) == 0)
+#pragma unroll
+        for (int s = 0; s < kStages; ++s)
+          atomicAdd(reinterpret_cast<unsigned long long*>(row + s), (unsigned long long)acc[s]);
+      if (tid == 0) {
+        row[kStages] = clock64() - t0;
+        row[kStages + 1] = global_ns() - ns0;
+      }
+    }
+  }
+};
+
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -481,10 +536,13 @@ __device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, i
 
 // V1: the v1 kernel (f32 E, every step a pool step, v1's score and pool
 // packing); it reads qg/csq in place of gmod.  REQ: the int8 requant rule
-// (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).
-template <int ET, int M, bool V1, int REQ, bool LAZY>
+// (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).  TIMED: the stage-timed
+// build, which adds its clock64() sums to a.stages.
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  StageClock<TIMED> clk;
+  clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
   const Layout L = make_layout(ET, M, F, D, nc, R, LAZY);
   const int RW = L.rows, mtiles = L.xrows / 16;
@@ -519,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     const int b = fb + i / nc;
     sol[i] = b < a.B ? a.idx0[(size_t)b * nc + i % nc] : 0;
   }
-  __syncthreads();
+  clk.sync(kStRoot);
 
   for (int p = 0; p < a.passes; ++p) {
     // ---- root: E = -x + sum_s bf16(C_s[sol_s]) in f32, codebook order
@@ -530,8 +588,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       for (int s = 0; s < nc; ++s) e = e + bf2f(a.C[((size_t)s * kCS + sol[f * nc + s]) * D + d]);
       Er[f * L.er_stride + d] = e;
     }
+    clk.lap(kStRoot);
     load_srow(0);
-    __syncthreads();
+    clk.sync(kStSrow);
     for (int f = warp; f < F; f += kWarps) {
       float acc = 0.0f;
       for (int d = lane; d < D; d += 32) {
@@ -544,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     // ---- step 0: rescore the root only, fan out to the M best
     rescore_bf16<true>(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
                        warp, lane);
-    __syncthreads();
+    clk.sync(kStRoot);
     for (int f = warp; f < F; f += kWarps) {
       const int i0 = sol[f * nc];
       const float* xr = X + f * kXS;
@@ -559,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
         }
       }
     }
-    __syncthreads();
+    clk.sync(kStRoot);
     for (int i = tid; i < RW * nc; i += kThreads) {
       const int r = i / nc, s = i - r * nc;
       ch[0][i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
@@ -571,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                            E[0] + (size_t)r * L.e_stride, 0.0f, sc[0] + r,
                            ET == kI8 ? a.csc[0] : 1.0f, lane);
     }
-    __syncthreads();
+    clk.sync(kStRoot);
 
     int cur = 0;
     bool pend = false;  // lazy_r1: step t-1 deferred its E update (jdef)
@@ -581,9 +640,10 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const bool defer = LAZY && !pool && !last;
       const float csc_t = ET == kI8 ? a.csc[t] : 1.0f;
       load_srow(t);
+      clk.lap(kStSrow);
       if (ET == kI8)
         for (int r = tid; r < RW; r += kThreads) rsc[r] = sc[cur][r] * csc_t;
-      __syncthreads();
+      clk.sync(kStRescore);
       // ---- rescore all candidates against codebook t
       if (ET == kI8)
         rescore_s8(E[cur], L.e_stride, mtiles, a.C8 + (size_t)t * kCS * D, D, rsc, X, warp, lane);
@@ -593,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       else
         rescore_bf16<false>(E[cur], L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp,
                             lane);
-      __syncthreads();
+      clk.sync(kStRescore);
       // ---- score assembly and per-row selection
       for (int r = warp; r < RW; r += kWarps) {
         const int f = r / M;
@@ -632,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           }
         }
       }
-      __syncthreads();
+      clk.sync(kStSelect);
       if (pool) {
         // ---- top-M of each frame's M*R pool.  v2: the parent id above
         // the lane bits; v1: the pool lane m*R + r in the lane bits
@@ -663,12 +723,13 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
             }
           }
         }
-        __syncthreads();
+        clk.sync(kStPool);
         for (int i = tid; i < RW * nc; i += kThreads) {
           const int r = i / nc, s = i - r * nc;
           const int f = r / M;
           ch[cur ^ 1][i] = s == t ? selj[r] : ch[cur][(f * M + selp[r]) * nc + s];
         }
+        clk.lap(kStReorder);
       }
       // ---- extension (none on the last step of a pass, or a deferring R1 step)
       if (!last && !defer) {
@@ -685,7 +746,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       }
       if (pool) cur ^= 1;
       pend = defer;
-      __syncthreads();
+      clk.sync(kStExtend);
     }
     // ---- pass end: the best candidate by packed (ss, m) becomes the root
     for (int f = warp; f < F; f += kWarps) {
@@ -695,21 +756,23 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const int best = (int)(w & kLaneMask);
       if (lane < nc) sol[f * nc + lane] = ch[cur][(f * M + best) * nc + lane];
     }
-    __syncthreads();
+    clk.sync(kStRoot);
   }
   for (int i = tid; i < F * nc; i += kThreads) {
     const int b = fb + i / nc;
     if (b < a.B) a.out[(size_t)b * nc + i % nc] = sol[i];
   }
+  clk.lap(kStRoot);
+  clk.finish(a.stages + (size_t)blockIdx.x * kStageCols, tid);
 }
 
-template <int ET, int M, bool V1, int REQ, bool LAZY>
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED = false>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(seqbeam_kernel<ET, M, V1, REQ, LAZY>,
+  const cudaError_t e = cudaFuncSetAttribute(seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((a.B + a.F - 1) / a.F);
-  if (blocks > 0) seqbeam_kernel<ET, M, V1, REQ, LAZY><<<blocks, kThreads, smem, stream>>>(a);
+  if (blocks > 0) seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -779,6 +842,29 @@ Args make_args(const void* x, const void* idx0, const void* centers, void* out, 
   return a;
 }
 
+int v2_args(const void* x, const void* idx0, const void* centers, const void* gmod,
+            const void* centers_i8, const void* csc, const void* cmax, const void* gx, void* out,
+            int B, int D, int nc, int M, int R, int passes, const void* pool_masks, int e_dtype,
+            int requant, int lazy, Args* out_args, size_t* smem) {
+  if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
+    return (int)cudaErrorInvalidValue;
+  if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
+      (requant == kBound && !cmax) || (lazy && !gx))
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
+  a.gmod = (const uint16_t*)gmod;
+  a.C8 = (const int8_t*)centers_i8;
+  a.csc = (const float*)csc;
+  a.cmax = (const float*)cmax;
+  a.gx = (const uint16_t*)gx;
+  for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
+  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
+  if (a.F == 0) return (int)cudaErrorInvalidValue;
+  *smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0).total;
+  *out_args = a;
+  return 0;
+}
+
 }  // namespace
 
 // x (B, D) f32; idx0 (B, nc) int32; centers (nc * 256, D) bf16; gmod
@@ -795,22 +881,44 @@ extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void
                                      const void* cmax, const void* gx, void* out, int B, int D,
                                      int nc, int M, int R, int passes, const void* pool_masks,
                                      int e_dtype, int requant, int lazy, void* stream) {
-  if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
-    return (int)cudaErrorInvalidValue;
-  if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
-      (requant == kBound && !cmax) || (lazy && !gx))
-    return (int)cudaErrorInvalidValue;
-  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
-  a.gmod = (const uint16_t*)gmod;
-  a.C8 = (const int8_t*)centers_i8;
-  a.csc = (const float*)csc;
-  a.cmax = (const float*)cmax;
-  a.gx = (const uint16_t*)gx;
-  for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
-  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
-  if (a.F == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0).total;
+  Args a;
+  size_t smem;
+  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, out, B, D, nc, M, R,
+                          passes, pool_masks, e_dtype, requant, lazy, &a, &smem);
+  if (err) return err;
   return launch_v2(a, e_dtype, M, requant, lazy != 0, smem, (cudaStream_t)stream);
+}
+
+// The stage-timed build of the v2 kernel, for the auto ladder's two rungs
+// only (M=8, requant "step", no lazy_r1; bf16 or int8 E): the arguments of
+// qtt_seqbeam_v2_launch, then stages, a zeroed (blocks, 10) int64 buffer
+// (blocks from qtt_seqbeam_v2_frames_per_block).  Per block it receives the
+// clock64() cycles of each stage summed over the block's 8 warps (root,
+// load_srow, rescore, selection, pool, reorder, extension, barrier waits),
+// then the block's own cycles and %globaltimer nanoseconds.
+extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, const void* centers,
+                                           const void* gmod, const void* centers_i8,
+                                           const void* csc, const void* cmax, const void* gx,
+                                           void* out, int B, int D, int nc, int M, int R,
+                                           int passes, const void* pool_masks, int e_dtype,
+                                           int requant, int lazy, void* stages, void* stream) {
+  if (M != 8 || requant != kStep || lazy || e_dtype == kF32 || !stages)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  size_t smem;
+  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, out, B, D, nc, M, R,
+                          passes, pool_masks, e_dtype, requant, lazy, &a, &smem);
+  if (err) return err;
+  a.stages = (long long*)stages;
+  return e_dtype == kI8 ? launch<kI8, 8, false, kStep, false, true>(a, smem, (cudaStream_t)stream)
+                        : launch<kBF16, 8, false, kStep, false, true>(a, smem, (cudaStream_t)stream);
+}
+
+// Frames per block of a v2 configuration (0 if none fits): the timed
+// build's caller sizes its buffer by it.
+extern "C" int qtt_seqbeam_v2_frames_per_block(int e_dtype, int M, int D, int nc, int R,
+                                               int lazy) {
+  return frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
 }
 
 // The v1 kernel: x, idx0, centers and out as above; qgram (nc * 256, 256)

@@ -281,8 +281,10 @@ def gramv3_encode_indexes(
     tuples or a named schedule).  ``loop``: "auto", "unroll" or "fori";
     "fori" raises ValueError on a schedule that is not uniform within each
     pass, as the TPU wrapper does.  ``block_b`` and ``interleave`` do not
-    change results and are ignored."""
-    del block_b, interleave
+    change results and are ignored, but ``interleave`` must divide
+    ``block_b``, as the TPU kernels assert."""
+    if block_b % interleave:
+        raise ValueError(f"interleave={interleave} does not divide block_b={block_b}")
     if loop not in ("auto", "fori", "unroll"):
         raise ValueError(f"unknown loop {loop!r}")
     problem = gramv3_problem(params, config, x, M, R, passes, pool_mask, g_dtype, init_indexes)

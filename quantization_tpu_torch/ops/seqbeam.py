@@ -46,8 +46,9 @@ is ``lane // R``.
 
 The Mosaic scheduling knobs of the TPU wrapper (``interleave``,
 ``zip_skew``, ``cross_value``, ``reorder``, ``sel_impl``, ``block_b``) give
-bit-identical results there by contract, and are accepted and ignored here
-(v1 accepts only their defaults, as on the TPU).
+bit-identical results there by contract, and are accepted and ignored here,
+except that a combination the TPU wrapper asserts against raises ValueError
+(:func:`_check_knobs`).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ import torch
 from ..core import search as _search
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
 from ..utils.device import dispatch
+from . import cuda_build
 from .cuda_build import CudaKernel
 
 LANE_BITS = 8
@@ -78,6 +80,16 @@ SEQBEAM_V1_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v1_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+# the v2 kernel's stage-timed build (the auto ladder's two rungs only)
+SEQBEAM_TIMED_KERNEL = CudaKernel(
+    "seqbeam", "qtt_seqbeam_v2_timed_launch",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
+)
+# its columns: per block, each stage's clock64() cycles summed over the
+# block's warps, then the block's own cycles and nanoseconds
+STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "extension", "barrier")
+KERNEL_WARPS = 8  # warps a block of the v2 kernel (csrc/seqbeam.cu kThreads / 32)
 
 
 def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -425,6 +437,36 @@ def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
     """The CUDA kernel on the same problem as :func:`seqbeam_plain`: v2
     through ``qtt_seqbeam_v2_launch``, v1 through ``qtt_seqbeam_v1_launch``
     (counted apart)."""
+    return _launch(problem, SEQBEAM_V1_KERNEL if problem.impl == "v1" else SEQBEAM_KERNEL)
+
+
+def seqbeam_stages(problem: SeqbeamProblem) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The v2 kernel's stage-timed build on the same problem as
+    :func:`seqbeam_cuda`: the same (B, nc) indexes, and a (blocks,
+    len(STAGES) + 2) int64 tensor holding, per block of frames, the
+    ``clock64()`` cycles of each of :data:`STAGES` summed over the block's
+    warps, then the block's own cycles and nanoseconds.  Built only for the
+    auto ladder's rungs (M=8, ``requant="step"``, no ``lazy_r1``, bf16 or
+    int8 E); CUDA tensors only."""
+    if problem.impl != "v2" or problem.M != 8 or problem.requant != "step" or (
+            problem.lazy_r1 or problem.e_dtype == "f32"):
+        raise ValueError("the stage-timed seqbeam takes M=8, requant='step', no lazy_r1 and "
+                         "bf16 or int8 E")
+    if not problem.x.is_cuda:
+        raise ValueError("seqbeam_stages needs CUDA tensors")
+    nc, _, D = problem.tables.centers_bf16.shape
+    fpb = cuda_build.library("seqbeam").qtt_seqbeam_v2_frames_per_block
+    fpb.argtypes, fpb.restype = [ctypes.c_int] * 6, ctypes.c_int
+    F = fpb(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R, 0)
+    blocks = -(-problem.x.shape[0] // F)
+    stages = torch.zeros(blocks, len(STAGES) + 2, dtype=torch.int64, device=problem.x.device)
+    return _launch(problem, SEQBEAM_TIMED_KERNEL, stages.data_ptr()), stages
+
+
+def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor:
+    """Check the problem's tensors and launch ``kernel`` (v1's entry point
+    or one of v2's, by ``problem.impl``) on them with ``extra`` arguments
+    before the stream; returns the (B, nc) indexes."""
     x, idx0, tables = problem.x, problem.idx0, problem.tables
     M, R, passes, masks, e_dtype = (
         problem.M, problem.R, problem.passes, problem.masks, problem.e_dtype)
@@ -448,8 +490,8 @@ def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
         qg = tables.q_gram.float().contiguous()
         csq = tables.cs_sumsq.float().contiguous()
         _on_device(x, idx0, centers, qg, csq)
-        SEQBEAM_V1_KERNEL(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(),
-                          csq.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, stream)
+        kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
+               out.data_ptr(), B, D, nc, M, R, passes, *extra, stream)
         return out
     int8 = e_dtype == "int8"
     gmod = tables.gmod_bf16.contiguous()
@@ -466,10 +508,11 @@ def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    SEQBEAM_KERNEL(
+    kernel(
         x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), ptr(ci8), ptr(csc),
-        ptr(cmax), ptr(gx), out.data_ptr(), B, D, nc, M, R, passes, ctypes.addressof(words),
-        E_DTYPES[e_dtype][0], REQUANTS[problem.requant], int(problem.lazy_r1), stream,
+        ptr(cmax), ptr(gx), out.data_ptr(), B, D, nc, M, R, passes,
+        ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
+        int(problem.lazy_r1), *extra, stream,
     )
     return out
 
@@ -522,17 +565,45 @@ def seqbeam_encode_indexes(
 
     ``block_b``, ``interleave``, ``zip_skew``, ``cross_value``, ``reorder``
     and ``sel_impl`` are the TPU kernel's scheduling knobs; they do not
-    change results and are ignored, except that v1 takes only a tile of at
-    most 128 frames, ``zip_skew=0`` and ``sel_impl="lohi"``, as on the TPU.
+    change results and are ignored, but a combination the TPU wrapper
+    refuses is refused here too (:func:`_check_knobs`).
     Raises ValueError for a combination the TPU kernels do not take."""
-    del interleave, cross_value, reorder
-    if impl == "v1" and (block_b > 128 or zip_skew != 0 or sel_impl != "lohi"):
-        raise ValueError("seqbeam impl='v1' takes block_b <= 128, zip_skew=0 and "
-                         f"sel_impl='lohi', got {block_b}, {zip_skew}, {sel_impl!r}")
     problem = seqbeam_problem(
         params, config, x, M, R, passes, pool_mask, e_dtype, init_indexes, init_precision,
         impl=impl, requant=requant, lazy_r1=lazy_r1)
+    _check_knobs(impl, e_dtype, lazy_r1, pool_mask, block_b, interleave, zip_skew, cross_value,
+                 reorder, sel_impl)
     return dispatch("seqbeam", x.device, seqbeam_cuda, seqbeam_plain, problem)
+
+
+def _check_knobs(impl: str, e_dtype: str, lazy_r1: bool, pool_mask, block_b: int,
+                 interleave: int, zip_skew: int, cross_value: bool, reorder: str,
+                 sel_impl: str) -> None:
+    """Raise ValueError where the TPU wrapper asserts on its scheduling
+    knobs (``quantization_tpu/ops/seqbeam.py:1710-1776``): v1 takes a tile
+    of at most 128 frames, ``zip_skew=0`` and ``sel_impl="lohi"``;
+    ``zip_skew`` needs an interleave that splits ``block_b`` into sub-tiles
+    of 64-512 frames and a static ``pool_mask``; bf16 and int8 E need a
+    select reorder, and int8 E and ``lazy_r1`` ``reorder="select"`` without
+    ``cross_value``."""
+    if impl == "v1":
+        if block_b > 128 or zip_skew != 0 or sel_impl != "lohi":
+            raise ValueError("seqbeam impl='v1' takes block_b <= 128, zip_skew=0 and "
+                             f"sel_impl='lohi', got {block_b}, {zip_skew}, {sel_impl!r}")
+        return
+    subt = interleave if block_b % interleave == 0 else 1
+    if block_b // subt not in (64, 128, 256, 512):
+        subt = 1
+    if zip_skew and (subt == 1 or pool_mask is None):
+        raise ValueError(f"zip_skew needs interleave >= 2 splitting block_b={block_b} into "
+                         f"sub-tiles of 64-512 frames and a static pool_mask, got "
+                         f"interleave={interleave}, pool_mask={pool_mask!r}")
+    if e_dtype != "f32" and reorder not in ("select", "wideselect"):
+        raise ValueError(f"e_dtype={e_dtype!r} needs reorder='select' or 'wideselect', "
+                         f"got {reorder!r}")
+    if (e_dtype == "int8" or lazy_r1) and (reorder != "select" or cross_value):
+        raise ValueError("int8 E and lazy_r1 need reorder='select' and cross_value=False, "
+                         f"got {reorder!r}, cross_value={cross_value}")
 
 
 def _check_variant(M: int, R: int, nc: int, passes: int, pool_mask, e_dtype: str, impl: str,

@@ -28,6 +28,7 @@ from quantization_tpu_torch.ops.quality_guard import against_plain
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
 
 Q256 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q256_4_full.npz"
+Q512 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q512_8_full.npz"
 BAR = 1.012  # vs beam-5, as tests/test_kernel_quality.py
 
 
@@ -135,6 +136,52 @@ def test_cuda_seqbeam_b3_matches_plain(cuda, nc, dim, kw):
     assert tseq.SEQBEAM_KERNEL.launches == before + 1
     chk = against_plain(problem, centers, got)
     assert chk["ok"], chk
+
+
+# the auto ladder's two rungs on the committed trained quantizers
+AUTO_RUNGS = {"int8": (Q512, 3, dict(M=8, R=4, pool_mask="altparity", e_dtype="int8")),
+              "bf16": (Q256, 2, dict(M=8, R=4, pool_mask="altparity", e_dtype="bf16"))}
+
+
+def _auto_problem(cuda, e_dtype, B, **kw):
+    path, passes, sem = AUTO_RUNGS[e_dtype]
+    q = qtt.load_quantizer(path, device=cuda)
+    x = make_mlp_sampler(q.dim, device=cuda)(torch.Generator().manual_seed(3), B)
+    problem = tseq.seqbeam_problem(q.params, q.config, x, passes=passes, **dict(sem, **kw))
+    return problem, q.get_centers().detach()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e_dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 9, 32768 + 3])  # one frame, F + 1 (a second block), ragged
+def test_cuda_seqbeam_auto_rungs_ragged(cuda, e_dtype, B):
+    problem, centers = _auto_problem(cuda, e_dtype, B)
+    got = tseq.seqbeam_cuda(problem)
+    torch.cuda.synchronize()
+    chk = against_plain(problem, centers, got)
+    # int8 E: exact int32 sums, the same f32 steps: every index equal; bf16
+    # E: the rescore sums in wgmma order, so the bars of against_plain
+    assert chk["index_agreement"] == 1.0 if e_dtype == "int8" else chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 16, 32, 64])
+def test_cuda_seqbeam_int8_beam_widths(cuda, M):
+    # F = 64 / M frames a block down to one; a ragged last block
+    problem, centers = _seqbeam_case(cuda, 8, 8, 512, 301, M=M, R=4, e_dtype="int8",
+                                     pool_mask="altparity")
+    chk = against_plain(problem, centers, tseq.seqbeam_cuda(problem))
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e_dtype", ["int8", "bf16"])
+def test_cuda_seqbeam_stage_timed_build_same_indexes(cuda, e_dtype):
+    problem, _ = _auto_problem(cuda, e_dtype, 1000)
+    got, stages = tseq.seqbeam_stages(problem)
+    assert torch.equal(got, tseq.seqbeam_cuda(problem))
+    assert stages.shape[1] == len(tseq.STAGES) + 2
+    assert bool((stages > 0).all())  # every stage ran in every block, and the clocks moved
 
 
 @pytest.mark.gpu

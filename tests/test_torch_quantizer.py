@@ -34,7 +34,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 Q256 = ROOT / "experiments" / "q256_4_full.npz"
 N_FRAMES = 512
 BAR = 1.012  # vs beam-5, as tests/test_kernel_quality.py
-HL_D256 = dict(M=8, R=4, pool_mask="altparity", e_dtype="bf16")
+HL_D256 = dict(M=8, R=4, pool_mask="altparity", e_dtype="bf16", reorder="select")
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +86,7 @@ def test_seqbeam_auto_config_within_bar(trained):
     # the frames (observed: every index equal)
     n = 128
     want = np.asarray(jseq.seqbeam_encode_indexes(
-        jq.params, jq.config, jnp.asarray(x[:n]), passes=2, reorder="select",
+        jq.params, jq.config, jnp.asarray(x[:n]), passes=2,
         interpret=True, **HL_D256))
     got = tcodec.unpack_indexes(codes[:n], 256, 4).numpy()
     assert (got == want).mean() >= 0.99

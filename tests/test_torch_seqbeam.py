@@ -60,7 +60,7 @@ def _run_both(nc, seed, use_init, **kw):
         init_indexes=jnp.asarray(init) if use_init else None, **kw))
     before = tseq.SEQBEAM_KERNEL.launches
     got = tseq.seqbeam_encode_indexes(
-        params_from_numpy(arrays), tc, torch.from_numpy(x),
+        params_from_numpy(arrays), tc, torch.from_numpy(x), reorder=reorder,
         init_indexes=torch.from_numpy(init) if use_init else None, **kw)
     assert tseq.SEQBEAM_KERNEL.launches == before  # a CPU tensor runs the plain version
     assert got.dtype == torch.int32 and got.shape == (B, nc)
@@ -149,7 +149,7 @@ def test_scheduling_knobs_do_not_change_results():
     tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=4)
     p, xt, it = params_from_numpy(arrays), torch.from_numpy(x), torch.from_numpy(init)
     base = tseq.seqbeam_encode_indexes(p, tc, xt, M=8, R=4, passes=2, init_indexes=it,
-                                       e_dtype="bf16", pool_mask="altparity")
+                                       e_dtype="bf16", pool_mask="altparity", reorder="select")
     knobs = tseq.seqbeam_encode_indexes(
         p, tc, xt, M=8, R=4, passes=2, init_indexes=it, e_dtype="bf16",
         pool_mask="altparity", block_b=512, interleave=2, zip_skew=1, reorder="select",

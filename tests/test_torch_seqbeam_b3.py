@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from quantization_tpu import core as jcore
+from quantization_tpu.ops import gramv3 as jg3
 from quantization_tpu.ops import seqbeam as jseq
 from quantization_tpu_torch import core as tcore
 from quantization_tpu_torch.core import codec as tcodec
+from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import quality_guard as tguard
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops import verify as tverify
@@ -55,10 +57,11 @@ def _sse(centers, idx, x):
 
 
 def _port(seed, **kw):
+    # reorder="select": what the TPU wrapper needs for bf16 or int8 E and lazy_r1
     arrays, x, init = _problem(seed)
     tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=NC)
     got = tseq.seqbeam_encode_indexes(params_from_numpy(arrays), tc, torch.from_numpy(x),
-                                      init_indexes=torch.from_numpy(init), **kw)
+                                      init_indexes=torch.from_numpy(init), reorder="select", **kw)
     return arrays["centers"], x, init, got.numpy()
 
 
@@ -122,7 +125,33 @@ def test_b3_refuses_what_jax_refuses(kw):
     tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=NC)
     with pytest.raises(ValueError):
         tseq.seqbeam_encode_indexes(params_from_numpy(arrays), tc, torch.from_numpy(x), M=8, R=4,
-                                    passes=2, **kw)
+                                    passes=2, reorder="select", **kw)
+
+
+# scheduling knobs that change no result, in combinations the TPU wrappers
+# assert against (quantization_tpu/ops/seqbeam.py:1762-1776,
+# quantization_tpu/ops/gramv3.py:284, :400)
+@pytest.mark.parametrize("search,kw", [
+    ("seqbeam", dict(e_dtype="bf16")),  # bf16 E with the gather reorder
+    ("seqbeam", dict(e_dtype="int8", reorder="select", cross_value=True)),
+    ("seqbeam", dict(e_dtype="int8", pool_mask="altparity", lazy_r1=True)),  # gather reorder
+    ("seqbeam", dict(zip_skew=1, pool_mask="altparity")),  # interleave=1: no sub-tiles
+    ("gramv3", dict(interleave=3)),  # does not divide block_b=128
+], ids=["bf16-gather", "int8-cross-value", "lazy-gather", "zip-skew-no-subtiles",
+        "gramv3-interleave"])
+def test_knobs_refused_where_jax_refuses(search, kw):
+    arrays, x, init = _problem(0)
+    jc = jcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=NC)
+    jp = jcore.QuantizerParams(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    tc = tcore.QuantizerConfig(dim=DIM, codebook_size=CS, num_codebooks=NC)
+    jfn, tfn = ((jseq.seqbeam_encode_indexes, tseq.seqbeam_encode_indexes) if search == "seqbeam"
+                else (jg3.gramv3_encode_indexes, tg3.gramv3_encode_indexes))
+    with pytest.raises(AssertionError):
+        jfn(jp, jc, jnp.asarray(x), M=8, R=4, passes=2, init_indexes=jnp.asarray(init),
+            interpret=True, **kw)
+    with pytest.raises(ValueError):
+        tfn(params_from_numpy(arrays), tc, torch.from_numpy(x), M=8, R=4, passes=2,
+            init_indexes=torch.from_numpy(init), **kw)
 
 
 def test_guard_candidates_leave_auto_unchanged(monkeypatch):
@@ -149,6 +178,9 @@ def test_guard_candidates_leave_auto_unchanged(monkeypatch):
             tseq._check_variant(kw["M"], kw["R"], config.num_codebooks, passes,
                                 kw.get("pool_mask"), kw["e_dtype"], "v2",
                                 kw.get("requant", "step"), kw.get("lazy_r1", False))
+            tseq._check_knobs("v2", kw["e_dtype"], kw.get("lazy_r1", False), kw.get("pool_mask"),
+                              kw["block_b"], kw["interleave"], kw.get("zip_skew", 0), False,
+                              kw["reorder"], "lohi")
     assert seen == names
     # even passing and better than the ladder, no candidate is chosen
     rows = {n.rstrip("!"): 0.9 for n in ladder[512] + ladder[256]}
