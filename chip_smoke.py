@@ -391,10 +391,10 @@ def stage_breakdown(problem) -> dict:
     """Where K2's time goes on ``problem``, from its stage-timed build
     (``ops.seqbeam.seqbeam_stages``), whose indexes must equal the shipped
     kernel's: per stage, its share of the warps' summed cycles and its
-    microseconds a block-step (the per-warp mean over blocks, at the clock
-    rate that the blocks' own cycles over their nanoseconds give, over
-    passes x nc steps); and the timed build's device time beside the
-    shipped kernel's."""
+    microseconds a block-step (that share of a block's mean lifetime, over
+    passes x nc steps), the clock rate the blocks' own cycles over their
+    nanoseconds give, and the timed build's device time beside the shipped
+    kernel's."""
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.utils.device import device_ms
 
@@ -402,24 +402,20 @@ def stage_breakdown(problem) -> dict:
     check(torch.equal(got, K2.seqbeam_cuda(problem)),
           "the stage-timed seqbeam's indexes differ from the shipped kernel's")
     st = stages.double().cpu()
-    blocks, n = st.shape[0], len(K2.STAGES)
-    cycles = st[:, :n].sum(0)
-    ghz = float(st[:, n].sum() / st[:, n + 1].sum())
+    n = len(K2.STAGES)
+    share = st[:, :n].sum(0) / st[:, :n].sum()
     steps = problem.passes * problem.tables.centers_bf16.shape[0]
-    us = cycles / (blocks * K2.KERNEL_WARPS) / (ghz * 1e3) / steps
-    share = cycles / cycles.sum()
+    us = share * float(st[:, n + 1].mean()) / 1e3 / steps
     out = {
-        "blocks": blocks, "ghz": ghz, "steps": steps,
-        # the warps' stage sums against the block's own lifetime
-        "coverage": float(cycles.sum() / K2.KERNEL_WARPS / st[:, n].sum()),
+        "blocks": st.shape[0], "ghz": float(st[:, n].sum() / st[:, n + 1].sum()), "steps": steps,
         "timed_ms": device_ms(lambda: K2.seqbeam_stages(problem), 3),
         "kernel_ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
         "share": {k: float(v) for k, v in zip(K2.STAGES, share)},
         "us_per_block_step": {k: float(v) for k, v in zip(K2.STAGES, us)},
     }
     out["summary"] = (
-        f"{blocks} blocks, {ghz:.3f} GHz, coverage {out['coverage']:.4f}, timed "
-        f"{out['timed_ms']:.3f} ms vs {out['kernel_ms']:.3f} ms: " + ", ".join(
+        f"{out['blocks']} blocks, {out['ghz']:.3f} GHz, timed {out['timed_ms']:.3f} ms vs "
+        f"{out['kernel_ms']:.3f} ms: " + ", ".join(
             f"{k} {100 * out['share'][k]:.1f}% {out['us_per_block_step'][k]:.3f}"
             for k in K2.STAGES) + f", total {float(us.sum()):.3f} us")
     return out

@@ -25,23 +25,52 @@
 // move, j' taken from the destination's parent slot.  The pass-end winner
 // is the packed (ss, m) minimum.
 //
-// Bound: operations.  Per frame and pass the rescore is (1 + (nc-1) M)
-// products of length D against all 256 codewords; everything else is
-// O(M * D) or O(M * 256) per step.  Design: one block of 256 threads owns F
-// frames, and keeps their F*M candidate error rows (double-buffered for the
-// beam reorder), the root errors and the F*M x 256 score tile in shared
-// memory for all passes.  The rescore runs on the tensor cores with
-// mma.sync (m16n8k16 bf16 or m16n8k32 s8): each of the 8 warps owns 32
-// codewords and streams their rows of C_t straight from L2 (all codebooks
-// are at most 2 MB in bf16), while the candidate rows come from shared
-// memory.  Selection runs one warp per candidate row (R rounds of
-// __reduce_min_sync over the packed keys) and one warp per frame for the
-// pool.  All f32 arithmetic is built with --fmad=false so that each
-// rounding step matches the plain version.
+// Bound: operations, in principle.  Per frame and pass the rescore is
+// (1 + (nc-1) M) products of length D against all 256 codewords; the rest
+// is O(M * D) or O(M * 256) per step.  On the card neither peak binds: a
+// block-step goes to issuing the per-row work of the extension (about 10
+// instructions an element for int8 E) and the selection, and to waiting on
+// L2 for each codebook (128 KB a block-step at d512 int8; 12.9 GB for
+// 32,768 frames).  PERF.md has the stage breakdown.
+//
+// Design.  One block of 256 threads owns F frames (F * M <= 64 candidate
+// rows) and keeps in shared memory, for all passes, their candidate error
+// rows E (double-buffered for the beam reorder), the root errors, the
+// 64 x 256 f32 score tile X and the beam bookkeeping.
+//
+// bf16 and int8 E (the auto ladder's rungs and every v2 variant with those E
+// types): the rescore runs on wgmma, two warpgroups each owning 128
+// codewords (m64n128k32 s8 or m64n128k16 bf16; the block's rows are one m64
+// tile), both operands in shared memory without swizzle.  E is K-chunked
+// for the descriptor (the 16-byte K pieces of all rows one after another),
+// each piece padded by 16 bytes so that the extension's row accesses miss no
+// bank.  Codebook t reaches a ring of two 32 KB chunks (256 codewords x 128
+// bytes of K, so arranged by the wrapper) by cp.async.bulk on an mbarrier,
+// issued by one thread as soon as a slot is free: the next step's first two
+// chunks, or the next pass's root's, load while this step selects and
+// extends.  The root rows join the ring as a bf16 A operand written into
+// E[1].  The Gmod score rows of step t + 1 arrive by cp.async during step t,
+// and the extension's codeword rows (C_t[j] of every row, C_t[i] of every
+// frame) are staged by cp.async into X's space once the selection is done.
+// The int8 extension turns bytes into floats and back with byte permutes
+// and exact float adds, not on the conversion pipe, which issues at a
+// quarter of the rate.
+//
+// f32 E (v1, the training search, an explicit e_dtype="f32") keeps the
+// mma.sync rescore (m16n8k16 bf16, A rounded to bf16 as it is loaded),
+// reading codebook rows from L2 in its k loop: with 4-byte E rows, E, X
+// and a ring do not fit in shared memory together.
+//
+// Selection runs one warp per candidate row (R rounds of __reduce_min_sync
+// over the packed keys) and one warp per frame for the pool.  All f32
+// arithmetic is built with --fmad=false so that each rounding step matches
+// the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +79,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPasses = 64;
 constexpr int kMaxChunks = 8;     // D <= 1024: D / 128 chunks of 4 per lane
+constexpr int kMaxNc = 16;
+constexpr int kChunk = 32768;     // a ring chunk: 256 codewords x 128 bytes of K
 constexpr int kMaxRows = 64;      // frames x candidates per block
 constexpr int kXS = kCS + 8;      // padded row stride of the score tile (floats)
 constexpr size_t kMaxSmem = 232448;
@@ -75,6 +106,9 @@ struct Args {
   const uint16_t* gx;       // (nc * 256, 256) bf16 C_{t-1} . C_t^T (lazy_r1 only)
   const float* qg;          // v1: (nc * 256, 256) f32 Gram of the bf16 centers
   const float* csq;         // v1: (nc * 256,) f32 |c|^2 of the f32 centers
+  const unsigned char* cpb; // bf16 and int8 E: the bf16 centers as ring chunks, per codebook
+                            // (2 D / 128) x [8 16-byte K pieces][256 codewords][16 bytes]
+  const unsigned char* cpi; // int8 E: the int8 centers as ring chunks (D / 128 per codebook)
   int32_t* out;             // (B, nc)
   long long* stages;        // (blocks, kStageCols) int64, zeroed (stage-timed build only)
   int B, D, nc, R, passes, F;
@@ -84,9 +118,12 @@ struct Args {
 struct Layout {
   int rows;          // F * M candidate rows
   int xrows;         // rows rounded up to the rescore's 16-row tiles
-  int e_stride;      // bytes per candidate row (padded: no bank conflicts)
+  int e_stride;      // wgmma (bf16 and int8 E): bytes between E's 16-byte K pieces;
+                     // f32 E: bytes a row (both padded: no bank conflicts)
+  int root_stride;   // wgmma: bytes between the bf16 root rows' 16-byte K pieces
   int er_stride;     // floats per root-error row
-  size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys;
+  size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys,
+      ring, bars;
   size_t total;
 };
 
@@ -96,21 +133,40 @@ __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
   return at;
 }
 
+__host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
+
+// bf16 and int8 E (wgmma): E K-chunked with room for the m64 tile to read
+// past the last row (int8 E at d512 with F = 8 fits with 1,104 bytes left); X's space also holds the extension's staged codeword
+// rows; the score rows are bf16, double-buffered; a ring of two chunks and
+// their mbarriers.  f32 E: E row-major, f32 score rows.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
                                               bool lazy) {
   Layout L;
+  const bool wg = et != kF32;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
   L.xrows = (L.rows + 15) / 16 * 16;
-  L.e_stride = D * esize + 16;
   L.er_stride = D + 4;
+  L.root_stride = (F + 1) * 16;
   const size_t rows = (size_t)L.rows;
+  size_t ebytes;
+  if (wg) {
+    // the m64 tile reads 64 - rows rows past the last K piece's rows; E[1]
+    // also holds the bf16 root rows during the root's rescore
+    L.e_stride = (L.rows + 1) * 16;
+    ebytes = max_sz((size_t)(D * esize / 16) * L.e_stride + (64 - L.rows) * 16,
+                    (size_t)(D / 8) * L.root_stride + (64 - F) * 16);
+  } else {
+    L.e_stride = D * esize + 16;
+    ebytes = rows * L.e_stride;
+  }
   size_t off = 0;
-  L.e0 = take(&off, rows * L.e_stride);
-  L.e1 = take(&off, rows * L.e_stride);
+  L.e0 = take(&off, ebytes);
+  L.e1 = take(&off, ebytes);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
-  L.xs = take(&off, (size_t)L.xrows * kXS * 4);
-  L.srow = take(&off, (size_t)F * kCS * 4);
+  const size_t xbytes = (size_t)L.xrows * kXS * 4;
+  L.xs = take(&off, wg ? max_sz(xbytes, (rows + F) * D * esize) : xbytes);
+  L.srow = take(&off, wg ? (size_t)2 * F * kCS * 2 : (size_t)F * kCS * 4);
   L.sc0 = take(&off, rows * 4);
   L.sc1 = take(&off, rows * 4);
   L.rsc = take(&off, rows * 4);
@@ -123,6 +179,8 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.selp = take(&off, rows * 4);
   L.jdef = take(&off, lazy ? rows * 4 : 0);  // lazy_r1 only
   L.rkeys = take(&off, rows * R * 4);
+  L.ring = take(&off, wg ? 2 * (size_t)kChunk : 0);
+  L.bars = take(&off, wg ? 16 : 0);
   L.total = off;
   return L;
 }
@@ -178,10 +236,115 @@ struct StageClock {
   }
 };
 
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ---- Hopper's asynchronous copies and warpgroup products
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// one 16-byte cp.async; wait_all also waits for every earlier group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// generic-proxy writes of shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one thread: `bytes` from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// A copy that never lands (a fault in its addresses) traps after about 2^28
+// polls, seconds at the least, rather than hold the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// Descriptor of a K-major operand without swizzle: core matrices of 8 rows x
+// 16 bytes, `kstride` bytes between core matrices adjacent in K (the leading
+// byte offset), `rstride` between 8-row groups (the stride byte offset).
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t kstride, uint32_t rstride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(kstride >> 4) << 16) |
+         ((uint64_t)(rstride >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (+)= A[64 x 32] . B[128 x 32]^T, s8 x s8 -> s32; scale_d = 0 starts the sum
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+               ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+                 "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+                 "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+                 "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+                 "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+                 "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+                 "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+                 "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+               : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] . B[128 x 16]^T, bf16 x bf16 -> f32
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+               ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, "
+               "0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // Packed selection key: the score clamped at 0, its 8 low mantissa bits
@@ -192,16 +355,17 @@ __device__ __forceinline__ uint32_t pack_key(float s, uint32_t id) {
 }
 
 // Warp-wide minimum of the keys held by the lanes; the (unique) winner is
-// removed from its owner's set.
+// removed from its owner's set unless this is the last round (`keep`).
 template <int N>
-__device__ __forceinline__ uint32_t extract_min(uint32_t (&keys)[N]) {
+__device__ __forceinline__ uint32_t extract_min(uint32_t (&keys)[N], bool keep = false) {
   uint32_t m = keys[0];
 #pragma unroll
   for (int q = 1; q < N; ++q) m = min(m, keys[q]);
   const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, m);
+  if (!keep)
 #pragma unroll
-  for (int q = 0; q < N; ++q)
-    if (keys[q] == w) keys[q] = kNone;
+    for (int q = 0; q < N; ++q)
+      if (keys[q] == w) keys[q] = kNone;
   return w;
 }
 
@@ -219,6 +383,33 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float clip127(float v) { return fminf(fmaxf(v, -127.0f), 127.0f); }
 
+// int8 <-> f32 without the conversion pipe, which issues a quarter as fast:
+// the int8 extension is mostly conversions.  Byte i of w, biased to [0,
+// 255] by w ^ 0x80808080, set into the mantissa of 2^23 by one byte permute:
+// a float 2^23 + 128 + the signed byte, exact.
+__device__ __forceinline__ float biased_byte(uint32_t u, int i) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i));
+}
+
+// The four signed bytes of w as exact floats.
+__device__ __forceinline__ void s8x4_to_f32(uint32_t w, float (&v)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = biased_byte(u, i) - 8388736.0f;
+}
+
+// rintf(x) (half to even) for |x| < 2^22: the sum with 1.5 * 2^23 rounds to
+// an integer, which its low mantissa bits hold (its low byte is the int8)
+__device__ __forceinline__ float round_even(float x) { return (x + 12582912.0f) - 12582912.0f; }
+__device__ __forceinline__ uint32_t round_even_bits(float x) {
+  return __float_as_uint(x + 12582912.0f);
+}
+
+// The low bytes of four words as one word (bytes 0..3 from a, b, c, d).
+__device__ __forceinline__ uint32_t low_bytes4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -227,30 +418,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two consecutive elements (k, k+1) of row r of A as a bf16 pair; rows at or
-// past `rows` read as zero.  A_F32: the row holds f32 (rounded to bf16
-// here, as the TPU kernel's matmul casts its operand); else bf16.
-template <bool A_F32>
+// Two consecutive elements (k, k+1) of f32 row r of A, rounded to a bf16
+// pair as the TPU kernel's matmul casts its operand; rows at or past `rows`
+// read as zero.
 __device__ __forceinline__ uint32_t load_a(const unsigned char* A, int stride, int rows, int r, int k) {
   if (r >= rows) return 0u;
-  if (A_F32) {
-    const float2 v = *reinterpret_cast<const float2*>(A + (size_t)r * stride + (size_t)k * 4);
-    return pack_bf16x2(v.x, v.y);
-  }
-  return *reinterpret_cast<const uint32_t*>(A + (size_t)r * stride + (size_t)k * 2);
+  const float2 v = *reinterpret_cast<const float2*>(A + (size_t)r * stride + (size_t)k * 4);
+  return pack_bf16x2(v.x, v.y);
 }
 
-// X[r, n] = sum_k bf16(A[r, k]) * C_t[n, k] in f32 for r < 16 * mtiles and
-// all 256 codewords n.  Warp w owns codewords [32 w, 32 w + 32).
-template <bool A_F32>
+// f32 E: X[r, n] = sum_k bf16(A[r, k]) * C_t[n, k] in f32 for r < 16 *
+// mtiles and all 256 codewords n, on mma.sync.  Warp w owns codewords
+// [32 w, 32 w + 32) and reads their rows of C_t from L2.
 __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int mtiles,
                              const uint16_t* __restrict__ Ct, int D, float* X, int warp, int lane) {
   const int g = lane >> 2, q = lane & 3;
@@ -275,11 +454,10 @@ __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int m
       for (int mi = 0; mi < 4; ++mi) {
         if (mt0 + mi < mtiles) {
           const int r0 = (mt0 + mi) * 16 + g, r1 = r0 + 8;
-          const uint32_t a[4] = {
-              load_a<A_F32>(A, stride, rows, r0, k0 + 2 * q),
-              load_a<A_F32>(A, stride, rows, r1, k0 + 2 * q),
-              load_a<A_F32>(A, stride, rows, r0, k0 + 8 + 2 * q),
-              load_a<A_F32>(A, stride, rows, r1, k0 + 8 + 2 * q)};
+          const uint32_t a[4] = {load_a(A, stride, rows, r0, k0 + 2 * q),
+                                 load_a(A, stride, rows, r1, k0 + 2 * q),
+                                 load_a(A, stride, rows, r0, k0 + 8 + 2 * q),
+                                 load_a(A, stride, rows, r1, k0 + 8 + 2 * q)};
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mi][nt], a, b[nt]);
         }
@@ -302,72 +480,77 @@ __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int m
   }
 }
 
-// X[r, n] = f32(sum_k A8[r, k] * C8_t[n, k]) * rsc[r]: the int8 rescore,
-// exact in int32, dequantized by the row scale x codebook scale.
-__device__ void rescore_s8(const unsigned char* A, int stride, int mtiles,
-                           const int8_t* __restrict__ Ct, int D, const float* rsc, float* X,
-                           int warp, int lane) {
-  const int g = lane >> 2, q = lane & 3;
-  const int n0 = warp * 32;
-  for (int mt0 = 0; mt0 < mtiles; mt0 += 4) {
-    int acc[4][4][4];
+// bf16 and int8 E: X[r, n] for r < rows and all 256 codewords n, on wgmma.
+// A: K-chunked rows (`stride` bytes between 16-byte K pieces; the m64 tile
+// reads past `rows`, and those rows' sums are dropped).  B: `nchunks`
+// chunks of the codebook taken from the ring in sequence, chunk g in slot
+// g & 1; after both warpgroups are done with a slot, thread 0 refills it
+// with chunk g + 2 (`issue`).  Warpgroup w owns codewords [128 w, 128 w +
+// 128).  I8: s8 x s8 -> s32, dequantized by rsc[r]; else bf16 -> f32.
+template <bool I8, bool TIMED, class Issue>
+__device__ void wg_rescore(const unsigned char* A, int stride, int nchunks, unsigned char* ring,
+                           uint64_t* full, int& g, const Issue& issue, const float* rsc, float* X,
+                           int rows, StageClock<TIMED>& clk, int stage, int tid) {
+  using Acc = typename std::conditional<I8, int, float>::type;
+  Acc d[64];
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 64; ++i) d[i] = 0;
+  const int wg = tid >> 7;
+  for (int c = 0; c < nchunks; ++c, ++g) {
+    const int slot = g & 1;
+    mbar_wait(full + slot, (g >> 1) & 1);
+    const unsigned char* B = ring + slot * kChunk + wg * 128 * 16;
+    wg_fence();
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[mi][nt][u] = 0;
-    for (int k0 = 0; k0 < D; k0 += 32) {
-      uint32_t b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* bp = Ct + (size_t)(n0 + nt * 8 + g) * D + k0 + 4 * q;
-        b[nt][0] = *reinterpret_cast<const uint32_t*>(bp);
-        b[nt][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if (mt0 + mi < mtiles) {
-          const int r0 = (mt0 + mi) * 16 + g, r1 = r0 + 8;
-          const uint32_t a[4] = {
-              *reinterpret_cast<const uint32_t*>(A + (size_t)r0 * stride + k0 + 4 * q),
-              *reinterpret_cast<const uint32_t*>(A + (size_t)r1 * stride + k0 + 4 * q),
-              *reinterpret_cast<const uint32_t*>(A + (size_t)r0 * stride + k0 + 16 + 4 * q),
-              *reinterpret_cast<const uint32_t*>(A + (size_t)r1 * stride + k0 + 16 + 4 * q)};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mi][nt], a, b[nt]);
-        }
-      }
+    for (int s = 0; s < 4; ++s) {
+      // 32 bytes of K: A's pieces 8c + 2s and 8c + 2s + 1, the chunk's 2s and 2s + 1
+      const uint64_t da = wg_desc(A + (size_t)(8 * c + 2 * s) * stride, stride, 128);
+      const uint64_t db = wg_desc(B + s * 2 * kCS * 16, kCS * 16, 128);
+      if constexpr (I8)
+        wgmma_s8(d, da, db, c | s);
+      else
+        wgmma_bf16(d, da, db, c | s);
     }
+    wg_commit();
+    wg_wait0();
+    clk.sync(stage);  // both warpgroups are done with the slot
+    if (tid == 0) issue(g + 2);
+  }
+  // thread (warp w, lane l) of a warpgroup holds rows 16 w + l / 4 (+ 8),
+  // columns 8 j + 2 (l % 4) (+ 1), j < 16
+  const int w = (tid >> 5) & 3, l = tid & 31;
+  const int r0 = 16 * w + (l >> 2), r1 = r0 + 8;
+  const float s0 = I8 && r0 < rows ? rsc[r0] : 1.0f, s1 = I8 && r1 < rows ? rsc[r1] : 1.0f;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      if (mt0 + mi < mtiles) {
-        const int r0 = (mt0 + mi) * 16 + g, r1 = r0 + 8;
-        const float s0 = rsc[r0], s1 = rsc[r1];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + nt * 8 + 2 * q;
-          X[r0 * kXS + col] = (float)acc[mi][nt][0] * s0;
-          X[r0 * kXS + col + 1] = (float)acc[mi][nt][1] * s0;
-          X[r1 * kXS + col] = (float)acc[mi][nt][2] * s1;
-          X[r1 * kXS + col + 1] = (float)acc[mi][nt][3] * s1;
-        }
-      }
+  for (int j = 0; j < 16; ++j) {
+    const int col = wg * 128 + 8 * j + 2 * (l & 3);
+    if (r0 < rows) {
+      X[r0 * kXS + col] = I8 ? (float)d[4 * j] * s0 : (float)d[4 * j];
+      X[r0 * kXS + col + 1] = I8 ? (float)d[4 * j + 1] * s0 : (float)d[4 * j + 1];
+    }
+    if (r1 < rows) {
+      X[r1 * kXS + col] = I8 ? (float)d[4 * j + 2] * s1 : (float)d[4 * j + 2];
+      X[r1 * kXS + col + 1] = I8 ? (float)d[4 * j + 3] * s1 : (float)d[4 * j + 3];
     }
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(uint16_t v) { return bf2f(v); }
+
 // Keys of one candidate's row scores; lane l holds codewords l, l + 32,
 // ..., l + 224.  v2: S[j] = (base + shared[j]) + 2 cross[j] with shared the
-// Gmod row; v1: S[j] = (base + csq[j]) + 2 (cross[j] - q[j]) with q the
-// Gram row (`sr`) and csq the codebook's squared norms.
-template <bool V1>
-__device__ __forceinline__ void row_keys(const float* xr, const float* sr, const float* csq,
+// Gmod row (bf16 values, held in bf16 or f32); v1: S[j] = (base + csq[j]) +
+// 2 (cross[j] - q[j]) with q the Gram row (`sr`) and csq the codebook's
+// squared norms.
+template <bool V1, class SR>
+__device__ __forceinline__ void row_keys(const float* xr, const SR* sr, const float* csq,
                                          float base, int lane, uint32_t (&keys)[8]) {
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     const int j = lane + 32 * q;
-    const float s = V1 ? (base + csq[j]) + 2.0f * (xr[j] - sr[j]) : (base + sr[j]) + 2.0f * xr[j];
+    const float s = V1 ? (base + csq[j]) + 2.0f * (xr[j] - to_f32(sr[j]))
+                       : (base + to_f32(sr[j])) + 2.0f * xr[j];
     keys[q] = pack_key(s, (uint32_t)j);
   }
 }
@@ -379,30 +562,37 @@ __device__ __forceinline__ float row_base(float ss, float ec, float si) {
   return V1 ? (ss - 2.0f * ec) + si : (ss - 2.0f * ec) - si;
 }
 
+// Byte `byte` of row r of an E buffer: WG, K-chunked (`stride` bytes
+// between 16-byte K pieces); else row-major (`stride` bytes a row).
+template <bool WG>
+__device__ __forceinline__ size_t e_off(int r, int byte, int stride) {
+  return WG ? (size_t)(byte >> 4) * stride + (size_t)r * 16 + (byte & 15)
+            : (size_t)r * stride + byte;
+}
+
 template <int ET>
-__device__ __forceinline__ void load_row4(const unsigned char* row, int d, float (&v)[4]) {
+__device__ __forceinline__ void load_row4(const unsigned char* p, float (&v)[4]) {
   if (ET == kF32) {
-    const float4 w = *reinterpret_cast<const float4*>(row + (size_t)d * 4);
+    const float4 w = *reinterpret_cast<const float4*>(p);
     v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
   } else if (ET == kBF16) {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + (size_t)d * 2);
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
     v[0] = __uint_as_float(w.x << 16); v[1] = __uint_as_float(w.x & 0xFFFF0000u);
     v[2] = __uint_as_float(w.y << 16); v[3] = __uint_as_float(w.y & 0xFFFF0000u);
   } else {
-    const char4 w = *reinterpret_cast<const char4*>(row + d);
-    v[0] = (float)w.x; v[1] = (float)w.y; v[2] = (float)w.z; v[3] = (float)w.w;
+    s8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), v);
   }
 }
 
 template <int ET>
-__device__ __forceinline__ void store_row4(unsigned char* row, int d, const float (&v)[4]) {
+__device__ __forceinline__ void store_row4(unsigned char* p, const float (&v)[4]) {
   if (ET == kF32) {
-    *reinterpret_cast<float4*>(row + (size_t)d * 4) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
     uint2 w;
     w.x = pack_bf16x2(v[0], v[1]);
     w.y = pack_bf16x2(v[2], v[3]);
-    *reinterpret_cast<uint2*>(row + (size_t)d * 2) = w;
+    *reinterpret_cast<uint2*>(p) = w;
   }
 }
 
@@ -419,29 +609,32 @@ __device__ __forceinline__ void bf16_delta4(const uint16_t* cj, const uint16_t* 
 
 // The 4 int8 differences c8[j, d..d+3] - c8[i, d..d+3], exact in f32.
 __device__ __forceinline__ void i8_delta4(const int8_t* cj, const int8_t* ci, int d, float (&dv)[4]) {
-  const char4 pj = *reinterpret_cast<const char4*>(cj + d);
-  const char4 pi = *reinterpret_cast<const char4*>(ci + d);
-  dv[0] = (float)((int)pj.x - (int)pi.x);
-  dv[1] = (float)((int)pj.y - (int)pi.y);
-  dv[2] = (float)((int)pj.z - (int)pi.z);
-  dv[3] = (float)((int)pj.w - (int)pi.w);
+  const uint32_t uj = *reinterpret_cast<const uint32_t*>(cj + d) ^ 0x80808080u;
+  const uint32_t ui = *reinterpret_cast<const uint32_t*>(ci + d) ^ 0x80808080u;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) dv[u] = biased_byte(uj, u) - biased_byte(ui, u);  // the biases cancel
 }
 
-// One warp extends candidate row r:
-//   E_dst[r] = E_src[src_row] + (c_t[j] - c_t[i])
-// plus, with LAZY and jp >= 0, the deferred delta c_{t-1}[jp] - c_{t-1}[ip].
-// f32/bf16: in f32, stored in the E type.  int8 (not first): in csc[t]
-// units, q * (s / csc) + (c8[j] - c8[i]) [+ (c8'[jp] - c8'[ip]) * (csc' /
-// csc)], requantized by the REQ rule, scale s_new * csc stored; kPass adds
-// round((c8[j] - c8[i]) * (csc / s)) to q and keeps s.  first: the source is
-// the f32 root error, and int8 quantizes the absolute f32 sum (scale from the
-// extended row, or from the root for kPass).
-template <int ET, bool FIRST, int REQ, bool LAZY>
-__device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, int jp,
-                           const unsigned char* src, unsigned char* dst, float src_scale,
+// One warp extends a candidate row:
+//   E_dst[dst_row] = E_src[src_row] + (c_t[j] - c_t[i])
+// plus, with LAZY and pj non-null, the deferred delta c_{t-1}[jp] - c_{t-1}[ip].
+// cj, ci: the rows of codebook t (int8 after the fan-out with int8 E, else
+// bf16), in shared memory (staged) or L2; pj, pi: codebook t-1's, in L2.
+// src: the f32 root row (FIRST) or an E buffer; E buffers are addressed by
+// e_off<WG> with `stride`.  f32/bf16: in f32, stored in the E type.  int8
+// (not first): in csc[t] units, q * (s / csc) + (c8[j] - c8[i]) [+ (c8'[jp] -
+// c8'[ip]) * (csc' / csc)], requantized by the REQ rule, scale s_new * csc
+// stored; kPass adds round((c8[j] - c8[i]) * (csc / s)) to q and keeps s.
+// first: int8 quantizes the absolute f32 sum (scale from the extended row, or
+// from the root for kPass).
+template <int ET, bool FIRST, int REQ, bool LAZY, bool WG>
+__device__ void extend_row(const Args& a, int D, int t, const void* cj, const void* ci,
+                           const void* pj, const void* pi, const unsigned char* src, int src_row,
+                           unsigned char* dst, int dst_row, int stride, float src_scale,
                            float* dst_scale, float csc_t, int lane) {
   constexpr bool I8 = ET == kI8 && !FIRST;
-  const bool prev = LAZY && jp >= 0;
+  constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
+  const bool prev = LAZY && pj != nullptr;
   const int nchunk = D / 128;
   float ef[kMaxChunks][4];
   float sadj = 0.0f, rprev = 0.0f, col = 0.0f, vmax = 0.0f;
@@ -460,30 +653,28 @@ __device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, i
         const float4 w = *reinterpret_cast<const float4*>(src + (size_t)d * 4);
         v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
       } else {
-        load_row4<ET>(src, d, v);
+        load_row4<ET>(src + e_off<WG>(src_row, d * ES, stride), v);
       }
       if (I8) {
-        i8_delta4(a.C8 + ((size_t)t * kCS + j) * D, a.C8 + ((size_t)t * kCS + it) * D, d, dv);
+        i8_delta4((const int8_t*)cj, (const int8_t*)ci, d, dv);
         if (REQ == kPass) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) ef[k][u] = v[u] + rintf(dv[u] * col);
+          for (int u = 0; u < 4; ++u) ef[k][u] = v[u] + round_even(dv[u] * col);
         } else {
 #pragma unroll
           for (int u = 0; u < 4; ++u) ef[k][u] = v[u] * sadj + dv[u];
           if (prev) {
             float pv[4];
-            i8_delta4(a.C8 + ((size_t)(t - 1) * kCS + jp) * D,
-                      a.C8 + ((size_t)(t - 1) * kCS + ip) * D, d, pv);
+            i8_delta4((const int8_t*)pj, (const int8_t*)pi, d, pv);
 #pragma unroll
             for (int u = 0; u < 4; ++u) ef[k][u] = ef[k][u] + pv[u] * rprev;
           }
         }
       } else {
-        bf16_delta4(a.C + ((size_t)t * kCS + j) * D, a.C + ((size_t)t * kCS + it) * D, d, dv);
+        bf16_delta4((const uint16_t*)cj, (const uint16_t*)ci, d, dv);
         if (prev) {
           float pv[4];
-          bf16_delta4(a.C + ((size_t)(t - 1) * kCS + jp) * D,
-                      a.C + ((size_t)(t - 1) * kCS + ip) * D, d, pv);
+          bf16_delta4((const uint16_t*)pj, (const uint16_t*)pi, d, pv);
 #pragma unroll
           for (int u = 0; u < 4; ++u) dv[u] = dv[u] + pv[u];
         }
@@ -493,14 +684,16 @@ __device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, i
 #pragma unroll
           for (int u = 0; u < 4; ++u) vmax = fmaxf(vmax, fabsf(v[u]));
       }
-      if (ET != kI8) store_row4<ET>(dst, d, ef[k]);
+      if (ET != kI8) store_row4<ET>(dst + e_off<WG>(dst_row, d * ES, stride), ef[k]);
     }
   }
   if (ET != kI8) return;
-  float s;
-  if (!FIRST && REQ == kPass) {
-    s = src_scale;  // frozen for the pass; ef already holds the new q
-  } else {
+  // kPass after the fan-out: the scale is frozen for the pass and ef already
+  // holds the new q; else the row's new scale (step: its max; bound: the
+  // parent's grown by cmax_t / 127; kPass at the fan-out: the root's)
+  const bool frozen = !FIRST && REQ == kPass;
+  float s = src_scale, inv = 1.0f;
+  if (!frozen) {
     float amax = vmax;  // kPass, first: the root error's
     if (!(FIRST && REQ == kPass)) {
 #pragma unroll
@@ -511,24 +704,23 @@ __device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, i
     }
     amax = warp_max(amax);
     s = (!FIRST && REQ == kBound) ? sadj + a.cmax[t] * kInv127 : fmaxf(amax * kInv127, 1e-20f);
-    const float inv = 1.0f / s;
-#pragma unroll
-    for (int k = 0; k < kMaxChunks; ++k)
-      if (k < nchunk)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) ef[k][u] = rintf(ef[k][u] * inv);
+    inv = 1.0f / s;
   }
-  // step requant never leaves [-127, 127]: its scale is the row's max
+  // round half to even, clipped but for step requant, which never leaves
+  // [-127, 127]: its scale is the row's max
 #pragma unroll
   for (int k = 0; k < kMaxChunks; ++k) {
     if (k < nchunk) {
       const int d = 4 * (lane + 32 * k);
-      char4 w;
-      w.x = (signed char)(int)(REQ == kStep ? ef[k][0] : clip127(ef[k][0]));
-      w.y = (signed char)(int)(REQ == kStep ? ef[k][1] : clip127(ef[k][1]));
-      w.z = (signed char)(int)(REQ == kStep ? ef[k][2] : clip127(ef[k][2]));
-      w.w = (signed char)(int)(REQ == kStep ? ef[k][3] : clip127(ef[k][3]));
-      *reinterpret_cast<char4*>(dst + d) = w;
+      // clipping at the integers +-127 commutes with the rounding
+      uint32_t q[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float x = frozen ? ef[k][u] : ef[k][u] * inv;
+        q[u] = round_even_bits(REQ == kStep ? x : clip127(x));
+      }
+      *reinterpret_cast<uint32_t*>(dst + e_off<WG>(dst_row, d, stride)) =
+          low_bytes4(q[0], q[1], q[2], q[3]);
     }
   }
   if (lane == 0) *dst_scale = (FIRST || REQ == kPass) ? s : s * csc_t;
@@ -537,9 +729,12 @@ __device__ void extend_row(const Args& a, int D, int t, int it, int j, int ip, i
 // V1: the v1 kernel (f32 E, every step a pool step, v1's score and pool
 // packing); it reads qg/csq in place of gmod.  REQ: the int8 requant rule
 // (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).  TIMED: the stage-timed
-// build, which adds its clock64() sums to a.stages.
+// build, which adds its clock64() sums to a.stages.  bf16 and int8 E take
+// the wgmma design (WG), f32 E the mma.sync one (see the top of the file).
 template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
+  constexpr bool WG = ET != kF32;
+  constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
   extern __shared__ __align__(16) unsigned char smem[];
   StageClock<TIMED> clk;
   clk.start();
@@ -549,22 +744,31 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fb = blockIdx.x * F;
 
-  unsigned char* E[2] = {smem + L.e0, smem + L.e1};
+  // the double buffers by index (an array of pointers would sit in local
+  // memory and make their accesses generic rather than shared)
+  auto Eb = [&](int i) { return smem + (i ? L.e1 : L.e0); };
   float* Er = reinterpret_cast<float*>(smem + L.er);
   float* X = reinterpret_cast<float*>(smem + L.xs);
-  float* srow = reinterpret_cast<float*>(smem + L.srow);
-  float* sc[2] = {reinterpret_cast<float*>(smem + L.sc0), reinterpret_cast<float*>(smem + L.sc1)};
+  float* srow = reinterpret_cast<float*>(smem + L.srow);        // f32 E
+  uint16_t* srow2 = reinterpret_cast<uint16_t*>(smem + L.srow);  // WG: bf16, buffer t & 1
+  auto scb = [&](int i) { return reinterpret_cast<float*>(smem + (i ? L.sc1 : L.sc0)); };
   float* rsc = reinterpret_cast<float*>(smem + L.rsc);
   float* ss = reinterpret_cast<float*>(smem + L.ss);
   float* ss0 = reinterpret_cast<float*>(smem + L.ss0);
-  int* ch[2] = {reinterpret_cast<int*>(smem + L.ch0), reinterpret_cast<int*>(smem + L.ch1)};
+  auto chb = [&](int i) { return reinterpret_cast<int*>(smem + (i ? L.ch1 : L.ch0)); };
   int* sol = reinterpret_cast<int*>(smem + L.sol);
   int* selj = reinterpret_cast<int*>(smem + L.selj);
   int* selp = reinterpret_cast<int*>(smem + L.selp);
   int* jdef = reinterpret_cast<int*>(smem + L.jdef);
   uint32_t* rkeys = reinterpret_cast<uint32_t*>(smem + L.rkeys);
+  unsigned char* ring = smem + L.ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  unsigned char* cst = smem + L.xs;  // WG: the extension's staged codeword rows (X's space)
+  // bytes of a row of the codebook whose deltas the steps' extensions add:
+  // int8 with int8 E, else bf16
+  const int crb = ET == kI8 ? D : 2 * D;
 
-  // the per-frame score row of codebook t: v2 Gmod_t[sol_t, :], v1 q_t[sol_t, :]
+  // f32 E: the per-frame score row of codebook t, v2 Gmod_t[sol_t, :], v1 q_t[sol_t, :]
   auto load_srow = [&](int t) {
     for (int i = tid; i < F * kCS; i += kThreads) {
       const int f = i / kCS;
@@ -572,24 +776,98 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       srow[i] = V1 ? a.qg[at] : bf2f(a.gmod[at]);
     }
   };
+  // WG: the same rows of Gmod as bf16 by cp.async into buffer t & 1 (waited
+  // for by the next cp_async_wait_all)
+  auto fetch_srow = [&](int t) {
+    for (int i = tid; i < F * 32; i += kThreads) {
+      const int f = i >> 5, piece = i & 31;
+      cp_async16(srow2 + ((t & 1) * F + f) * kCS + piece * 8,
+                 a.gmod + ((size_t)t * kCS + sol[f * nc + t]) * kCS + piece * 8);
+    }
+    cp_async_commit();
+  };
+  // WG: the ring's sequence, per pass the root's bf16 chunks of codebook 0,
+  // then the E-type chunks of codebooks 1 .. nc-1; thread 0 loads chunk s
+  // into slot s & 1
+  const int nr = 2 * D / 128, ns = D * ES / 128;
+  const int per_pass = nr + (nc - 1) * ns, total = a.passes * per_pass;
+  auto issue = [&](int s) {
+    if (s >= total) return;
+    const int r = s % per_pass;
+    const unsigned char* src =
+        r < nr ? a.cpb + (size_t)r * kChunk
+               : (ET == kI8 ? a.cpi : a.cpb) +
+                     ((size_t)(1 + (r - nr) / ns) * ns + (r - nr) % ns) * kChunk;
+    bulk_load(ring + (s & 1) * kChunk, src, kChunk, full + (s & 1));
+  };
+  int g = 0;  // WG: ring chunks consumed
 
+  if (WG && tid == 0) {
+    mbar_init(full);
+    mbar_init(full + 1);
+  }
   for (int i = tid; i < F * nc; i += kThreads) {
     const int b = fb + i / nc;
     sol[i] = b < a.B ? a.idx0[(size_t)b * nc + i % nc] : 0;
   }
   clk.sync(kStRoot);
+  if (WG && tid == 0) {
+    issue(0);
+    issue(1);
+  }
 
   for (int p = 0; p < a.passes; ++p) {
-    // ---- root: E = -x + sum_s bf16(C_s[sol_s]) in f32, codebook order
-    for (int i = tid; i < F * D; i += kThreads) {
-      const int f = i / D, d = i - f * D;
-      const int b = fb + f;
-      float e = b < a.B ? -a.x[(size_t)b * D + d] : 0.0f;
-      for (int s = 0; s < nc; ++s) e = e + bf2f(a.C[((size_t)s * kCS + sol[f * nc + s]) * D + d]);
-      Er[f * L.er_stride + d] = e;
+    // the fan-out's and step 1's score rows load while the root is summed
+    if constexpr (WG) {
+      fetch_srow(0);
+      fetch_srow(1);
     }
+    // ---- root: E = -x + sum_s bf16(C_s[sol_s]) in f32, codebook order; 8
+    // consecutive values a thread, every codebook's row loaded at once.  WG:
+    // also the bf16 A operand of the root's rescore, K-chunked, in E[1]
+    for (int i = tid; i < F * D / 8; i += kThreads) {
+      const int f = i / (D / 8), d = 8 * (i - f * (D / 8));
+      const int b = fb + f;
+      float e[8];
+      if (b < a.B) {
+        const float4 x0 = *reinterpret_cast<const float4*>(a.x + (size_t)b * D + d);
+        const float4 x1 = *reinterpret_cast<const float4*>(a.x + (size_t)b * D + d + 4);
+        e[0] = -x0.x; e[1] = -x0.y; e[2] = -x0.z; e[3] = -x0.w;
+        e[4] = -x1.x; e[5] = -x1.y; e[6] = -x1.z; e[7] = -x1.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) e[u] = 0.0f;
+      }
+      uint4 c[kMaxNc];
+#pragma unroll
+      for (int s = 0; s < kMaxNc; ++s)
+        if (s < nc)
+          c[s] = *reinterpret_cast<const uint4*>(a.C + ((size_t)s * kCS + sol[f * nc + s]) * D + d);
+#pragma unroll
+      for (int s = 0; s < kMaxNc; ++s) {
+        if (s < nc) {
+          const uint32_t w[4] = {c[s].x, c[s].y, c[s].z, c[s].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            e[2 * u] = e[2 * u] + __uint_as_float(w[u] << 16);
+            e[2 * u + 1] = e[2 * u + 1] + __uint_as_float(w[u] & 0xFFFF0000u);
+          }
+        }
+      }
+      float* er = Er + f * L.er_stride + d;
+      *reinterpret_cast<float4*>(er) = make_float4(e[0], e[1], e[2], e[3]);
+      *reinterpret_cast<float4*>(er + 4) = make_float4(e[4], e[5], e[6], e[7]);
+      if (WG)
+        *reinterpret_cast<uint4*>(Eb(1) + (size_t)(d / 8) * L.root_stride + f * 16) =
+            make_uint4(pack_bf16x2(e[0], e[1]), pack_bf16x2(e[2], e[3]), pack_bf16x2(e[4], e[5]),
+                       pack_bf16x2(e[6], e[7]));
+    }
+    if (WG) fence_proxy_async();
     clk.lap(kStRoot);
-    load_srow(0);
+    if constexpr (WG)
+      cp_async_wait_all();
+    else
+      load_srow(0);
     clk.sync(kStSrow);
     for (int f = warp; f < F; f += kWarps) {
       float acc = 0.0f;
@@ -601,17 +879,26 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       if (lane == 0) ss0[f] = acc;
     }
     // ---- step 0: rescore the root only, fan out to the M best
-    rescore_bf16<true>(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
-                       warp, lane);
+    if constexpr (WG)
+      wg_rescore<false>(Eb(1), L.root_stride, nr, ring, full, g, issue, rsc, X, F, clk, kStRoot,
+                        tid);
+    else
+      rescore_bf16(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
+                   warp, lane);
     clk.sync(kStRoot);
     for (int f = warp; f < F; f += kWarps) {
       const int i0 = sol[f * nc];
       const float* xr = X + f * kXS;
-      const float* sr = srow + f * kCS;
       uint32_t keys[8];
-      row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], sr[i0]), lane, keys);
+      if constexpr (WG) {
+        const uint16_t* sr = srow2 + f * kCS;
+        row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], bf2f(sr[i0])), lane, keys);
+      } else {
+        const float* sr = srow + f * kCS;
+        row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], sr[i0]), lane, keys);
+      }
       for (int m = 0; m < M; ++m) {
-        const uint32_t w = extract_min(keys);
+        const uint32_t w = extract_min(keys, m == M - 1);
         if (lane == 0) {
           selj[f * M + m] = (int)(w & kLaneMask);
           ss[f * M + m] = __uint_as_float(w & ~kLaneMask);
@@ -621,15 +908,16 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     clk.sync(kStRoot);
     for (int i = tid; i < RW * nc; i += kThreads) {
       const int r = i / nc, s = i - r * nc;
-      ch[0][i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
+      chb(0)[i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
     }
     for (int r = warp; r < RW; r += kWarps) {
       const int f = r / M;
-      extend_row<ET, true, REQ, LAZY>(a, D, 0, sol[f * nc], selj[r], -1, -1,
-                           reinterpret_cast<const unsigned char*>(Er + f * L.er_stride),
-                           E[0] + (size_t)r * L.e_stride, 0.0f, sc[0] + r,
-                           ET == kI8 ? a.csc[0] : 1.0f, lane);
+      extend_row<ET, true, REQ, LAZY, WG>(
+          a, D, 0, a.C + (size_t)selj[r] * D, a.C + (size_t)sol[f * nc] * D, nullptr, nullptr,
+          reinterpret_cast<const unsigned char*>(Er + f * L.er_stride), 0, Eb(0), r, L.e_stride,
+          0.0f, scb(0) + r, ET == kI8 ? a.csc[0] : 1.0f, lane);
     }
+    if (WG) fence_proxy_async();
     clk.sync(kStRoot);
 
     int cur = 0;
@@ -639,27 +927,29 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const bool last = t == nc - 1;
       const bool defer = LAZY && !pool && !last;
       const float csc_t = ET == kI8 ? a.csc[t] : 1.0f;
-      load_srow(t);
+      if constexpr (WG) {
+        if (t + 1 < nc) fetch_srow(t + 1);
+      } else {
+        load_srow(t);
+      }
       clk.lap(kStSrow);
       if (ET == kI8)
-        for (int r = tid; r < RW; r += kThreads) rsc[r] = sc[cur][r] * csc_t;
-      clk.sync(kStRescore);
+        for (int r = tid; r < RW; r += kThreads) rsc[r] = scb(cur)[r] * csc_t;
       // ---- rescore all candidates against codebook t
-      if (ET == kI8)
-        rescore_s8(E[cur], L.e_stride, mtiles, a.C8 + (size_t)t * kCS * D, D, rsc, X, warp, lane);
-      else if (ET == kF32)
-        rescore_bf16<true>(E[cur], L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp,
-                           lane);
-      else
-        rescore_bf16<false>(E[cur], L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp,
-                            lane);
+      if constexpr (WG) {
+        // rsc is read after the rescore's first barrier
+        wg_rescore<ET == kI8>(Eb(cur), L.e_stride, ns, ring, full, g, issue, rsc, X, RW, clk,
+                              kStRescore, tid);
+      } else {
+        clk.sync(kStRescore);
+        rescore_bf16(Eb(cur), L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp, lane);
+      }
       clk.sync(kStRescore);
       // ---- score assembly and per-row selection
       for (int r = warp; r < RW; r += kWarps) {
         const int f = r / M;
         const int it = sol[f * nc + t];
         float* xr = X + r * kXS;
-        const float* sr = srow + f * kCS;
         if (LAZY && pend) {
           // the row still lacks codebook t-1's deferred delta: correct its
           // cross by Gx_t[j'] - Gx_t[i'] (bf16 values, f32 difference)
@@ -673,21 +963,28 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           __syncwarp();
         }
         uint32_t keys[8];
-        row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS, row_base<V1>(ss[r], xr[it], sr[it]), lane,
-                     keys);
+        if constexpr (WG) {
+          const uint16_t* sr = srow2 + ((t & 1) * F + f) * kCS;
+          row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS,
+                       row_base<V1>(ss[r], xr[it], bf2f(sr[it])), lane, keys);
+        } else {
+          const float* sr = srow + f * kCS;
+          row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS, row_base<V1>(ss[r], xr[it], sr[it]), lane,
+                       keys);
+        }
         if (!pool) {
           // R1: each parent keeps its best child in place
-          const uint32_t w = extract_min(keys);
+          const uint32_t w = extract_min(keys, true);
           if (lane == 0) {
             selj[r] = (int)(w & kLaneMask);
             selp[r] = r - f * M;
             ss[r] = __uint_as_float(w & ~kLaneMask);
-            ch[cur][r * nc + t] = (int)(w & kLaneMask);
+            chb(cur)[r * nc + t] = (int)(w & kLaneMask);
             if (defer) jdef[r] = (int)(w & kLaneMask);
           }
         } else {
           for (int k = 0; k < R; ++k) {
-            const uint32_t w = extract_min(keys);
+            const uint32_t w = extract_min(keys, k == R - 1);
             if (lane == 0) rkeys[r * R + k] = w;
           }
         }
@@ -708,7 +1005,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                                  : (fk[e] & ~mbits) | ((uint32_t)(e / R) << 8);
           }
           for (int n = 0; n < M; ++n) {
-            const uint32_t w = extract_min(keys);
+            const uint32_t w = extract_min(keys, n == M - 1);
             if (lane == 0) {
               if (V1) {
                 const int e = (int)(w & kLaneMask);
@@ -724,26 +1021,58 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           }
         }
         clk.sync(kStPool);
+      }
+      // ---- extension (none on the last step of a pass, or a deferring R1
+      // step).  WG: stage C_t[j] of every row, then C_t[i] of every frame
+      // (X is free), the copies landing while the beam is reordered
+      const bool extend = !last && !defer;
+      const unsigned char* ct =
+          ET == kI8 ? reinterpret_cast<const unsigned char*>(a.C8 + (size_t)t * kCS * D)
+                    : reinterpret_cast<const unsigned char*>(a.C + (size_t)t * kCS * D);
+      if (WG && extend) {
+        const int pieces = crb / 16;
+        for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
+          const int row = i / pieces, off = (i - row * pieces) * 16;
+          const int j = row < RW ? selj[row] : sol[(row - RW) * nc + t];
+          cp_async16(cst + (size_t)row * crb + off, ct + (size_t)j * crb + off);
+        }
+        cp_async_commit();
+      }
+      if (pool) {
         for (int i = tid; i < RW * nc; i += kThreads) {
           const int r = i / nc, s = i - r * nc;
           const int f = r / M;
-          ch[cur ^ 1][i] = s == t ? selj[r] : ch[cur][(f * M + selp[r]) * nc + s];
+          chb(cur ^ 1)[i] = s == t ? selj[r] : chb(cur)[(f * M + selp[r]) * nc + s];
         }
         clk.lap(kStReorder);
       }
-      // ---- extension (none on the last step of a pass, or a deferring R1 step)
-      if (!last && !defer) {
+      if (extend) {
         const int dst = pool ? cur ^ 1 : cur;
+        if constexpr (WG) {
+          cp_async_wait_all();
+          clk.sync(kStExtend);
+        }
         for (int r = warp; r < RW; r += kWarps) {
           const int f = r / M;
           const int src_row = f * M + selp[r];
-          extend_row<ET, false, REQ, LAZY>(a, D, t, sol[f * nc + t], selj[r],
-                                pend ? sol[f * nc + t - 1] : -1, pend ? jdef[src_row] : -1,
-                                E[cur] + (size_t)src_row * L.e_stride,
-                                E[dst] + (size_t)r * L.e_stride,
-                                ET == kI8 ? sc[cur][src_row] : 0.0f, sc[dst] + r, csc_t, lane);
+          const int it = sol[f * nc + t];
+          const void* cj = WG ? (const void*)(cst + (size_t)r * crb) : ct + (size_t)selj[r] * crb;
+          const void* ci = WG ? (const void*)(cst + (size_t)(RW + f) * crb) : ct + (size_t)it * crb;
+          const void *pj = nullptr, *pi = nullptr;
+          if (LAZY && pend) {
+            const unsigned char* cp =
+                ET == kI8 ? reinterpret_cast<const unsigned char*>(a.C8 + (size_t)(t - 1) * kCS * D)
+                          : reinterpret_cast<const unsigned char*>(a.C + (size_t)(t - 1) * kCS * D);
+            pj = cp + (size_t)jdef[src_row] * crb;
+            pi = cp + (size_t)sol[f * nc + t - 1] * crb;
+          }
+          extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cj, ci, pj, pi, Eb(cur), src_row, Eb(dst), r,
+                                               L.e_stride, ET == kI8 ? scb(cur)[src_row] : 0.0f,
+                                               scb(dst) + r, csc_t, lane);
         }
+        if (WG) fence_proxy_async();
       }
+      if (WG) cp_async_wait_all();  // the next step's score rows
       if (pool) cur ^= 1;
       pend = defer;
       clk.sync(kStExtend);
@@ -754,7 +1083,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       for (int m = lane; m < M; m += 32) k = min(k, pack_key(ss[f * M + m], (uint32_t)m));
       const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, k);
       const int best = (int)(w & kLaneMask);
-      if (lane < nc) sol[f * nc + lane] = ch[cur][(f * M + best) * nc + lane];
+      if (lane < nc) sol[f * nc + lane] = chb(cur)[(f * M + best) * nc + lane];
     }
     clk.sync(kStRoot);
   }
@@ -843,15 +1172,19 @@ Args make_args(const void* x, const void* idx0, const void* centers, void* out, 
 }
 
 int v2_args(const void* x, const void* idx0, const void* centers, const void* gmod,
-            const void* centers_i8, const void* csc, const void* cmax, const void* gx, void* out,
-            int B, int D, int nc, int M, int R, int passes, const void* pool_masks, int e_dtype,
-            int requant, int lazy, Args* out_args, size_t* smem) {
+            const void* centers_i8, const void* csc, const void* cmax, const void* gx,
+            const void* chunks_bf16, const void* chunks_i8, void* out, int B, int D, int nc, int M,
+            int R, int passes, const void* pool_masks, int e_dtype, int requant, int lazy,
+            Args* out_args, size_t* smem) {
   if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
     return (int)cudaErrorInvalidValue;
   if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
-      (requant == kBound && !cmax) || (lazy && !gx))
+      (requant == kBound && !cmax) || (lazy && !gx) || (e_dtype != kF32 && !chunks_bf16) ||
+      (e_dtype == kI8 && !chunks_i8))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
+  a.cpb = (const unsigned char*)chunks_bf16;
+  a.cpi = (const unsigned char*)chunks_i8;
   a.gmod = (const uint16_t*)gmod;
   a.C8 = (const int8_t*)centers_i8;
   a.csc = (const float*)csc;
@@ -870,21 +1203,24 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
 // x (B, D) f32; idx0 (B, nc) int32; centers (nc * 256, D) bf16; gmod
 // (nc * 256, 256) bf16; centers_i8 (nc * 256, D) int8 and csc (nc,) f32 for
 // e_dtype 2 (int8), else null; cmax (nc,) f32 for requant 2 ("bound"), else
-// null; gx (nc * 256, 256) bf16 for lazy != 0, else null; out (B, nc)
-// int32.  pool_masks: `passes` host words, bit t set where step t is a pool
+// null; gx (nc * 256, 256) bf16 for lazy != 0, else null; chunks_bf16 and
+// (int8 E) chunks_i8: centers and centers_i8 as the ring's chunks (Args::cpb,
+// Args::cpi) for e_dtype 1 and 2, else null; out (B, nc) int32.  pool_masks: `passes` host words, bit t set where step t is a pool
 // step.  e_dtype: 0 f32, 1 bf16, 2 int8.  requant: 0 step, 1 pass, 2 bound
 // (int8 only).  Shapes and combinations are checked by the caller: D % 128
 // == 0, D <= 1024, nc even and <= 16, M in {8, 16, 32, 64}, M * R <= 512;
 // with lazy, no deferring R1 step is followed by another R1 step.
 extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void* centers,
                                      const void* gmod, const void* centers_i8, const void* csc,
-                                     const void* cmax, const void* gx, void* out, int B, int D,
-                                     int nc, int M, int R, int passes, const void* pool_masks,
-                                     int e_dtype, int requant, int lazy, void* stream) {
+                                     const void* cmax, const void* gx, const void* chunks_bf16,
+                                     const void* chunks_i8, void* out, int B, int D, int nc, int M,
+                                     int R, int passes, const void* pool_masks, int e_dtype,
+                                     int requant, int lazy, void* stream) {
   Args a;
   size_t smem;
-  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, out, B, D, nc, M, R,
-                          passes, pool_masks, e_dtype, requant, lazy, &a, &smem);
+  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, chunks_bf16,
+                          chunks_i8, out, B, D, nc, M, R, passes, pool_masks, e_dtype, requant,
+                          lazy, &a, &smem);
   if (err) return err;
   return launch_v2(a, e_dtype, M, requant, lazy != 0, smem, (cudaStream_t)stream);
 }
@@ -899,6 +1235,7 @@ extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void
 extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, const void* centers,
                                            const void* gmod, const void* centers_i8,
                                            const void* csc, const void* cmax, const void* gx,
+                                           const void* chunks_bf16, const void* chunks_i8,
                                            void* out, int B, int D, int nc, int M, int R,
                                            int passes, const void* pool_masks, int e_dtype,
                                            int requant, int lazy, void* stages, void* stream) {
@@ -906,8 +1243,9 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
     return (int)cudaErrorInvalidValue;
   Args a;
   size_t smem;
-  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, out, B, D, nc, M, R,
-                          passes, pool_masks, e_dtype, requant, lazy, &a, &smem);
+  const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, chunks_bf16,
+                          chunks_i8, out, B, D, nc, M, R, passes, pool_masks, e_dtype, requant,
+                          lazy, &a, &smem);
   if (err) return err;
   a.stages = (long long*)stages;
   return e_dtype == kI8 ? launch<kI8, 8, false, kStep, false, true>(a, smem, (cudaStream_t)stream)

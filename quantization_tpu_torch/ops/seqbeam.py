@@ -73,7 +73,7 @@ MAX_PASSES = 64
 
 SEQBEAM_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v2_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
 )
 SEQBEAM_V1_KERNEL = CudaKernel(
@@ -83,13 +83,12 @@ SEQBEAM_V1_KERNEL = CudaKernel(
 # the v2 kernel's stage-timed build (the auto ladder's two rungs only)
 SEQBEAM_TIMED_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v2_timed_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
 )
 # its columns: per block, each stage's clock64() cycles summed over the
 # block's warps, then the block's own cycles and nanoseconds
 STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "extension", "barrier")
-KERNEL_WARPS = 8  # warps a block of the v2 kernel (csrc/seqbeam.cu kThreads / 32)
 
 
 def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -503,6 +502,9 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
             gx is not None and gx.dtype != torch.bfloat16):
         raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
     _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx)
+    # bf16 and int8 E stream the codebooks through the kernel's ring of chunks
+    cpb = _ring_chunks(centers) if e_dtype != "f32" else None
+    cpi = _ring_chunks(ci8) if int8 else None
     words = (ctypes.c_uint32 * max(passes, 1))(*masks)
 
     def ptr(t):
@@ -510,11 +512,21 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
 
     kernel(
         x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), ptr(ci8), ptr(csc),
-        ptr(cmax), ptr(gx), out.data_ptr(), B, D, nc, M, R, passes,
+        ptr(cmax), ptr(gx), ptr(cpb), ptr(cpi), out.data_ptr(), B, D, nc, M, R, passes,
         ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
         int(problem.lazy_r1), *extra, stream,
     )
     return out
+
+
+def _ring_chunks(c: torch.Tensor) -> torch.Tensor:
+    """(nc, 256, D) bf16 or int8 codebooks as the v2 kernel's ring chunks:
+    per codebook, one chunk per 128 bytes of a row, each [8 16-byte K
+    pieces][256 codewords][16 bytes], the layout wgmma's B operand reads.  A
+    chunk is one contiguous 32 KB copy."""
+    nc, cs, _ = c.shape
+    b = c.contiguous().view(torch.uint8).reshape(nc, cs, -1, 8, 16)
+    return b.permute(0, 2, 3, 1, 4).contiguous()
 
 
 def init_indexes_from_logits(

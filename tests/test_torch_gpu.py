@@ -159,9 +159,12 @@ def test_cuda_seqbeam_auto_rungs_ragged(cuda, e_dtype, B):
     got = tseq.seqbeam_cuda(problem)
     torch.cuda.synchronize()
     chk = against_plain(problem, centers, got)
-    # int8 E: exact int32 sums, the same f32 steps: every index equal; bf16
-    # E: the rescore sums in wgmma order, so the bars of against_plain
-    assert chk["index_agreement"] == 1.0 if e_dtype == "int8" else chk["ok"], chk
+    # int8 E: the steps' rescores are exact int32 sums, but the root's is a
+    # bf16 product summed in wgmma order, so a near tie at the fan-out may
+    # flip (6 of 262,168 indexes at B=32,771 on the H100); bf16 E: every
+    # rescore sums in wgmma order.  The bars of against_plain, and for int8
+    # at most one index in 10,000 apart
+    assert chk["ok"] and (e_dtype == "bf16" or chk["index_agreement"] >= 0.9999), chk
 
 
 @pytest.mark.gpu
