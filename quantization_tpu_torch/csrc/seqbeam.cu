@@ -50,8 +50,9 @@
 // chunks, or the next pass's root's, load while this step selects and
 // extends.  The root rows join the ring as a bf16 A operand written into
 // E[1].  The Gmod score rows of step t + 1 arrive by cp.async during step t,
-// and the extension's codeword rows (C_t[j] of every row, C_t[i] of every
-// frame) are staged by cp.async into X's space once the selection is done.
+// and each extension's codeword rows (C_t[j] of every row, C_t[i] of every
+// frame) are staged by cp.async into X's space (C_0[i] into E[1]) once the
+// selection is done.
 // The int8 extension turns bytes into floats and back with byte permutes
 // and exact float adds, not on the conversion pipe, which issues at a
 // quarter of the rate.
@@ -136,9 +137,11 @@ __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
 __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
 // bf16 and int8 E (wgmma): E K-chunked with room for the m64 tile to read
-// past the last row (int8 E at d512 with F = 8 fits with 1,104 bytes left); X's space also holds the extension's staged codeword
-// rows; the score rows are bf16, double-buffered; a ring of two chunks and
-// their mbarriers.  f32 E: E row-major, f32 score rows.
+// past the last row (int8 E at d512 with F = 8 fits with 1,104 bytes left);
+// X's space also holds the extensions' staged codeword rows (the fan-out's
+// bf16 C_0[j] of every row too); the score rows are bf16, double-buffered;
+// a ring of two chunks and their mbarriers.  f32 E: E row-major, f32 score
+// rows.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
                                               bool lazy) {
   Layout L;
@@ -165,7 +168,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.e1 = take(&off, ebytes);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
   const size_t xbytes = (size_t)L.xrows * kXS * 4;
-  L.xs = take(&off, wg ? max_sz(xbytes, (rows + F) * D * esize) : xbytes);
+  L.xs = take(&off, wg ? max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D)) : xbytes);
   L.srow = take(&off, wg ? (size_t)2 * F * kCS * 2 : (size_t)F * kCS * 4);
   L.sc0 = take(&off, rows * 4);
   L.sc1 = take(&off, rows * 4);
@@ -300,7 +303,9 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t kstride, uin
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(kstride >> 4) << 16) |
          ((uint64_t)(rstride >> 4) << 32);
 }
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -315,15 +320,19 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db,
                "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
                ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
                ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-                 "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-                 "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-                 "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-                 "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-                 "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-                 "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-                 "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+               "}, %64, %65, p;\n}\n"
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+                 "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+                 "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+                 "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+                 "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+                 "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+                 "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+                 "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+                 "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+                 "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+                 "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
                : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -334,16 +343,19 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
                "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
                ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
                ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, "
-               "0;\n}\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-                 "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-                 "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-                 "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-                 "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-                 "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+               "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                 "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+                 "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+                 "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                 "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
                : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -910,10 +922,28 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const int r = i / nc, s = i - r * nc;
       chb(0)[i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
     }
+    if constexpr (WG) {
+      // stage the bf16 rows C_0[j] of every row into X's space and C_0[i]
+      // of every frame into E[1] (the root's A rows are spent)
+      const int pieces = 2 * D / 16;
+      for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
+        const int row = i / pieces, off = (i - row * pieces) * 16;
+        unsigned char* to =
+            row < RW ? cst + (size_t)row * 2 * D : Eb(1) + (size_t)(row - RW) * 2 * D;
+        const int j = row < RW ? selj[row] : sol[(row - RW) * nc];
+        cp_async16(to + off, reinterpret_cast<const unsigned char*>(a.C + (size_t)j * D) + off);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      clk.sync(kStRoot);
+    }
     for (int r = warp; r < RW; r += kWarps) {
       const int f = r / M;
+      const void* cj = WG ? (const void*)(cst + (size_t)r * 2 * D) : a.C + (size_t)selj[r] * D;
+      const void* ci =
+          WG ? (const void*)(Eb(1) + (size_t)f * 2 * D) : a.C + (size_t)sol[f * nc] * D;
       extend_row<ET, true, REQ, LAZY, WG>(
-          a, D, 0, a.C + (size_t)selj[r] * D, a.C + (size_t)sol[f * nc] * D, nullptr, nullptr,
+          a, D, 0, cj, ci, nullptr, nullptr,
           reinterpret_cast<const unsigned char*>(Er + f * L.er_stride), 0, Eb(0), r, L.e_stride,
           0.0f, scb(0) + r, ET == kI8 ? a.csc[0] : 1.0f, lane);
     }
@@ -1066,8 +1096,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
             pj = cp + (size_t)jdef[src_row] * crb;
             pi = cp + (size_t)sol[f * nc + t - 1] * crb;
           }
-          extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cj, ci, pj, pi, Eb(cur), src_row, Eb(dst), r,
-                                               L.e_stride, ET == kI8 ? scb(cur)[src_row] : 0.0f,
+          extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cj, ci, pj, pi, Eb(cur), src_row, Eb(dst),
+                                               r, L.e_stride,
+                                               ET == kI8 ? scb(cur)[src_row] : 0.0f,
                                                scb(dst) + r, csc_t, lane);
         }
         if (WG) fence_proxy_async();
@@ -1205,11 +1236,12 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
 // e_dtype 2 (int8), else null; cmax (nc,) f32 for requant 2 ("bound"), else
 // null; gx (nc * 256, 256) bf16 for lazy != 0, else null; chunks_bf16 and
 // (int8 E) chunks_i8: centers and centers_i8 as the ring's chunks (Args::cpb,
-// Args::cpi) for e_dtype 1 and 2, else null; out (B, nc) int32.  pool_masks: `passes` host words, bit t set where step t is a pool
-// step.  e_dtype: 0 f32, 1 bf16, 2 int8.  requant: 0 step, 1 pass, 2 bound
-// (int8 only).  Shapes and combinations are checked by the caller: D % 128
-// == 0, D <= 1024, nc even and <= 16, M in {8, 16, 32, 64}, M * R <= 512;
-// with lazy, no deferring R1 step is followed by another R1 step.
+// Args::cpi) for e_dtype 1 and 2, else null; out (B, nc) int32. pool_masks:
+// `passes` host words, bit t set where step t is a pool step. e_dtype: 0 f32,
+// 1 bf16, 2 int8. requant: 0 step, 1 pass, 2 bound (int8 only). Shapes and
+// combinations are checked by the caller: D % 128 == 0, D <= 1024, nc even
+// and <= 16, M in {8, 16, 32, 64}, M * R <= 512; with lazy, no deferring R1
+// step is followed by another R1 step.
 extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void* centers,
                                      const void* gmod, const void* centers_i8, const void* csc,
                                      const void* cmax, const void* gx, const void* chunks_bf16,
@@ -1248,8 +1280,9 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
                           lazy, &a, &smem);
   if (err) return err;
   a.stages = (long long*)stages;
-  return e_dtype == kI8 ? launch<kI8, 8, false, kStep, false, true>(a, smem, (cudaStream_t)stream)
-                        : launch<kBF16, 8, false, kStep, false, true>(a, smem, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return e_dtype == kI8 ? launch<kI8, 8, false, kStep, false, true>(a, smem, st)
+                        : launch<kBF16, 8, false, kStep, false, true>(a, smem, st);
 }
 
 // Frames per block of a v2 configuration (0 if none fits): the timed
