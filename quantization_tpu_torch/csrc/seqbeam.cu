@@ -52,7 +52,11 @@
 // E[1].  The Gmod score rows of step t + 1 arrive by cp.async during step t,
 // and each extension's codeword rows (C_t[j] of every row, C_t[i] of every
 // frame) are staged by cp.async into X's space (C_0[i] into E[1]) once the
-// selection is done.
+// selection is done.  Where no block fits that (bf16 E with M=64 at d384-512
+// or M=32 from d896, int8 E with M=64 from d640), the compact layout puts
+// the ring in X's space, loads it only while its rescore runs, and reads
+// the extensions' rows from L2.  bf16 E with M=64 from d640 fits neither,
+// nor do f32 E's widest beams at large D: the wrapper refuses them.
 // The int8 extension turns bytes into floats and back with byte permutes
 // and exact float adds, not on the conversion pipe, which issues at a
 // quarter of the rate.
@@ -113,6 +117,7 @@ struct Args {
   int32_t* out;             // (B, nc)
   long long* stages;        // (blocks, kStageCols) int64, zeroed (stage-timed build only)
   int B, D, nc, R, passes, F;
+  int compact;              // bf16 and int8 E: the compact layout (see make_layout)
   uint32_t pool[kMaxPasses];  // bit t of pool[p]: step t of pass p is a pool step
 };
 
@@ -123,6 +128,8 @@ struct Layout {
                      // f32 E: bytes a row (both padded: no bank conflicts)
   int root_stride;   // wgmma: bytes between the bf16 root rows' 16-byte K pieces
   int er_stride;     // floats per root-error row
+  bool ahead;        // wgmma, not compact: the ring has room of its own and loads a
+                     // rescore ahead; the extensions' codeword rows are staged in X's space
   size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys,
       ring, bars;
   size_t total;
@@ -140,12 +147,15 @@ __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a 
 // past the last row (int8 E at d512 with F = 8 fits with 1,104 bytes left);
 // X's space also holds the extensions' staged codeword rows (the fan-out's
 // bf16 C_0[j] of every row too); the score rows are bf16, double-buffered;
-// a ring of two chunks and their mbarriers.  f32 E: E row-major, f32 score
-// rows.
+// a ring of two chunks and their mbarriers.  `compact`, for the wide beams
+// at large D where that does not fit: the ring lies in X's space and is
+// loaded only while its rescore runs, and the extensions read their
+// codeword rows from L2.  f32 E: E row-major, f32 score rows.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
-                                              bool lazy) {
+                                              bool lazy, bool compact) {
   Layout L;
   const bool wg = et != kF32;
+  L.ahead = wg && !compact;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
   L.xrows = (L.rows + 15) / 16 * 16;
@@ -167,8 +177,10 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.e0 = take(&off, ebytes);
   L.e1 = take(&off, ebytes);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
-  const size_t xbytes = (size_t)L.xrows * kXS * 4;
-  L.xs = take(&off, wg ? max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D)) : xbytes);
+  size_t xbytes = (size_t)L.xrows * kXS * 4;
+  if (L.ahead) xbytes = max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D));
+  else if (wg) xbytes = max_sz(xbytes, 2 * (size_t)kChunk);
+  L.xs = take(&off, xbytes);
   L.srow = take(&off, wg ? (size_t)2 * F * kCS * 2 : (size_t)F * kCS * 4);
   L.sc0 = take(&off, rows * 4);
   L.sc1 = take(&off, rows * 4);
@@ -182,7 +194,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.selp = take(&off, rows * 4);
   L.jdef = take(&off, lazy ? rows * 4 : 0);  // lazy_r1 only
   L.rkeys = take(&off, rows * R * 4);
-  L.ring = take(&off, wg ? 2 * (size_t)kChunk : 0);
+  L.ring = L.ahead ? take(&off, 2 * (size_t)kChunk) : L.xs;
   L.bars = take(&off, wg ? 16 : 0);
   L.total = off;
   return L;
@@ -497,17 +509,25 @@ __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int m
 // reads past `rows`, and those rows' sums are dropped).  B: `nchunks`
 // chunks of the codebook taken from the ring in sequence, chunk g in slot
 // g & 1; after both warpgroups are done with a slot, thread 0 refills it
-// with chunk g + 2 (`issue`).  Warpgroup w owns codewords [128 w, 128 w +
-// 128).  I8: s8 x s8 -> s32, dequantized by rsc[r]; else bf16 -> f32.
+// with chunk g + 2 (`issue`).  `ahead`: the ring is loaded a rescore ahead
+// (its first two chunks are in flight already); else the ring lies in X's
+// space, its first two chunks are issued here and no chunk past this
+// rescore's.  Warpgroup w owns codewords [128 w, 128 w + 128).  I8: s8 x s8
+// -> s32, dequantized by rsc[r]; else bf16 -> f32.
 template <bool I8, bool TIMED, class Issue>
 __device__ void wg_rescore(const unsigned char* A, int stride, int nchunks, unsigned char* ring,
-                           uint64_t* full, int& g, const Issue& issue, const float* rsc, float* X,
-                           int rows, StageClock<TIMED>& clk, int stage, int tid) {
+                           uint64_t* full, int& g, bool ahead, const Issue& issue,
+                           const float* rsc, float* X, int rows, StageClock<TIMED>& clk,
+                           int stage, int tid) {
   using Acc = typename std::conditional<I8, int, float>::type;
   Acc d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0;
   const int wg = tid >> 7;
+  if (!ahead && tid == 0) {
+    issue(g);
+    if (nchunks > 1) issue(g + 1);
+  }
   for (int c = 0; c < nchunks; ++c, ++g) {
     const int slot = g & 1;
     mbar_wait(full + slot, (g >> 1) & 1);
@@ -526,7 +546,7 @@ __device__ void wg_rescore(const unsigned char* A, int stride, int nchunks, unsi
     wg_commit();
     wg_wait0();
     clk.sync(stage);  // both warpgroups are done with the slot
-    if (tid == 0) issue(g + 2);
+    if (tid == 0 && (ahead || c + 2 < nchunks)) issue(g + 2);
   }
   // thread (warp w, lane l) of a warpgroup holds rows 16 w + l / 4 (+ 8),
   // columns 8 j + 2 (l % 4) (+ 1), j < 16
@@ -751,7 +771,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   StageClock<TIMED> clk;
   clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY);
+  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, a.compact != 0);
+  const bool stg = L.ahead;  // WG: the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fb = blockIdx.x * F;
@@ -823,7 +844,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     sol[i] = b < a.B ? a.idx0[(size_t)b * nc + i % nc] : 0;
   }
   clk.sync(kStRoot);
-  if (WG && tid == 0) {
+  if (WG && L.ahead && tid == 0) {
     issue(0);
     issue(1);
   }
@@ -892,8 +913,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     }
     // ---- step 0: rescore the root only, fan out to the M best
     if constexpr (WG)
-      wg_rescore<false>(Eb(1), L.root_stride, nr, ring, full, g, issue, rsc, X, F, clk, kStRoot,
-                        tid);
+      wg_rescore<false>(Eb(1), L.root_stride, nr, ring, full, g, L.ahead, issue, rsc, X, F, clk,
+                        kStRoot, tid);
     else
       rescore_bf16(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
                    warp, lane);
@@ -922,7 +943,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const int r = i / nc, s = i - r * nc;
       chb(0)[i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
     }
-    if constexpr (WG) {
+    if (WG && stg) {
       // stage the bf16 rows C_0[j] of every row into X's space and C_0[i]
       // of every frame into E[1] (the root's A rows are spent)
       const int pieces = 2 * D / 16;
@@ -939,9 +960,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     }
     for (int r = warp; r < RW; r += kWarps) {
       const int f = r / M;
-      const void* cj = WG ? (const void*)(cst + (size_t)r * 2 * D) : a.C + (size_t)selj[r] * D;
+      const void* cj = stg ? (const void*)(cst + (size_t)r * 2 * D) : a.C + (size_t)selj[r] * D;
       const void* ci =
-          WG ? (const void*)(Eb(1) + (size_t)f * 2 * D) : a.C + (size_t)sol[f * nc] * D;
+          stg ? (const void*)(Eb(1) + (size_t)f * 2 * D) : a.C + (size_t)sol[f * nc] * D;
       extend_row<ET, true, REQ, LAZY, WG>(
           a, D, 0, cj, ci, nullptr, nullptr,
           reinterpret_cast<const unsigned char*>(Er + f * L.er_stride), 0, Eb(0), r, L.e_stride,
@@ -968,8 +989,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       // ---- rescore all candidates against codebook t
       if constexpr (WG) {
         // rsc is read after the rescore's first barrier
-        wg_rescore<ET == kI8>(Eb(cur), L.e_stride, ns, ring, full, g, issue, rsc, X, RW, clk,
-                              kStRescore, tid);
+        wg_rescore<ET == kI8>(Eb(cur), L.e_stride, ns, ring, full, g, L.ahead, issue, rsc, X, RW,
+                              clk, kStRescore, tid);
       } else {
         clk.sync(kStRescore);
         rescore_bf16(Eb(cur), L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp, lane);
@@ -1059,7 +1080,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const unsigned char* ct =
           ET == kI8 ? reinterpret_cast<const unsigned char*>(a.C8 + (size_t)t * kCS * D)
                     : reinterpret_cast<const unsigned char*>(a.C + (size_t)t * kCS * D);
-      if (WG && extend) {
+      if (WG && stg && extend) {
         const int pieces = crb / 16;
         for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
           const int row = i / pieces, off = (i - row * pieces) * 16;
@@ -1078,7 +1099,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       }
       if (extend) {
         const int dst = pool ? cur ^ 1 : cur;
-        if constexpr (WG) {
+        if (WG && stg) {
           cp_async_wait_all();
           clk.sync(kStExtend);
         }
@@ -1086,8 +1107,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           const int f = r / M;
           const int src_row = f * M + selp[r];
           const int it = sol[f * nc + t];
-          const void* cj = WG ? (const void*)(cst + (size_t)r * crb) : ct + (size_t)selj[r] * crb;
-          const void* ci = WG ? (const void*)(cst + (size_t)(RW + f) * crb) : ct + (size_t)it * crb;
+          const void* cj = stg ? (const void*)(cst + (size_t)r * crb) : ct + (size_t)selj[r] * crb;
+          const void* ci = stg ? (const void*)(cst + (size_t)(RW + f) * crb) : ct + (size_t)it * crb;
           const void *pj = nullptr, *pi = nullptr;
           if (LAZY && pend) {
             const unsigned char* cp =
@@ -1101,8 +1122,10 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                                                ET == kI8 ? scb(cur)[src_row] : 0.0f,
                                                scb(dst) + r, csc_t, lane);
         }
-        if (WG) fence_proxy_async();
       }
+      // E's new rows are read by the next wgmma, and without `ahead` the
+      // ring's next copies land in X's space
+      if (WG) fence_proxy_async();
       if (WG) cp_async_wait_all();  // the next step's score rows
       if (pool) cur ^= 1;
       pend = defer;
@@ -1184,10 +1207,15 @@ int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
 }
 
 // Frames per block for a configuration: the most (F * M <= 64 candidate
-// rows, at least 16) whose shared memory fits; 0 if none does.
-int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy) {
-  for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
-    if (make_layout(e_dtype, M, F, D, nc, R, lazy).total <= kMaxSmem) return F;
+// rows, at least 16) whose shared memory fits, in the full layout if any F
+// fits it, else in the compact one (`*compact` set); 0 if none does.
+int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, bool* compact) {
+  for (int c = 0; c < (e_dtype == kF32 ? 1 : 2); ++c)
+    for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
+      if (make_layout(e_dtype, M, F, D, nc, R, lazy, c != 0).total <= kMaxSmem) {
+        *compact = c != 0;
+        return F;
+      }
   return 0;
 }
 
@@ -1222,9 +1250,11 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
   a.cmax = (const float*)cmax;
   a.gx = (const uint16_t*)gx;
   for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
-  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
+  bool compact = false;
+  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &compact);
   if (a.F == 0) return (int)cudaErrorInvalidValue;
-  *smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0).total;
+  a.compact = compact;
+  *smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0, compact).total;
   *out_args = a;
   return 0;
 }
@@ -1289,7 +1319,8 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
 // build's caller sizes its buffer by it.
 extern "C" int qtt_seqbeam_v2_frames_per_block(int e_dtype, int M, int D, int nc, int R,
                                                int lazy) {
-  return frames_per_block(e_dtype, M, D, nc, R, lazy != 0);
+  bool compact;
+  return frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &compact);
 }
 
 // The v1 kernel: x, idx0, centers and out as above; qgram (nc * 256, 256)
@@ -1303,8 +1334,9 @@ extern "C" int qtt_seqbeam_v1_launch(const void* x, const void* idx0, const void
   Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
   a.qg = (const float*)qgram;
   a.csq = (const float*)csq;
-  a.F = frames_per_block(kF32, M, D, nc, R, false);
+  bool compact;
+  a.F = frames_per_block(kF32, M, D, nc, R, false, &compact);
   if (a.F == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(kF32, M, a.F, D, nc, R, false).total;
+  const size_t smem = make_layout(kF32, M, a.F, D, nc, R, false, false).total;
   return launch_v1(a, M, smem, (cudaStream_t)stream);
 }

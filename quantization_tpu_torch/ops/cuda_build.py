@@ -116,7 +116,26 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-class CudaKernel:
+class CFunction:
+    """One C function of a kernel library returning an int, bound at its
+    first call (which builds the library if needed)."""
+
+    def __init__(self, source: str, symbol: str, argtypes: List[type]):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self._fn = None
+
+    def __call__(self, *args) -> int:
+        if self._fn is None:
+            fn = getattr(library(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn(*args)
+
+
+class CudaKernel(CFunction):
     """One C entry point of a kernel library, with a launch count.
 
     The entry point takes pointers and the stream as ``c_void_p`` and
@@ -124,19 +143,11 @@ class CudaKernel:
     ``launches`` counts successful launches and nothing else."""
 
     def __init__(self, source: str, symbol: str, argtypes: List[type]):
-        self.source = source
-        self.symbol = symbol
-        self.argtypes = argtypes
+        super().__init__(source, symbol, argtypes)
         self.launches = 0
-        self._fn = None
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(library(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args)
+        err = super().__call__(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err}")
         self.launches += 1

@@ -89,6 +89,10 @@ SEQBEAM_TIMED_KERNEL = CudaKernel(
 # its columns: per block, each stage's clock64() cycles summed over the
 # block's warps, then the block's own cycles and nanoseconds
 STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "extension", "barrier")
+# frames a block (e_dtype code, M, D, nc, R, lazy) -> F, 0 where no block
+# fits in shared memory; f32 E's is v1's too
+FRAMES_PER_BLOCK = cuda_build.CFunction(
+    "seqbeam", "qtt_seqbeam_v2_frames_per_block", [ctypes.c_int] * 6)
 
 
 def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -155,6 +159,9 @@ class SeqbeamTables:
     gx_bf16: Optional[torch.Tensor] = None  # (nc, cs, cs) bf16 C_{t-1}.C_t^T, block 0 zero (lazy)
     cs_sumsq: Optional[torch.Tensor] = None  # (nc, cs) f32 |c|^2 of the f32 centers (v1)
     q_gram: Optional[torch.Tensor] = None  # (nc, cs, cs) f32 Gram of the bf16 centers (v1)
+    # bf16 and int8 E: the bf16 (and int8) centers as the v2 kernel's ring chunks
+    chunks_bf16: Optional[torch.Tensor] = None
+    chunks_i8: Optional[torch.Tensor] = None
 
 
 def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2",
@@ -163,9 +170,10 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
     v2, the bf16 modified Gram blocks (computed in f32); for int8 E the
     per-codebook symmetric int8 centers with scale ``amax / 127`` and, for
     ``requant="bound"``, each codebook's worst-case |c8(j) - c8(i)|_inf; for
-    ``lazy_r1`` the bf16 cross-codebook Gram blocks.  v1 takes the f32
-    squared norms of the f32 centers and the f32 Gram of the bf16 centers
-    (its ``q`` rows)."""
+    ``lazy_r1`` the bf16 cross-codebook Gram blocks; for bf16 and int8 E the
+    centers rearranged as the kernel's ring chunks (:func:`_ring_chunks`).
+    v1 takes the f32 squared norms of the f32 centers and the f32 Gram of
+    the bf16 centers (its ``q`` rows)."""
     centers = centers.float()
     cs_sumsq = (centers * centers).sum(dim=-1)  # (nc, cs)
     tables = SeqbeamTables(centers_bf16=centers.to(torch.bfloat16))
@@ -184,6 +192,9 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
         if requant == "bound":
             ci = tables.centers_i8.float()
             tables.cmax = (ci.amax(dim=1) - ci.amin(dim=1)).amax(dim=1)
+        tables.chunks_i8 = _ring_chunks(tables.centers_i8)
+    if e_dtype != "f32":
+        tables.chunks_bf16 = _ring_chunks(tables.centers_bf16)
     if lazy_r1:
         gx = torch.bmm(centers[:-1], centers[1:].transpose(1, 2))  # (nc-1, cs, cs)
         tables.gx_bf16 = torch.cat([torch.zeros_like(gx[:1]), gx]).to(torch.bfloat16)
@@ -453,13 +464,23 @@ def seqbeam_stages(problem: SeqbeamProblem) -> Tuple[torch.Tensor, torch.Tensor]
                          "bf16 or int8 E")
     if not problem.x.is_cuda:
         raise ValueError("seqbeam_stages needs CUDA tensors")
-    nc, _, D = problem.tables.centers_bf16.shape
-    fpb = cuda_build.library("seqbeam").qtt_seqbeam_v2_frames_per_block
-    fpb.argtypes, fpb.restype = [ctypes.c_int] * 6, ctypes.c_int
-    F = fpb(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R, 0)
-    blocks = -(-problem.x.shape[0] // F)
+    blocks = -(-problem.x.shape[0] // _frames_per_block(problem))
     stages = torch.zeros(blocks, len(STAGES) + 2, dtype=torch.int64, device=problem.x.device)
     return _launch(problem, SEQBEAM_TIMED_KERNEL, stages.data_ptr()), stages
+
+
+def _frames_per_block(problem: SeqbeamProblem) -> int:
+    """The kernel's frames a block on ``problem``; raises ValueError where
+    no block of the configuration fits in shared memory (f32 E with wide
+    beams at large D, bf16 E with M=64 from D=640)."""
+    nc, _, D = problem.tables.centers_bf16.shape
+    F = FRAMES_PER_BLOCK(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R,
+                         int(problem.lazy_r1))
+    if F == 0:
+        raise ValueError(f"seqbeam {problem.impl} with {problem.e_dtype} E, M={problem.M}, "
+                         f"R={problem.R} at dim {D} does not fit a block's shared memory on "
+                         f"the card")
+    return F
 
 
 def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor:
@@ -478,6 +499,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     if idx0.shape != (B, nc) or len(masks) != passes:
         raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
                          f"got {tuple(idx0.shape)} and {len(masks)}")
+    _frames_per_block(problem)
     x = x.contiguous()
     idx0 = idx0.to(torch.int32).contiguous()
     centers = tables.centers_bf16.contiguous()
@@ -501,10 +523,11 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     if gmod.dtype != torch.bfloat16 or (int8 and ci8.dtype != torch.int8) or (
             gx is not None and gx.dtype != torch.bfloat16):
         raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
-    _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx)
     # bf16 and int8 E stream the codebooks through the kernel's ring of chunks
-    cpb = _ring_chunks(centers) if e_dtype != "f32" else None
-    cpi = _ring_chunks(ci8) if int8 else None
+    cpb, cpi = (tables.chunks_bf16, tables.chunks_i8) if e_dtype != "f32" else (None, None)
+    if e_dtype != "f32" and (cpb is None or (int8 and cpi is None)):
+        raise TypeError("seqbeam tables for bf16 and int8 E must hold the ring chunks")
+    _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
     words = (ctypes.c_uint32 * max(passes, 1))(*masks)
 
     def ptr(t):

@@ -160,10 +160,12 @@ def test_cuda_seqbeam_auto_rungs_ragged(cuda, e_dtype, B):
     torch.cuda.synchronize()
     chk = against_plain(problem, centers, got)
     # int8 E: the steps' rescores are exact int32 sums, but the root's is a
-    # bf16 product summed in wgmma order, so a near tie at the fan-out may
-    # flip (6 of 262,168 indexes at B=32,771 on the H100); bf16 E: every
-    # rescore sums in wgmma order.  The bars of against_plain, and for int8
-    # at most one index in 10,000 apart
+    # bf16 product summed on the tensor cores, not in the plain matmul's
+    # order, so a near tie at the fan-out may flip (6 of 262,168 indexes at
+    # B=32,771 on the H100, with the wgmma root and with the earlier mma.sync
+    # one alike: experiments/seqbeam_agreement.py); bf16 E: every rescore
+    # sums on the tensor cores.  The bars of against_plain, and for int8 at
+    # most one index in 10,000 apart
     assert chk["ok"] and (e_dtype == "bf16" or chk["index_agreement"] >= 0.9999), chk
 
 
@@ -175,6 +177,30 @@ def test_cuda_seqbeam_int8_beam_widths(cuda, M):
                                      pool_mask="altparity")
     chk = against_plain(problem, centers, tseq.seqbeam_cuda(problem))
     assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e_dtype,M,dim", [
+    ("bf16", 64, 512), ("bf16", 32, 1024), ("int8", 64, 640), ("int8", 64, 1024)])
+def test_cuda_seqbeam_compact_layout(cuda, e_dtype, M, dim):
+    # wide beams at large D, where the ring and the staged codeword rows do
+    # not fit beside E and X: the ring lies in X's space, loaded only while
+    # its rescore runs, and the extensions read their rows from L2
+    problem, centers = _seqbeam_case(cuda, 9, 8, dim, 301, M=M, R=4, e_dtype=e_dtype,
+                                     pool_mask="altparity")
+    chk = against_plain(problem, centers, tseq.seqbeam_cuda(problem))
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e_dtype,M,dim", [("bf16", 64, 640), ("f32", 64, 512)])
+def test_cuda_seqbeam_refuses_a_beam_no_block_fits(cuda, e_dtype, M, dim):
+    problem, _ = _seqbeam_case(cuda, 9, 8, dim, 17, M=M, R=4, e_dtype=e_dtype,
+                               pool_mask="altparity")
+    before = tseq.SEQBEAM_KERNEL.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tseq.seqbeam_cuda(problem)
+    assert tseq.SEQBEAM_KERNEL.launches == before
 
 
 @pytest.mark.gpu

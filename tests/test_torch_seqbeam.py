@@ -155,3 +155,24 @@ def test_scheduling_knobs_do_not_change_results():
         pool_mask="altparity", block_b=512, interleave=2, zip_skew=1, reorder="select",
         sel_impl="fold", cross_value=True)
     assert torch.equal(base, knobs)
+
+
+@pytest.mark.parametrize("e_dtype", ["bf16", "int8"])
+def test_ring_chunks_hold_the_codebooks_in_wgmma_order(e_dtype):
+    # the v2 kernel's ring reads chunk k of codebook t as [8 16-byte K
+    # pieces][256 codewords][16 bytes] of row bytes [128 k, 128 k + 128)
+    arrays, _, _ = _problem(4, 5)
+    tables = tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), e_dtype)
+    assert tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), "f32").chunks_bf16 is None
+    pairs = [(tables.centers_bf16, tables.chunks_bf16)]
+    if e_dtype == "int8":
+        pairs.append((tables.centers_i8, tables.chunks_i8))
+    else:
+        assert tables.chunks_i8 is None
+    for centers, chunks in pairs:
+        rows = centers.contiguous().view(torch.uint8)  # (nc, 256, row bytes)
+        nc, cs, nbytes = rows.shape
+        assert chunks.shape == (nc, nbytes // 128, 8, cs, 16) and chunks.is_contiguous()
+        for t, k, p, n in ((0, 0, 0, 0), (1, nbytes // 128 - 1, 7, 255), (3, 0, 5, 17)):
+            start = 128 * k + 16 * p
+            assert torch.equal(chunks[t, k, p, n], rows[t, n, start:start + 16])
