@@ -660,7 +660,7 @@ __device__ __forceinline__ void i8_delta4(const int8_t* cj, const int8_t* ci, in
 // first: int8 quantizes the absolute f32 sum (scale from the extended row, or
 // from the root for kPass).
 template <int ET, bool FIRST, int REQ, bool LAZY, bool WG>
-__device__ void extend_row(const Args& a, int D, int t, const void* cj, const void* ci,
+__device__ __forceinline__ void extend_row(const Args& a, int D, int t, const void* cj, const void* ci,
                            const void* pj, const void* pi, const unsigned char* src, int src_row,
                            unsigned char* dst, int dst_row, int stride, float src_scale,
                            float* dst_scale, float csc_t, int lane) {
@@ -958,15 +958,20 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       cp_async_wait_all();
       clk.sync(kStRoot);
     }
+    // one call for staged rows, one for L2's: a pointer that could be either
+    // would make every access of the extension a generic one
     for (int r = warp; r < RW; r += kWarps) {
       const int f = r / M;
-      const void* cj = stg ? (const void*)(cst + (size_t)r * 2 * D) : a.C + (size_t)selj[r] * D;
-      const void* ci =
-          stg ? (const void*)(Eb(1) + (size_t)f * 2 * D) : a.C + (size_t)sol[f * nc] * D;
-      extend_row<ET, true, REQ, LAZY, WG>(
-          a, D, 0, cj, ci, nullptr, nullptr,
-          reinterpret_cast<const unsigned char*>(Er + f * L.er_stride), 0, Eb(0), r, L.e_stride,
-          0.0f, scb(0) + r, ET == kI8 ? a.csc[0] : 1.0f, lane);
+      const unsigned char* er = reinterpret_cast<const unsigned char*>(Er + f * L.er_stride);
+      const float csc0 = ET == kI8 ? a.csc[0] : 1.0f;
+      if (stg)
+        extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, cst + (size_t)r * 2 * D,
+                                            Eb(1) + (size_t)f * 2 * D, nullptr, nullptr, er, 0,
+                                            Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
+      else
+        extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, a.C + (size_t)selj[r] * D,
+                                            a.C + (size_t)sol[f * nc] * D, nullptr, nullptr, er,
+                                            0, Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
     }
     if (WG) fence_proxy_async();
     clk.sync(kStRoot);
@@ -1107,8 +1112,6 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           const int f = r / M;
           const int src_row = f * M + selp[r];
           const int it = sol[f * nc + t];
-          const void* cj = stg ? (const void*)(cst + (size_t)r * crb) : ct + (size_t)selj[r] * crb;
-          const void* ci = stg ? (const void*)(cst + (size_t)(RW + f) * crb) : ct + (size_t)it * crb;
           const void *pj = nullptr, *pi = nullptr;
           if (LAZY && pend) {
             const unsigned char* cp =
@@ -1117,10 +1120,17 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
             pj = cp + (size_t)jdef[src_row] * crb;
             pi = cp + (size_t)sol[f * nc + t - 1] * crb;
           }
-          extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cj, ci, pj, pi, Eb(cur), src_row, Eb(dst),
-                                               r, L.e_stride,
-                                               ET == kI8 ? scb(cur)[src_row] : 0.0f,
-                                               scb(dst) + r, csc_t, lane);
+          const float s_src = ET == kI8 ? scb(cur)[src_row] : 0.0f;
+          if (stg)
+            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cst + (size_t)r * crb,
+                                                 cst + (size_t)(RW + f) * crb, pj, pi, Eb(cur),
+                                                 src_row, Eb(dst), r, L.e_stride, s_src,
+                                                 scb(dst) + r, csc_t, lane);
+          else
+            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, ct + (size_t)selj[r] * crb,
+                                                 ct + (size_t)it * crb, pj, pi, Eb(cur), src_row,
+                                                 Eb(dst), r, L.e_stride, s_src, scb(dst) + r,
+                                                 csc_t, lane);
         }
       }
       // E's new rows are read by the next wgmma, and without `ahead` the
