@@ -771,7 +771,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   StageClock<TIMED> clk;
   clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, a.compact != 0);
+  // only the wide beams ever take the compact layout, so the others
+  // compile to the full one alone
+  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, WG && M >= 32 && a.compact != 0);
   const bool stg = L.ahead;  // WG: the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1135,7 +1137,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       }
       // E's new rows are read by the next wgmma, and without `ahead` the
       // ring's next copies land in X's space
-      if (WG) fence_proxy_async();
+      if (WG && (extend || !L.ahead)) fence_proxy_async();
       if (WG) cp_async_wait_all();  // the next step's score rows
       if (pool) cur ^= 1;
       pend = defer;
@@ -1218,9 +1220,10 @@ int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
 
 // Frames per block for a configuration: the most (F * M <= 64 candidate
 // rows, at least 16) whose shared memory fits, in the full layout if any F
-// fits it, else in the compact one (`*compact` set); 0 if none does.
+// fits it, else (bf16 and int8 E, M >= 32) in the compact one (`*compact`
+// set); 0 if none does.  Every beam narrower than 32 fits the full layout.
 int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, bool* compact) {
-  for (int c = 0; c < (e_dtype == kF32 ? 1 : 2); ++c)
+  for (int c = 0; c < (e_dtype != kF32 && M >= 32 ? 2 : 1); ++c)
     for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
       if (make_layout(e_dtype, M, F, D, nc, R, lazy, c != 0).total <= kMaxSmem) {
         *compact = c != 0;
