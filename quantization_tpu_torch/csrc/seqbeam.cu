@@ -55,8 +55,14 @@
 // selection is done.  Where no block fits that (bf16 E with M=64 at d384-512
 // or M=32 from d896, int8 E with M=64 from d640), the compact layout puts
 // the ring in X's space, loads it only while its rescore runs, and reads
-// the extensions' rows from L2.  bf16 E with M=64 from d640 fits neither,
-// nor do f32 E's widest beams at large D: the wrapper refuses them.
+// the extensions' rows from L2.  Where neither fits (bf16 E with M=64 from
+// d640; f32 E with M=32 from d768 or M=64 from d384, and v1 from M=24 at
+// d1024 down to M=56-64 at d384), the spill layout moves E out of the
+// block: bf16 E keeps one E buffer, the wgmma operand, and a pool step
+// copies it to a global scratch slot and extends the children from that
+// copy; f32 E keeps both buffers in the slot and reads them through L2.  A
+// block claims a slot by an atomic when it starts and frees it when it
+// ends, so the wrapper sizes the scratch by the SMs, not by the grid.
 // The int8 extension turns bytes into floats and back with byte permutes
 // and exact float adds, not on the conversion pipe, which issues at a
 // quarter of the rate.
@@ -94,6 +100,8 @@ constexpr uint32_t kNone = 0xFFFFFFFFu;
 constexpr float kInv127 = (float)(1.0 / 127.0);
 
 enum { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// shared-memory layouts, tried in this order (see make_layout)
+enum { kFull = 0, kCompact = 1, kSpill = 2 };
 enum { kStep = 0, kPass = 1, kBound = 2 };
 // the stages of the stage-timed build, in the columns of its output
 enum { kStRoot, kStSrow, kStRescore, kStSelect, kStPool, kStReorder, kStExtend, kStBarrier,
@@ -116,8 +124,11 @@ struct Args {
   const unsigned char* cpi; // int8 E: the int8 centers as ring chunks (D / 128 per codebook)
   int32_t* out;             // (B, nc)
   long long* stages;        // (blocks, kStageCols) int64, zeroed (stage-timed build only)
+  unsigned char* spill;     // spill layout: nslots scratch slots of Layout::spill_bytes
+  int* slots;               // spill layout: nslots zeroed claim flags
   int B, D, nc, R, passes, F;
-  int compact;              // bf16 and int8 E: the compact layout (see make_layout)
+  int kind;                 // the layout: kFull, kCompact or kSpill (see make_layout)
+  int nslots;
   uint32_t pool[kMaxPasses];  // bit t of pool[p]: step t of pass p is a pool step
 };
 
@@ -131,9 +142,14 @@ struct Layout {
   bool ahead;        // wgmma, not compact: the ring has room of its own and loads a
                      // rescore ahead; the extensions' codeword rows are staged in X's space
   size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys,
-      ring, bars;
+      ring, bars, slot;
   size_t total;
+  size_t spill_bytes;  // spill layout: the block's global scratch slot (wgmma: E[0]'s
+                       // reorder copy; f32 E: both E buffers, spill_bytes / 2 apart)
 };
+
+// Beams that may take the spill layout; the others compile without it.
+__host__ __device__ constexpr bool spills(int et, int M) { return et == kF32 ? M >= 24 : M >= 64; }
 
 __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
   const size_t at = *off;
@@ -147,35 +163,43 @@ __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a 
 // past the last row (int8 E at d512 with F = 8 fits with 1,104 bytes left);
 // X's space also holds the extensions' staged codeword rows (the fan-out's
 // bf16 C_0[j] of every row too); the score rows are bf16, double-buffered;
-// a ring of two chunks and their mbarriers.  `compact`, for the wide beams
+// a ring of two chunks and their mbarriers.  kCompact, for the wide beams
 // at large D where that does not fit: the ring lies in X's space and is
 // loaded only while its rescore runs, and the extensions read their
-// codeword rows from L2.  f32 E: E row-major, f32 score rows.
+// codeword rows from L2.  f32 E: E row-major, f32 score rows.  kSpill, where
+// neither fits: as kCompact, but E[1] holds only the root's bf16 rows (wgmma)
+// or E lies wholly in the global slot (f32 E), and a 16-byte cell holds the
+// slot's number.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
-                                              bool lazy, bool compact) {
+                                              bool lazy, int kind) {
   Layout L;
   const bool wg = et != kF32;
-  L.ahead = wg && !compact;
+  const bool spill = kind == kSpill;
+  L.ahead = wg && kind == kFull;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
   L.xrows = (L.rows + 15) / 16 * 16;
   L.er_stride = D + 4;
   L.root_stride = (F + 1) * 16;
   const size_t rows = (size_t)L.rows;
-  size_t ebytes;
+  size_t e0bytes, e1bytes;
   if (wg) {
     // the m64 tile reads 64 - rows rows past the last K piece's rows; E[1]
     // also holds the bf16 root rows during the root's rescore
     L.e_stride = (L.rows + 1) * 16;
-    ebytes = max_sz((size_t)(D * esize / 16) * L.e_stride + (64 - L.rows) * 16,
-                    (size_t)(D / 8) * L.root_stride + (64 - F) * 16);
+    const size_t kbytes = (size_t)(D * esize / 16) * L.e_stride;
+    const size_t root = (size_t)(D / 8) * L.root_stride + (64 - F) * 16;
+    e0bytes = max_sz(kbytes + (64 - L.rows) * 16, spill ? 0 : root);
+    e1bytes = spill ? root : e0bytes;
+    L.spill_bytes = spill ? kbytes : 0;
   } else {
     L.e_stride = D * esize + 16;
-    ebytes = rows * L.e_stride;
+    e0bytes = e1bytes = spill ? 0 : rows * L.e_stride;
+    L.spill_bytes = spill ? 2 * rows * L.e_stride : 0;
   }
   size_t off = 0;
-  L.e0 = take(&off, ebytes);
-  L.e1 = take(&off, ebytes);
+  L.e0 = take(&off, e0bytes);
+  L.e1 = take(&off, e1bytes);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
   size_t xbytes = (size_t)L.xrows * kXS * 4;
   if (L.ahead) xbytes = max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D));
@@ -196,6 +220,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.rkeys = take(&off, rows * R * 4);
   L.ring = L.ahead ? take(&off, 2 * (size_t)kChunk) : L.xs;
   L.bars = take(&off, wg ? 16 : 0);
+  L.slot = take(&off, spill ? 16 : 0);
   L.total = off;
   return L;
 }
@@ -767,21 +792,42 @@ template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   constexpr bool WG = ET != kF32;
   constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
+  constexpr bool SPILLS = spills(ET, M);
   extern __shared__ __align__(16) unsigned char smem[];
   StageClock<TIMED> clk;
   clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  // only the wide beams ever take the compact layout, so the others
-  // compile to the full one alone
-  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, WG && M >= 32 && a.compact != 0);
+  // only the wide beams ever take the compact or spill layout, so the
+  // others compile to the full one alone
+  const int kind = (WG && M >= 32) || SPILLS ? a.kind : kFull;
+  const bool spill = SPILLS && kind == kSpill;
+  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, kind);
   const bool stg = L.ahead;  // WG: the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fb = blockIdx.x * F;
 
+  // spill: claim a free scratch slot (a resident block holds one at most,
+  // and frees it at its end)
+  unsigned char* eslot = nullptr;
+  if (spill) {
+    int* cell = reinterpret_cast<int*>(smem + L.slot);
+    if (tid == 0) {
+      int s = blockIdx.x % a.nslots;
+      while (atomicCAS(a.slots + s, 0, 1) != 0) s = (s + 1) % a.nslots;
+      *cell = s;
+    }
+    __syncthreads();
+    eslot = a.spill + (size_t)*cell * L.spill_bytes;
+  }
   // the double buffers by index (an array of pointers would sit in local
-  // memory and make their accesses generic rather than shared)
-  auto Eb = [&](int i) { return smem + (i ? L.e1 : L.e0); };
+  // memory and make their accesses generic rather than shared).  spill:
+  // wgmma's rows stay in E[0] (a pool step extends from the copy in the
+  // slot); f32 E's two buffers lie in the slot
+  auto Eb = [&](int i) -> unsigned char* {
+    if (spill) return WG ? smem + L.e0 : eslot + (i ? L.spill_bytes / 2 : 0);
+    return smem + (i ? L.e1 : L.e0);
+  };
   float* Er = reinterpret_cast<float*>(smem + L.er);
   float* X = reinterpret_cast<float*>(smem + L.xs);
   float* srow = reinterpret_cast<float*>(smem + L.srow);        // f32 E
@@ -893,7 +939,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       *reinterpret_cast<float4*>(er) = make_float4(e[0], e[1], e[2], e[3]);
       *reinterpret_cast<float4*>(er + 4) = make_float4(e[4], e[5], e[6], e[7]);
       if (WG)
-        *reinterpret_cast<uint4*>(Eb(1) + (size_t)(d / 8) * L.root_stride + f * 16) =
+        *reinterpret_cast<uint4*>(smem + L.e1 + (size_t)(d / 8) * L.root_stride + f * 16) =
             make_uint4(pack_bf16x2(e[0], e[1]), pack_bf16x2(e[2], e[3]), pack_bf16x2(e[4], e[5]),
                        pack_bf16x2(e[6], e[7]));
     }
@@ -915,8 +961,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     }
     // ---- step 0: rescore the root only, fan out to the M best
     if constexpr (WG)
-      wg_rescore<false>(Eb(1), L.root_stride, nr, ring, full, g, L.ahead, issue, rsc, X, F, clk,
-                        kStRoot, tid);
+      wg_rescore<false>(smem + L.e1, L.root_stride, nr, ring, full, g, L.ahead, issue, rsc, X, F,
+                        clk, kStRoot, tid);
     else
       rescore_bf16(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
                    warp, lane);
@@ -1104,11 +1150,20 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
         }
         clk.lap(kStReorder);
       }
+      // spill (wgmma): the parents' rows go to the slot, and the children
+      // are extended from there into E[0]
+      const bool from_slot = SPILLS && WG && spill && pool;
       if (extend) {
         const int dst = pool ? cur ^ 1 : cur;
         if (WG && stg) {
           cp_async_wait_all();
           clk.sync(kStExtend);
+        }
+        if (from_slot) {
+          const uint4* from = reinterpret_cast<const uint4*>(smem + L.e0);
+          for (size_t i = tid; i < L.spill_bytes / 16; i += kThreads)
+            reinterpret_cast<uint4*>(eslot)[i] = from[i];
+          clk.sync(kStReorder);
         }
         for (int r = warp; r < RW; r += kWarps) {
           const int f = r / M;
@@ -1128,6 +1183,11 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                                                  cst + (size_t)(RW + f) * crb, pj, pi, Eb(cur),
                                                  src_row, Eb(dst), r, L.e_stride, s_src,
                                                  scb(dst) + r, csc_t, lane);
+          else if (from_slot)
+            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, ct + (size_t)selj[r] * crb,
+                                                 ct + (size_t)it * crb, pj, pi, eslot, src_row,
+                                                 Eb(dst), r, L.e_stride, s_src, scb(dst) + r,
+                                                 csc_t, lane);
           else
             extend_row<ET, false, REQ, LAZY, WG>(a, D, t, ct + (size_t)selj[r] * crb,
                                                  ct + (size_t)it * crb, pj, pi, Eb(cur), src_row,
@@ -1156,6 +1216,12 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   for (int i = tid; i < F * nc; i += kThreads) {
     const int b = fb + i / nc;
     if (b < a.B) a.out[(size_t)b * nc + i % nc] = sol[i];
+  }
+  if (spill) {
+    // every write to the slot is done before the next block may claim it
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicExch(a.slots + *reinterpret_cast<int*>(smem + L.slot), 0);
   }
   clk.lap(kStRoot);
   clk.finish(a.stages + (size_t)blockIdx.x * kStageCols, tid);
@@ -1218,43 +1284,61 @@ int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Frames per block for a configuration: the most (F * M <= 64 candidate
-// rows, at least 16) whose shared memory fits, in the full layout if any F
-// fits it, else (bf16 and int8 E, M >= 32) in the compact one (`*compact`
-// set); 0 if none does.  Every beam narrower than 32 fits the full layout.
-int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, bool* compact) {
-  for (int c = 0; c < (e_dtype != kF32 && M >= 32 ? 2 : 1); ++c)
+// Frames per block for a configuration and its layout (`*kind`): the most
+// F (F * M <= 64 candidate rows, at least 16) whose shared memory fits, in
+// the full layout if any F fits it, else (bf16 and int8 E, M >= 32) in the
+// compact one, else (spills(): f32 E from M = 24, wgmma's M = 64) in the
+// spill one; 0 if none does.  Every beam narrower than 24 fits the full
+// layout.
+int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, int* kind) {
+  for (int k = kFull; k <= kSpill; ++k) {
+    if ((k == kCompact && (e_dtype == kF32 || M < 32)) || (k == kSpill && !spills(e_dtype, M)))
+      continue;
     for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
-      if (make_layout(e_dtype, M, F, D, nc, R, lazy, c != 0).total <= kMaxSmem) {
-        *compact = c != 0;
+      if (make_layout(e_dtype, M, F, D, nc, R, lazy, k).total <= kMaxSmem) {
+        *kind = k;
         return F;
       }
+  }
   return 0;
 }
 
 Args make_args(const void* x, const void* idx0, const void* centers, void* out, int B, int D,
-               int nc, int R, int passes) {
+               int nc, int R, int passes, void* spill, void* slots, int nslots) {
   Args a = {};
   a.x = (const float*)x;
   a.idx0 = (const int32_t*)idx0;
   a.C = (const uint16_t*)centers;
   a.out = (int32_t*)out;
-  a.B = B; a.D = D; a.nc = nc; a.R = R; a.passes = passes;
+  a.spill = (unsigned char*)spill;
+  a.slots = (int*)slots;
+  a.B = B; a.D = D; a.nc = nc; a.R = R; a.passes = passes; a.nslots = nslots;
   return a;
+}
+
+// The layout of a configuration (see frames_per_block); a spill layout
+// needs the caller's scratch slots.
+int layout_args(Args* a, int e_dtype, int M, bool lazy, size_t* smem) {
+  a->F = frames_per_block(e_dtype, M, a->D, a->nc, a->R, lazy, &a->kind);
+  if (a->F == 0) return (int)cudaErrorInvalidValue;
+  if (a->kind == kSpill && (!a->spill || !a->slots || a->nslots < 1))
+    return (int)cudaErrorInvalidValue;
+  *smem = make_layout(e_dtype, M, a->F, a->D, a->nc, a->R, lazy, a->kind).total;
+  return 0;
 }
 
 int v2_args(const void* x, const void* idx0, const void* centers, const void* gmod,
             const void* centers_i8, const void* csc, const void* cmax, const void* gx,
             const void* chunks_bf16, const void* chunks_i8, void* out, int B, int D, int nc, int M,
             int R, int passes, const void* pool_masks, int e_dtype, int requant, int lazy,
-            Args* out_args, size_t* smem) {
+            void* spill, void* slots, int nslots, Args* out_args, size_t* smem) {
   if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
     return (int)cudaErrorInvalidValue;
   if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
       (requant == kBound && !cmax) || (lazy && !gx) || (e_dtype != kF32 && !chunks_bf16) ||
       (e_dtype == kI8 && !chunks_i8))
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes, spill, slots, nslots);
   a.cpb = (const unsigned char*)chunks_bf16;
   a.cpi = (const unsigned char*)chunks_i8;
   a.gmod = (const uint16_t*)gmod;
@@ -1263,13 +1347,9 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
   a.cmax = (const float*)cmax;
   a.gx = (const uint16_t*)gx;
   for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
-  bool compact = false;
-  a.F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &compact);
-  if (a.F == 0) return (int)cudaErrorInvalidValue;
-  a.compact = compact;
-  *smem = make_layout(e_dtype, M, a.F, D, nc, R, lazy != 0, compact).total;
+  const int err = layout_args(&a, e_dtype, M, lazy != 0, smem);
   *out_args = a;
-  return 0;
+  return err;
 }
 
 }  // namespace
@@ -1281,7 +1361,9 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
 // (int8 E) chunks_i8: centers and centers_i8 as the ring's chunks (Args::cpb,
 // Args::cpi) for e_dtype 1 and 2, else null; out (B, nc) int32. pool_masks:
 // `passes` host words, bit t set where step t is a pool step. e_dtype: 0 f32,
-// 1 bf16, 2 int8. requant: 0 step, 1 pass, 2 bound (int8 only). Shapes and
+// 1 bf16, 2 int8. requant: 0 step, 1 pass, 2 bound (int8 only). spill, slots,
+// nslots: for a spill layout (qtt_seqbeam_layout), nslots scratch slots of its
+// spill bytes and nslots zeroed int32 flags, else null, null, 0.  Shapes and
 // combinations are checked by the caller: D % 128 == 0, D <= 1024, nc even
 // and <= 16, M in {8, 16, 32, 64}, M * R <= 512; with lazy, no deferring R1
 // step is followed by another R1 step.
@@ -1290,12 +1372,13 @@ extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void
                                      const void* cmax, const void* gx, const void* chunks_bf16,
                                      const void* chunks_i8, void* out, int B, int D, int nc, int M,
                                      int R, int passes, const void* pool_masks, int e_dtype,
-                                     int requant, int lazy, void* stream) {
+                                     int requant, int lazy, void* spill, void* slots, int nslots,
+                                     void* stream) {
   Args a;
   size_t smem;
   const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, chunks_bf16,
                           chunks_i8, out, B, D, nc, M, R, passes, pool_masks, e_dtype, requant,
-                          lazy, &a, &smem);
+                          lazy, spill, slots, nslots, &a, &smem);
   if (err) return err;
   return launch_v2(a, e_dtype, M, requant, lazy != 0, smem, (cudaStream_t)stream);
 }
@@ -1303,7 +1386,7 @@ extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void
 // The stage-timed build of the v2 kernel, for the auto ladder's two rungs
 // only (M=8, requant "step", no lazy_r1; bf16 or int8 E): the arguments of
 // qtt_seqbeam_v2_launch, then stages, a zeroed (blocks, 10) int64 buffer
-// (blocks from qtt_seqbeam_v2_frames_per_block).  Per block it receives the
+// (blocks from the layout's F).  Per block it receives the
 // clock64() cycles of each stage summed over the block's 8 warps (root,
 // load_srow, rescore, selection, pool, reorder, extension, barrier waits),
 // then the block's own cycles and %globaltimer nanoseconds.
@@ -1313,14 +1396,15 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
                                            const void* chunks_bf16, const void* chunks_i8,
                                            void* out, int B, int D, int nc, int M, int R,
                                            int passes, const void* pool_masks, int e_dtype,
-                                           int requant, int lazy, void* stages, void* stream) {
+                                           int requant, int lazy, void* spill, void* slots,
+                                           int nslots, void* stages, void* stream) {
   if (M != 8 || requant != kStep || lazy || e_dtype == kF32 || !stages)
     return (int)cudaErrorInvalidValue;
   Args a;
   size_t smem;
   const int err = v2_args(x, idx0, centers, gmod, centers_i8, csc, cmax, gx, chunks_bf16,
                           chunks_i8, out, B, D, nc, M, R, passes, pool_masks, e_dtype, requant,
-                          lazy, &a, &smem);
+                          lazy, spill, slots, nslots, &a, &smem);
   if (err) return err;
   a.stages = (long long*)stages;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1328,28 +1412,38 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
                         : launch<kBF16, 8, false, kStep, false, true>(a, smem, st);
 }
 
-// Frames per block of a v2 configuration (0 if none fits): the timed
-// build's caller sizes its buffer by it.
-extern "C" int qtt_seqbeam_v2_frames_per_block(int e_dtype, int M, int D, int nc, int R,
-                                               int lazy) {
-  bool compact;
-  return frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &compact);
+// The layout of a v2 configuration, or of v1's with e_dtype 0 (f32): out
+// receives F (frames a block, 0 if none fits), the kind (0 full, 1 compact,
+// 2 spill), the shared memory bytes and the bytes of a spill slot (0 unless
+// the layout spills).
+extern "C" int qtt_seqbeam_layout(int e_dtype, int M, int D, int nc, int R, int lazy,
+                                  void* out) {
+  long long* o = (long long*)out;
+  int kind = kFull;
+  const int F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &kind);
+  const Layout L = make_layout(e_dtype, M, F > 0 ? F : 1, D, nc, R, lazy != 0, kind);
+  o[0] = F;
+  o[1] = kind;
+  o[2] = F > 0 ? (long long)L.total : 0;
+  o[3] = F > 0 ? (long long)L.spill_bytes : 0;
+  return 0;
 }
 
-// The v1 kernel: x, idx0, centers and out as above; qgram (nc * 256, 256)
-// f32, the Gram of the bf16 centers; csq (nc * 256,) f32, the squared norms
-// of the f32 centers.  f32 E, every step after the fan-out a pool step.
-// Checked by the caller: M a multiple of 8 in [8, 64], M * R <= 256.
+// The v1 kernel: x, idx0, centers, out, spill, slots and nslots as above;
+// qgram (nc * 256, 256) f32, the Gram of the bf16 centers; csq (nc * 256,)
+// f32, the squared norms of the f32 centers.  f32 E, every step after the
+// fan-out a pool step.  Checked by the caller: M a multiple of 8 in [8, 64],
+// M * R <= 256.
 extern "C" int qtt_seqbeam_v1_launch(const void* x, const void* idx0, const void* centers,
                                      const void* qgram, const void* csq, void* out, int B, int D,
-                                     int nc, int M, int R, int passes, void* stream) {
+                                     int nc, int M, int R, int passes, void* spill, void* slots,
+                                     int nslots, void* stream) {
   if (passes > kMaxPasses || passes < 0 || M * R > kCS) return (int)cudaErrorInvalidValue;
-  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes);
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes, spill, slots, nslots);
   a.qg = (const float*)qgram;
   a.csq = (const float*)csq;
-  bool compact;
-  a.F = frames_per_block(kF32, M, D, nc, R, false, &compact);
-  if (a.F == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout(kF32, M, a.F, D, nc, R, false, false).total;
+  size_t smem;
+  const int err = layout_args(&a, kF32, M, false, &smem);
+  if (err) return err;
   return launch_v1(a, M, smem, (cudaStream_t)stream);
 }

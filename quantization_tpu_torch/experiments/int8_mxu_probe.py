@@ -10,7 +10,10 @@ chain is one launch of a hand-written kernel (``csrc/int8_mxu_probe.cu``):
 - the "bf16" chain: E is held in bf16, but c stays f32, as in the JAX
   kernel (its mixed ``dot_general`` keeps the f32 operand in f32): ``cross
   = f32(bf16 E) c^T``, ``upd = (f32(bf16 cross) c) * 1e-6``, ``E <-
-  bf16(f32(E) + upd)``.  The kernel runs these products as f32 FMAs;
+  bf16(f32(E) + upd)``.  The kernel splits c exactly into three bf16 parts
+  (:func:`bf16_split`) and runs each product as three bf16 products on the
+  tensor cores, every term exact in f32 (:func:`bf16_chain_split_model` is
+  that arithmetic in plain PyTorch);
 - the int8 chain: E as int8 with per-row f32 scales, requantized every
   step, c as ``round(c * 127)``; the second product's left side is
   ``round(cross / max|cross| * 127)`` with the max over the WHOLE (2048,
@@ -46,7 +49,13 @@ MAX_D, MAX_CS = 512, 256  # the widths the kernels' shared memory holds
 
 BF16_CHAIN_KERNEL = CudaKernel(
     "int8_mxu_probe", "qtt_bf16_chain_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# the earlier "bf16" chain kernel (f32 FMAs), timed beside it only: whole, its
+# c-tile loads alone, its FMAs alone
+BF16_CHAIN_FMA_KERNEL = CudaKernel(
+    "int8_mxu_probe", "qtt_bf16_chain_fma_launch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+FMA_MODES = {"whole": 0, "loads": 1, "fmas": 2}
 INT8_CHAIN_KERNEL = CudaKernel(
     "int8_mxu_probe", "qtt_int8_chain_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -66,6 +75,34 @@ def bf16_chain_plain(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> to
         cross = eb.float() @ c.T
         upd = (cross.to(torch.bfloat16).float() @ c) * 1e-6
         eb = (eb.float() + upd).to(torch.bfloat16)
+    return eb.float()
+
+
+def bf16_split(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's split of f32 ``c`` into three bf16 parts, by
+    round-to-nearest of successive remainders: ``hi = bf16(c)``, ``mid =
+    bf16(c - hi)``, ``lo = bf16(c - hi - mid)``.  Each remainder is exact in
+    f32, and ``(hi + mid) + lo == c`` for a normal c whose last bit lies
+    above bf16's smallest denormal (8 + 8 + 8 bits of significand)."""
+    hi = c.to(torch.bfloat16)
+    r1 = c - hi.float()
+    mid = r1.to(torch.bfloat16)
+    return hi, mid, (r1 - mid.float()).to(torch.bfloat16)
+
+
+def bf16_chain_split_model(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: each product of the "bf16"
+    chain as the f32 sum of three products of bf16-exact operands, one a
+    part of c; it differs from :func:`bf16_chain_plain` only in the order of
+    the f32 sums."""
+    parts = [p.float() for p in bf16_split(c)]
+    eb = e.to(torch.bfloat16)
+    for _ in range(steps):
+        ef = eb.float()
+        cross = (ef @ parts[0].T + ef @ parts[1].T) + ef @ parts[2].T
+        cb = cross.to(torch.bfloat16).float()
+        upd = ((cb @ parts[0] + cb @ parts[1]) + cb @ parts[2]) * 1e-6
+        eb = (ef + upd).to(torch.bfloat16)
     return eb.float()
 
 
@@ -112,11 +149,30 @@ def _chain_args(name: str, e: torch.Tensor, c: torch.Tensor):
     return e.contiguous(), c.contiguous(), mb, d, cs, torch.cuda.current_stream(dev).cuda_stream
 
 
-def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
-    """The kernel on the same inputs as :func:`bf16_chain_plain`."""
+def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS,
+                    cluster: int = 0) -> torch.Tensor:
+    """The kernel on the same inputs as :func:`bf16_chain_plain`: the split
+    of c into a scratch buffer, then the chain, its blocks of 16 rows in
+    clusters of ``cluster`` (1, 2, 4 or 8; 0 lets the launch choose by the
+    clusters the card holds at once)."""
     e, c, mb, d, cs, stream = _chain_args("bf16_chain_cuda", e, c)
     out = torch.empty_like(e)
-    BF16_CHAIN_KERNEL(e.data_ptr(), c.data_ptr(), out.data_ptr(), mb, d, cs, steps, stream)
+    split = torch.empty(12 * cs * d, dtype=torch.uint8, device=e.device)
+    BF16_CHAIN_KERNEL(e.data_ptr(), c.data_ptr(), split.data_ptr(), out.data_ptr(), mb, d, cs,
+                      steps, cluster, stream)
+    return out
+
+
+def bf16_chain_fma_cuda(e: torch.Tensor, c: torch.Tensor, mode: str = "whole",
+                        steps: int = STEPS) -> torch.Tensor:
+    """The earlier "bf16" chain kernel (f32 FMAs on the CUDA cores), to be
+    timed beside :func:`bf16_chain_cuda`: ``mode`` "whole" computes the
+    chain; "loads" runs its c-tile loads alone and "fmas" its FMAs alone on a
+    tile already resident, whose outputs mean nothing."""
+    e, c, mb, d, cs, stream = _chain_args("bf16_chain_fma_cuda", e, c)
+    out = torch.empty_like(e)
+    BF16_CHAIN_FMA_KERNEL(e.data_ptr(), c.data_ptr(), out.data_ptr(), mb, d, cs, steps,
+                          FMA_MODES[mode], stream)
     return out
 
 
@@ -204,10 +260,18 @@ def main() -> int:
         print("int8_mxu_probe: no CUDA device is available; the probes run only on a card",
               file=sys.stderr)
         return 2
-    for ch in chains(torch.device("cuda")):
+    chs = chains(torch.device("cuda"))
+    for ch in chs:
         ms = device_ms(ch.run, 50)
         print(f"{ch.label}: {ms:.3f} ms/chain  {FLOPS / (ms * 1e-3) / 1e12:.1f} TFLOP/s",
               flush=True)
+    e, c = chs[0].inputs
+    for cluster in (1, 2, 4, 8):
+        ms = device_ms(lambda: bf16_chain_cuda(e, c, cluster=cluster), 50)
+        print(f"the bf16 chain, clusters of {cluster}: {ms:.3f} ms/chain", flush=True)
+    for mode in FMA_MODES:
+        ms = device_ms(lambda: bf16_chain_fma_cuda(e, c, mode), 20)
+        print(f"the earlier f32-FMA bf16 chain, {mode}: {ms:.3f} ms/chain", flush=True)
     print(nvidia_smi_line(), flush=True)
     return 0
 

@@ -70,29 +70,34 @@ LANE_MASK = (1 << LANE_BITS) - 1
 E_DTYPES = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16), "int8": (2, torch.int8)}
 REQUANTS = {"step": 0, "pass": 1, "bound": 2}
 MAX_PASSES = 64
+SM_SHARED_BYTES = 233472  # an H100 SM's shared memory, blocks' 1 KB reserves included
 
+# the spill layout's arguments: scratch slots, their claim flags, their count
+_SPILL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
 SEQBEAM_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v2_launch",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
-    + [ctypes.c_void_p],
+    + _SPILL_ARGS + [ctypes.c_void_p],
 )
 SEQBEAM_V1_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v1_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _SPILL_ARGS + [ctypes.c_void_p],
 )
 # the v2 kernel's stage-timed build (the auto ladder's two rungs only)
 SEQBEAM_TIMED_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v2_timed_launch",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 2,
+    + _SPILL_ARGS + [ctypes.c_void_p] * 2,
 )
 # its columns: per block, each stage's clock64() cycles summed over the
 # block's warps, then the block's own cycles and nanoseconds
 STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "extension", "barrier")
-# frames a block (e_dtype code, M, D, nc, R, lazy) -> F, 0 where no block
-# fits in shared memory; f32 E's is v1's too
-FRAMES_PER_BLOCK = cuda_build.CFunction(
-    "seqbeam", "qtt_seqbeam_v2_frames_per_block", [ctypes.c_int] * 6)
+# the kernel's layout of (e_dtype code, M, D, nc, R, lazy) into a 4-element
+# int64 buffer: frames a block (0 where none fits), the kind, shared-memory
+# bytes and spill-slot bytes; f32 E's is v1's too
+LAYOUT = cuda_build.CFunction("seqbeam", "qtt_seqbeam_layout",
+                              [ctypes.c_int] * 6 + [ctypes.c_void_p])
+LAYOUT_KINDS = ("full", "compact", "spill")
 
 
 def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -464,23 +469,38 @@ def seqbeam_stages(problem: SeqbeamProblem) -> Tuple[torch.Tensor, torch.Tensor]
                          "bf16 or int8 E")
     if not problem.x.is_cuda:
         raise ValueError("seqbeam_stages needs CUDA tensors")
-    blocks = -(-problem.x.shape[0] // _frames_per_block(problem))
+    blocks = -(-problem.x.shape[0] // seqbeam_layout(problem)["frames"])
     stages = torch.zeros(blocks, len(STAGES) + 2, dtype=torch.int64, device=problem.x.device)
     return _launch(problem, SEQBEAM_TIMED_KERNEL, stages.data_ptr()), stages
 
 
-def _frames_per_block(problem: SeqbeamProblem) -> int:
-    """The kernel's frames a block on ``problem``; raises ValueError where
-    no block of the configuration fits in shared memory (f32 E with wide
-    beams at large D, bf16 E with M=64 from D=640)."""
+def seqbeam_layout(problem: SeqbeamProblem) -> dict:
+    """The kernel's shared-memory layout on ``problem``: frames a block,
+    its kind ("full"; "compact", the ring in the score tile's space;
+    "spill", E in a global scratch slot), its shared-memory bytes and the
+    bytes of a block's scratch slot (0 unless it spills).  Every beam the
+    JAX wrapper takes has one."""
     nc, _, D = problem.tables.centers_bf16.shape
-    F = FRAMES_PER_BLOCK(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R,
-                         int(problem.lazy_r1))
+    out = (ctypes.c_longlong * 4)()
+    LAYOUT(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R, int(problem.lazy_r1),
+           ctypes.addressof(out))
+    F, kind, smem, spill = out
     if F == 0:
         raise ValueError(f"seqbeam {problem.impl} with {problem.e_dtype} E, M={problem.M}, "
-                         f"R={problem.R} at dim {D} does not fit a block's shared memory on "
-                         f"the card")
-    return F
+                         f"R={problem.R} at dim {D} has no layout on the card")
+    return {"frames": F, "kind": LAYOUT_KINDS[kind], "smem_bytes": smem, "spill_bytes": spill}
+
+
+def _spill_scratch(layout: dict, device: torch.device):
+    """The spill layout's scratch: a slot for each block that can be
+    resident at once (by shared memory; a block that finds every slot
+    taken waits for one), and their zeroed claim flags."""
+    if not layout["spill_bytes"]:
+        return None, None, 0
+    per_sm = max(1, min(8, SM_SHARED_BYTES // (layout["smem_bytes"] + 1024)))
+    nslots = torch.cuda.get_device_properties(device).multi_processor_count * per_sm
+    spill = torch.empty(nslots * layout["spill_bytes"], dtype=torch.uint8, device=device)
+    return spill, torch.zeros(nslots, dtype=torch.int32, device=device), nslots
 
 
 def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor:
@@ -499,7 +519,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     if idx0.shape != (B, nc) or len(masks) != passes:
         raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
                          f"got {tuple(idx0.shape)} and {len(masks)}")
-    _frames_per_block(problem)
+    spill, slots, nslots = _spill_scratch(seqbeam_layout(problem), x.device)
     x = x.contiguous()
     idx0 = idx0.to(torch.int32).contiguous()
     centers = tables.centers_bf16.contiguous()
@@ -512,7 +532,8 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
         csq = tables.cs_sumsq.float().contiguous()
         _on_device(x, idx0, centers, qg, csq)
         kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
-               out.data_ptr(), B, D, nc, M, R, passes, *extra, stream)
+               out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots), nslots, *extra,
+               stream)
         return out
     int8 = e_dtype == "int8"
     gmod = tables.gmod_bf16.contiguous()
@@ -529,17 +550,17 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
         raise TypeError("seqbeam tables for bf16 and int8 E must hold the ring chunks")
     _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
     words = (ctypes.c_uint32 * max(passes, 1))(*masks)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     kernel(
-        x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), ptr(ci8), ptr(csc),
-        ptr(cmax), ptr(gx), ptr(cpb), ptr(cpi), out.data_ptr(), B, D, nc, M, R, passes,
+        x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), _ptr(ci8), _ptr(csc),
+        _ptr(cmax), _ptr(gx), _ptr(cpb), _ptr(cpi), out.data_ptr(), B, D, nc, M, R, passes,
         ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
-        int(problem.lazy_r1), *extra, stream,
+        int(problem.lazy_r1), _ptr(spill), _ptr(slots), nslots, *extra, stream,
     )
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _ring_chunks(c: torch.Tensor) -> torch.Tensor:

@@ -192,15 +192,50 @@ def test_cuda_seqbeam_compact_layout(cuda, e_dtype, M, dim):
     assert chk["ok"], chk
 
 
+# the beams no block fits beside E, X and a ring: their E leaves the block
+# (bf16: E's reorder copy; f32: both E buffers, in a global scratch slot)
+SPILL_BEAMS = [("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 64, 512),
+               ("v2", "f32", 64, 1024), ("v2", "f32", 32, 768), ("v1", "f32", 24, 1024),
+               ("v1", "f32", 64, 384)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("e_dtype,M,dim", [("bf16", 64, 640), ("f32", 64, 512)])
-def test_cuda_seqbeam_refuses_a_beam_no_block_fits(cuda, e_dtype, M, dim):
-    problem, _ = _seqbeam_case(cuda, 9, 8, dim, 17, M=M, R=4, e_dtype=e_dtype,
-                               pool_mask="altparity")
-    before = tseq.SEQBEAM_KERNEL.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        tseq.seqbeam_cuda(problem)
-    assert tseq.SEQBEAM_KERNEL.launches == before
+@pytest.mark.parametrize("impl,e_dtype,M,dim", SPILL_BEAMS)
+def test_cuda_seqbeam_spill_layout_matches_plain(cuda, impl, e_dtype, M, dim):
+    kw = dict(pool_mask="altparity") if impl == "v2" else {}
+    problem, centers = _seqbeam_case(cuda, 9, 8, dim, 301, M=M, R=4, e_dtype=e_dtype,
+                                     impl=impl, **kw)
+    assert tseq.seqbeam_layout(problem)["kind"] == "spill"
+    counter = tseq.SEQBEAM_V1_KERNEL if impl == "v1" else tseq.SEQBEAM_KERNEL
+    got = _launched_once(counter, lambda: tseq.seqbeam_cuda(problem))
+    chk = against_plain(problem, centers, got)
+    assert chk["ok"], chk
+
+
+# (e_dtype, M, dim, nc, R, lazy_r1) -> (frames a block, kind, shared-memory
+# bytes) as before the spill layout: the ladder's rungs, the training
+# search, v1's and phase 7's lazy configs
+LAYOUTS_BEFORE = {
+    ("int8", 8, 512, 8, 4, False): (8, "full", 231344),
+    ("int8", 8, 512, 8, 4, True): (8, "full", 231600),
+    ("bf16", 8, 512, 8, 4, False): (4, "full", 186848),
+    ("bf16", 8, 512, 8, 4, True): (4, "full", 186976),
+    ("bf16", 16, 512, 8, 4, False): (2, "full", 178560),
+    ("bf16", 8, 256, 4, 4, False): (8, "full", 220976),
+    ("f32", 16, 512, 8, 8, False): (2, "full", 175984),
+    ("f32", 16, 256, 4, 8, False): (4, "full", 214672),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(LAYOUTS_BEFORE))
+def test_cuda_seqbeam_layout_unchanged(cuda, key):
+    e_dtype, M, dim, nc, R, lazy = key
+    kw = dict(lazy_r1=True, pool_mask="altparity") if lazy else {}
+    problem, _ = _seqbeam_case(cuda, 9, nc, dim, 17, M=M, R=R, e_dtype=e_dtype, **kw)
+    got = tseq.seqbeam_layout(problem)
+    assert (got["frames"], got["kind"], got["smem_bytes"]) == LAYOUTS_BEFORE[key]
+    assert got["spill_bytes"] == 0
 
 
 @pytest.mark.gpu
@@ -324,17 +359,41 @@ def test_cuda_assembly_bit_exact_vs_plain(cuda, rows):
         assert torch.equal(got, tprim.assembly_plain(x, K))
 
 
-def _chain_inputs(cuda, MB):
+def _chain_inputs(cuda, MB, D=512, CS=256):
     gen = torch.Generator().manual_seed(7)
-    e = torch.randn(MB, 512, generator=gen).to(cuda)
-    return e, (torch.randn(256, 512, generator=gen) * 0.05).to(cuda)
+    e = torch.randn(MB, D, generator=gen).to(cuda)
+    return e, (torch.randn(CS, D, generator=gen) * 0.05).to(cuda)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("MB", [2048, 1000])  # 1000: not a multiple of the 16-row block
-def test_cuda_bf16_chain_matches_plain(cuda, MB):
-    e, c = _chain_inputs(cuda, MB)
+@pytest.mark.parametrize("MB,D,CS", [
+    (2048, 512, 256), (1000, 512, 256),  # 1000: not a multiple of the 16-row block
+    (2112, 512, 256),  # one block an SM: more clusters than the card may hold at once
+    (2048, 256, 128)])
+def test_cuda_bf16_chain_matches_plain(cuda, MB, D, CS):
+    e, c = _chain_inputs(cuda, MB, D, CS)
     got = _launched_once(tprobe.BF16_CHAIN_KERNEL, lambda: tprobe.bf16_chain_cuda(e, c))
+    chk = tprobe.bf16_chain_agreement(got, tprobe.bf16_chain_plain(e, c), e)
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cuda_bf16_chain_each_cluster_size(cuda, cluster):
+    # the split c multicast to the blocks of a cluster, or loaded by each
+    # block alone (1); MB=1000 leaves blocks of no rows to fill the last one
+    e, c = _chain_inputs(cuda, 1000)
+    got = tprobe.bf16_chain_cuda(e, c, cluster=cluster)
+    chk = tprobe.bf16_chain_agreement(got, tprobe.bf16_chain_plain(e, c), e)
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_chain_earlier_fma_kernel(cuda):
+    # the f32-FMA kernel kept to be timed beside the tensor-core one
+    e, c = _chain_inputs(cuda, 1000)
+    got = _launched_once(tprobe.BF16_CHAIN_FMA_KERNEL,
+                         lambda: tprobe.bf16_chain_fma_cuda(e, c, "whole"))
     chk = tprobe.bf16_chain_agreement(got, tprobe.bf16_chain_plain(e, c), e)
     assert chk["ok"], chk
 
