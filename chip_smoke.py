@@ -56,7 +56,11 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    in the JAX tests (>= 95% of indexes equal, squared error within 1e-3),
    each lazy config to its eager twin (>= 98%, within 2e-3), and pass and
    bound end below their initial indexes' error.  Quality vs beam-5,
-   kernel, plain and bound ms, and encode vec/s;
+   kernel, plain and bound ms, and encode vec/s.  Then the beams whose E
+   leaves the block (the spill layout: bf16 E with M=64 at d640 and d1024,
+   f32 E with M=64 at d512 and d1024 and M=32 at d768, v1 with M=24 at
+   d1024 and M=64 at d384), each at B=1,024 on seeded codebooks against its
+   plain version (the bars of phase 3), with kernel, plain and bound ms;
 8. the primitive probes, ``quantization_tpu_torch.experiments.prim_bench``
    (P1-P4: minround, gather, matmul, assembly) and ``.int8_mxu_probe`` (P5,
    P6: the "bf16" and int8 rescore chains), at the JAX scripts' shapes and
@@ -68,7 +72,16 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    P6 bit-exact, P3 within 1e-5 of the sum of |terms|, P5 at >= 99.99% of
    elements equal, the rest within one bf16 ulp, and every element the
    chain changes equal.  Per-iteration (P1-P4) or per-chain (P5, P6)
-   kernel, plain, bound and library times.
+   kernel, plain, bound and library times.  P5 has two bounds: the split-c
+   scheme's bf16 products on the tensor cores (``bound_ms``) and the f32
+   FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the earlier
+   f32-FMA kernel whole, with its c-tile loads alone and with its FMAs
+   alone, the chain at each cluster size and rows a block, and the kernels
+   a chain launches (``torch.profiler``), which must be P5's own.
+
+``[rule 2]`` ranks every kernel: first those slower than their library
+call, by how many times, then the rest by launches x (ms - bound ms), over
+the paths (K2, K3, B4) or their own run (K1, the probes).
 
 The output ends with the ``paths`` JSON line, the card's ``nvidia-smi``
 name and power limit, one JSON line with the kernels' numbers, and the
@@ -118,6 +131,11 @@ TRAIN = dict(dim=512, bytes_per_frame=8, phase_one_iters=4, phase_two_iters=6, s
 TRAIN_SEARCHES = ("auto", "gramv3", "gramv3-int8", "seqbeam")
 TRAIN_TIME_ROUNDS = 5  # whole runs of each search, interleaved, for step times
 CHECK_KEYS = ("frames", "index_agreement", "sse_rel_diff", "max_abs_err")
+# (impl, e_dtype, M, dim): beams that take the spill layout, R=4, 8 codebooks
+SPILL_BEAMS = (("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 64, 512),
+               ("v2", "f32", 64, 1024), ("v2", "f32", 32, 768), ("v1", "f32", 24, 1024),
+               ("v1", "f32", 64, 384))
+SPILL_B = 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -326,6 +344,14 @@ def main() -> int:
         launches[kernel] = launches.get(kernel, 0) + n
     k2_configs += rest["configs"]["seqbeam_v2"]
     k2_checks += rest["checks"]["seqbeam_v2"]
+    # the beams that take the spill layout (ROADMAP C2)
+    spill = spill_phase(dev)
+    for kernel, entries in spill.items():
+        for e in entries:
+            (k2_configs if kernel == "seqbeam_v2" else rest["configs"]["seqbeam_v1"]).append(e)
+            (k2_checks if kernel == "seqbeam_v2" else rest["checks"]["seqbeam_v1"]).append(
+                {"where": f"spill layout {e['config']}", "shape": e["shape"],
+                 **{k: e[k] for k in CHECK_KEYS}})
     # ---- 8. the primitive probes
     probes = probe_phase(dev)
 
@@ -361,8 +387,9 @@ def main() -> int:
         "library_ms": None, "launches": launches["gramv3"], "checks": k3_checks,
         "configs": k3_configs,
     }
-    # rule 2's ranking: per kernel, the sum over the paths' runs of launches
-    # x (kernel ms - bound ms), each run at its own config
+    # rule 2's ranking: first the kernels slower than their library call, by
+    # how many times; then the rest by launches x (kernel ms - bound ms),
+    # for K2, K3 and B4 summed over the paths' runs, each at its own config
     bounds = {c["config"]: c["bound_ms"] for c in k2_configs + k3_configs + v1_configs}
     runs = [("seqbeam_v2", p["launches"]["seqbeam_v2"], p["encode_kernel_ms"], bounds[p["config"]])
             for p in paths]
@@ -371,15 +398,22 @@ def main() -> int:
     runs += [(c["kernel"], c["launches"], c["ms"], c["bound_ms"]) for c in train_checks]
     runs += [(k, n, p["encode_kernel_ms"], bounds[p["config"]])
              for p in rest["paths"] for k, n in p["launches"].items()]
-    for k in (k2, k3, k_v1):
-        k["launches_x_excess_ms"] = sum(n * (ms - b) for name, n, ms, b in runs
-                                        if name == k["name"])
-    print("[rule 2] launches x (ms - bound ms) over the paths: " + ", ".join(
-        f"{k['name']} {k['launches_x_excess_ms']:.3f}"
-        for k in sorted((k2, k3, k_v1), key=lambda k: -k["launches_x_excess_ms"])), flush=True)
+    kernels = [k1, k2, k3, k_v1, *probes]
+    for k in kernels:
+        k["launches_x_excess_ms"] = (
+            sum(n * (ms - b) for name, n, ms, b in runs if name == k["name"])
+            if k in (k2, k3, k_v1) else k["launches"] * (k["ms"] - k["bound_ms"]))
+    slower = sorted((k for k in kernels if k["library_ms"] and k["ms"] > k["library_ms"]),
+                    key=lambda k: -k["ms"] / k["library_ms"])
+    rest_k = sorted((k for k in kernels if k not in slower),
+                    key=lambda k: -k["launches_x_excess_ms"])
+    print("[rule 2] slower than their library call (ms / library ms): " + (", ".join(
+        f"{k['name']} {k['ms'] / k['library_ms']:.3f}x" for k in slower) or "none")
+        + "; then launches x (ms - bound ms): " + ", ".join(
+        f"{k['name']} {k['launches_x_excess_ms']:.6g}" for k in rest_k), flush=True)
     print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"]}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [k1, k2, k3, k_v1, *probes]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -683,12 +717,54 @@ def probe_phase(dev) -> list:
             "library_ms": library * P56.STEPS, "agreement": agreement,
             "tflops": P56.FLOPS / (ms * 1e-3) / 1e12,
         }
+        if ch.name == "bf16_chain":
+            entry.update(bf16_chain_extras(e, c))
         entries.append(entry)
         print(f"[probe {ch.name}] {ch.label}: {ms:.4f} ms/chain {entry['tflops']:.1f} TFLOP/s "
               f"(plain {entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f} "
               f"({entry['bound_by']}), library {entry['library_ms']:.4f}); launches {n}; "
               f"vs plain {json.dumps(agreement)}", flush=True)
+        if ch.name == "bf16_chain":
+            print(f"[probe bf16_chain] bounds: split-c bf16 products {entry['bound_ms']:.4f} ms, "
+                  f"f32 FMAs {entry['bound_f32_ms']:.4f} ms; the earlier f32-FMA kernel "
+                  + ", ".join(f"{m} {v:.4f}" for m, v in entry["before_ms"].items())
+                  + " ms; by block shape " + ", ".join(
+                      f"{k}: {v:.4f}" for k, v in entry["block_shape_ms"].items())
+                  + f" ms; a chain launches {entry['profiled_kernels']}", flush=True)
     return entries
+
+
+def bf16_chain_extras(e, c) -> dict:
+    """P5 beside its plain arithmetic's bound: the f32-FMA bound, the
+    earlier kernel's time whole and in parts, the chain at each cluster size
+    and rows a block, and the device kernels one chain launches (by
+    ``torch.profiler``), which must be P5's own, so that no library call
+    computes its products."""
+    from quantization_tpu_torch.experiments import int8_mxu_probe as P56
+    from quantization_tpu_torch.utils.device import device_ms
+
+    mb, d = e.shape
+    cs = c.shape[0]
+    out = {
+        "bound_f32_ms": _bound(0, {"f32": P56.STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)})[
+            "bound_ms"],
+        "before_ms": {m: device_ms(lambda: P56.bf16_chain_fma_cuda(e, c, m), 10)
+                      for m in P56.FMA_MODES},
+        "block_shape_ms": {f"{r} rows, cluster {k}": device_ms(
+            lambda: P56.bf16_chain_cuda(e, c, rows=r, cluster=k), 20)
+            for r in (16, 32) for k in (1, 2, 4, 8)},
+    }
+    P56.bf16_chain_cuda(e, c)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        P56.bf16_chain_cuda(e, c)
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+    out["profiled_kernels"] = names
+    check(all("split_kernel" in n or "bf16_chain_tc_kernel" in n for n in names),
+          f"probe bf16_chain: a chain launches kernels not its own: {names}")
+    return out
 
 
 def _matmul_library_ms(a, b) -> float:
@@ -737,16 +813,20 @@ def _probe_ops(name: str, inputs) -> dict:
 
 
 def _chain_ops(name: str, mb: int, d: int, cs: int) -> dict:
-    """Operations of one chain of STEPS steps, by type.  "bf16" (c in f32):
-    2 mb d cs f32 multiply-adds a step, plus the bf16 rounding of cross and
-    the scale, add and rounding of E; int8: 2 x 2 mb d cs int8 operations a
+    """Operations of one chain of STEPS steps, by type.  "bf16" (c in f32,
+    split exactly into three bf16 parts): 3 x 2 mb d cs bf16 multiply-adds a
+    step, two operations each, plus the bf16 rounding of cross and the scale,
+    add and rounding of E (the f32 FMAs of the plain arithmetic are
+    ``bound_f32_ms``); int8: 2 x 2 mb d cs int8 operations a
     step, plus 7 elementwise f32 operations an element of cross (dequantize
     2, |.| and max 2, divide, scale and round 3) and of E (scale upd 1, ef
     2, |.| and max 2, divide and round 2)."""
     from quantization_tpu_torch.experiments.int8_mxu_probe import STEPS
 
     if name == "bf16_chain":
-        return {"f32": STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)}
+        # the least work of an exact scheme: c split into three bf16 parts,
+        # three bf16 products a product on the tensor cores
+        return {"bf16": STEPS * 3 * 2 * 2 * mb * d * cs, "f32": STEPS * (mb * cs + 3 * mb * d)}
     return {"int8": STEPS * 2 * 2 * mb * d * cs, "f32": STEPS * 7 * (mb * cs + mb * d)}
 
 
@@ -846,6 +926,57 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
               f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}); {TIME_B / enc_s:,.0f} encode vec/s; launches {n}",
               flush=True)
+    return out
+
+
+@torch.no_grad()
+def spill_phase(dev) -> dict:
+    """The beams no block fits beside E, X and a ring (SPILL_BEAMS), which
+    take the spill layout: each on SPILL_B frames near seeded codebooks,
+    held against its plain version with the bars of phase 3.  Returns, per
+    kernel ("seqbeam_v2", "seqbeam_v1"), the per-config entries with kernel,
+    plain and bound ms."""
+    import numpy as np
+
+    from quantization_tpu_torch.core import QuantizerConfig
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.utils.device import device_ms
+    from quantization_tpu_torch.utils.torch_interop import params_from_numpy
+
+    out = {"seqbeam_v2": [], "seqbeam_v1": []}
+    nc, passes = 8, 2
+    for impl, e_dtype, M, dim in SPILL_BEAMS:
+        rng = np.random.default_rng(dim + M)
+        centers = (rng.standard_normal((nc, 256, dim)) * 0.5).astype(np.float32)
+        arrays = {"centers": centers,
+                  "to_logits_w": (centers.reshape(nc * 256, dim)
+                                  + 0.5 * rng.standard_normal((nc * 256, dim))).astype(np.float32),
+                  "to_logits_b": np.zeros(nc * 256, np.float32),
+                  "logits_scale": np.float32(0.0), "centers_scale": np.float32(0.0)}
+        x = (centers[np.arange(nc)[None], rng.integers(0, 256, (SPILL_B, nc))].sum(1)
+             + 2.0 * rng.standard_normal((SPILL_B, dim))).astype(np.float32)
+        kw = dict(pool_mask="altparity") if impl == "v2" else {}
+        problem = K2.seqbeam_problem(params_from_numpy(arrays, device=dev),
+                                     QuantizerConfig(dim, 256, nc), torch.from_numpy(x).to(dev),
+                                     M=M, R=4, passes=passes, e_dtype=e_dtype, impl=impl, **kw)
+        layout = K2.seqbeam_layout(problem)
+        check(layout["kind"] == "spill", f"spill beam {impl} {e_dtype} M={M} d{dim}: {layout}")
+        chk = against_plain(problem, torch.from_numpy(centers).to(dev))
+        name = f"spill_{impl}_{e_dtype}_m{M}_d{dim}"
+        check(chk["ok"], f"{name}: kernel vs plain at B={SPILL_B}: {chk}")
+        entry = {"config": name, "shape": (f"B={SPILL_B} D={dim} nc={nc} passes={passes} M={M} "
+                                           f"R=4 {e_dtype} E"),
+                 "layout": layout, **{k: chk[k] for k in CHECK_KEYS},
+                 "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
+                 "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 1),
+                 **_seqbeam_bound(SPILL_B, dim, nc, passes, M, e_dtype)}
+        out["seqbeam_v1" if impl == "v1" else "seqbeam_v2"].append(entry)
+        print(f"[spill {name}] {entry['shape']}: agreement with plain "
+              f"{chk['index_agreement']:.6f}, sse rel diff {chk['sse_rel_diff']:+.2e}; kernel "
+              f"{entry['ms']:.3f} ms, plain {entry['plain_ms']:.3f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms; {layout['frames']} frames a block, "
+              f"{layout['smem_bytes']} B shared, {layout['spill_bytes']} B a slot", flush=True)
     return out
 
 
