@@ -76,8 +76,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    scheme's bf16 products on the tensor cores (``bound_ms``) and the f32
    FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the earlier
    f32-FMA kernel whole, with its c-tile loads alone and with its FMAs
-   alone, the chain at each cluster size and rows a block, and the kernels
-   a chain launches (``torch.profiler``), which must be P5's own.
+   alone, the kernel's chunk loads alone and its wgmmas alone, and the
+   kernels a chain launches (``torch.profiler``), which must be P5's own.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -728,16 +728,16 @@ def probe_phase(dev) -> list:
             print(f"[probe bf16_chain] bounds: split-c bf16 products {entry['bound_ms']:.4f} ms, "
                   f"f32 FMAs {entry['bound_f32_ms']:.4f} ms; the earlier f32-FMA kernel "
                   + ", ".join(f"{m} {v:.4f}" for m, v in entry["before_ms"].items())
-                  + " ms; by block shape " + ", ".join(
-                      f"{k}: {v:.4f}" for k, v in entry["block_shape_ms"].items())
+                  + " ms; the kernel's " + ", ".join(
+                      f"{k} alone {v:.4f}" for k, v in entry["parts_ms"].items())
                   + f" ms; a chain launches {entry['profiled_kernels']}", flush=True)
     return entries
 
 
 def bf16_chain_extras(e, c) -> dict:
     """P5 beside its plain arithmetic's bound: the f32-FMA bound, the
-    earlier kernel's time whole and in parts, the chain at each cluster size
-    and rows a block, and the device kernels one chain launches (by
+    earlier kernel's time whole and in parts, the kernel's chunk loads alone
+    and its wgmmas alone, and the device kernels one chain launches (by
     ``torch.profiler``), which must be P5's own, so that no library call
     computes its products."""
     from quantization_tpu_torch.experiments import int8_mxu_probe as P56
@@ -750,9 +750,8 @@ def bf16_chain_extras(e, c) -> dict:
             "bound_ms"],
         "before_ms": {m: device_ms(lambda: P56.bf16_chain_fma_cuda(e, c, m), 10)
                       for m in P56.FMA_MODES},
-        "block_shape_ms": {f"{r} rows, cluster {k}": device_ms(
-            lambda: P56.bf16_chain_cuda(e, c, rows=r, cluster=k), 20)
-            for r in (16, 32) for k in (1, 2, 4, 8)},
+        "parts_ms": {p: device_ms(lambda: P56.bf16_chain_part_cuda(e, c, p), 20)
+                     for p in P56.TC_PARTS},
     }
     P56.bf16_chain_cuda(e, c)
     torch.cuda.synchronize()

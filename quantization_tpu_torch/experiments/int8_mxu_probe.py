@@ -39,7 +39,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from ..ops.cuda_build import CudaKernel
+from ..ops.cuda_build import CFunction, CudaKernel
 from ..utils.device import device_ms, dispatch, nvidia_smi_line
 
 MB, D, CS = 2048, 512, 256
@@ -47,12 +47,14 @@ STEPS = 24  # nc steps x 3 passes at the flagship
 INV127 = float(np.float32(1.0) / np.float32(127.0))
 MAX_D, MAX_CS = 512, 256  # the widths the kernels' shared memory holds
 
-_BF16_CHAIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BF16_CHAIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 BF16_CHAIN_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch", _BF16_CHAIN_ARGS)
 # the same kernel with its chunk loads alone or its wgmmas alone, timed only
 BF16_CHAIN_PARTS_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch",
                                      _BF16_CHAIN_ARGS)
 TC_PARTS = {"loads": 1, "wgmma": 2}
+# bytes of the split c's scratch for (D, CS)
+SPLIT_BYTES = CFunction("int8_mxu_probe", "qtt_bf16_chain_split_bytes", [ctypes.c_int] * 2)
 # the earlier "bf16" chain kernel (f32 FMAs), timed beside it only: whole, its
 # c-tile loads alone, its FMAs alone
 BF16_CHAIN_FMA_KERNEL = CudaKernel(
@@ -152,30 +154,28 @@ def _chain_args(name: str, e: torch.Tensor, c: torch.Tensor):
     return e.contiguous(), c.contiguous(), mb, d, cs, torch.cuda.current_stream(dev).cuda_stream
 
 
-def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS, rows: int = 0,
-                    cluster: int = 0) -> torch.Tensor:
+def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
     """The kernel on the same inputs as :func:`bf16_chain_plain`: the split
-    of c into a scratch buffer, then the chain, its blocks of ``rows`` rows
-    (16 or 32; 0 for the default) in clusters of ``cluster`` (1, 2, 4 or 8;
-    0 lets the launch choose by the clusters the card holds at once)."""
-    return _tc_chain(BF16_CHAIN_KERNEL, e, c, steps, rows, cluster, 0)
+    of c into a scratch buffer, then the chain, in pairs of blocks of 32
+    rows."""
+    return _tc_chain(BF16_CHAIN_KERNEL, e, c, steps, 0)
 
 
-def bf16_chain_part_cuda(e: torch.Tensor, c: torch.Tensor, part: str, steps: int = STEPS,
-                         rows: int = 0, cluster: int = 0) -> torch.Tensor:
+def bf16_chain_part_cuda(e: torch.Tensor, c: torch.Tensor, part: str,
+                         steps: int = STEPS) -> torch.Tensor:
     """The kernel of :func:`bf16_chain_cuda` with only one ``part`` of its
     work, to be timed: "loads" streams the split c through its ring and
     runs no wgmma; "wgmma" runs its wgmmas on whatever the ring holds.  The
     outputs mean nothing."""
-    return _tc_chain(BF16_CHAIN_PARTS_KERNEL, e, c, steps, rows, cluster, TC_PARTS[part])
+    return _tc_chain(BF16_CHAIN_PARTS_KERNEL, e, c, steps, TC_PARTS[part])
 
 
-def _tc_chain(kernel: CudaKernel, e, c, steps, rows, cluster, mode) -> torch.Tensor:
+def _tc_chain(kernel: CudaKernel, e, c, steps, mode) -> torch.Tensor:
     e, c, mb, d, cs, stream = _chain_args("bf16_chain_cuda", e, c)
     out = torch.empty_like(e)
-    split = torch.empty(12 * cs * d, dtype=torch.uint8, device=e.device)
-    kernel(e.data_ptr(), c.data_ptr(), split.data_ptr(), out.data_ptr(), mb, d, cs, steps, rows,
-           cluster, mode, stream)
+    split = torch.empty(SPLIT_BYTES(d, cs), dtype=torch.uint8, device=e.device)
+    kernel(e.data_ptr(), c.data_ptr(), split.data_ptr(), out.data_ptr(), mb, d, cs, steps, mode,
+           stream)
     return out
 
 
@@ -282,15 +282,9 @@ def main() -> int:
         print(f"{ch.label}: {ms:.3f} ms/chain  {FLOPS / (ms * 1e-3) / 1e12:.1f} TFLOP/s",
               flush=True)
     e, c = chs[0].inputs
-    for rows in (16, 32):
-        for cluster in (1, 2, 4, 8):
-            ms = device_ms(lambda: bf16_chain_cuda(e, c, rows=rows, cluster=cluster), 50)
-            parts = {p: device_ms(lambda: bf16_chain_part_cuda(e, c, p, rows=rows,
-                                                               cluster=cluster), 20)
-                     for p in TC_PARTS}
-            print(f"the bf16 chain, {rows} rows a block, clusters of {cluster}: {ms:.3f} ms/chain"
-                  f" (loads alone {parts['loads']:.3f}, wgmmas alone {parts['wgmma']:.3f})",
-                  flush=True)
+    for part in TC_PARTS:
+        ms = device_ms(lambda: bf16_chain_part_cuda(e, c, part), 20)
+        print(f"the bf16 chain, {part} alone: {ms:.3f} ms/chain", flush=True)
     for mode in FMA_MODES:
         ms = device_ms(lambda: bf16_chain_fma_cuda(e, c, mode), 20)
         print(f"the earlier f32-FMA bf16 chain, {mode}: {ms:.3f} ms/chain", flush=True)
