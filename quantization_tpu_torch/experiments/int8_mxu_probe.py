@@ -5,7 +5,8 @@ Counterpart of ``experiments/int8_mxu_probe.py``.  At the seqbeam rescore
 shape, E (2048, 512) against the codebook c (256, 512), each of 24 steps
 runs two products, ``cross = E c^T`` and ``upd = cross' c``, and folds
 ``upd`` back into E, so no step can start before the last one ends.  Each
-chain is one launch of a hand-written kernel (``csrc/int8_mxu_probe.cu``):
+chain is one launch of a hand-written kernel (``csrc/int8_mxu_probe.cu``),
+after, for "bf16", a prologue that splits c:
 
 - the "bf16" chain: E is held in bf16, but c stays f32, as in the JAX
   kernel (its mixed ``dot_general`` keeps the f32 operand in f32): ``cross
@@ -13,7 +14,8 @@ chain is one launch of a hand-written kernel (``csrc/int8_mxu_probe.cu``):
   bf16(f32(E) + upd)``.  The kernel splits c exactly into three bf16 parts
   (:func:`bf16_split`) and runs each product as three bf16 products on the
   tensor cores, every term exact in f32 (:func:`bf16_chain_split_model` is
-  that arithmetic in plain PyTorch);
+  that arithmetic in plain PyTorch), in pairs of blocks that each take
+  half of the split c;
 - the int8 chain: E as int8 with per-row f32 scales, requantized every
   step, c as ``round(c * 127)``; the second product's left side is
   ``round(cross / max|cross| * 127)`` with the max over the WHOLE (2048,
