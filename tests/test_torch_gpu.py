@@ -200,9 +200,11 @@ SPILL_BEAMS = [("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl,e_dtype,M,dim", SPILL_BEAMS)
-def test_cuda_seqbeam_spill_layout_matches_plain(cuda, impl, e_dtype, M, dim):
-    kw = dict(pool_mask="altparity") if impl == "v2" else {}
+@pytest.mark.parametrize("impl,e_dtype,M,dim,lazy", [
+    *(b + (False,) for b in SPILL_BEAMS),
+    ("v2", "bf16", 64, 640, True), ("v2", "f32", 64, 512, True)])  # lazy_r1's deferred delta
+def test_cuda_seqbeam_spill_layout_matches_plain(cuda, impl, e_dtype, M, dim, lazy):
+    kw = dict(pool_mask="altparity", lazy_r1=lazy) if impl == "v2" else {}
     problem, centers = _seqbeam_case(cuda, 9, 8, dim, 301, M=M, R=4, e_dtype=e_dtype,
                                      impl=impl, **kw)
     assert tseq.seqbeam_layout(problem)["kind"] == "spill"
