@@ -74,10 +74,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    chain changes equal.  Per-iteration (P1-P4) or per-chain (P5, P6)
    kernel, plain, bound and library times.  P5 has two bounds: the split-c
    scheme's bf16 products on the tensor cores (``bound_ms``) and the f32
-   FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the earlier
-   f32-FMA kernel whole, with its c-tile loads alone and with its FMAs
-   alone, the kernel's chunk loads alone and its wgmmas alone, and the
-   kernels a chain launches (``torch.profiler``), which must be P5's own.
+   FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the kernels
+   a chain launches (``torch.profiler``), which must be P5's own two.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -131,7 +129,8 @@ TRAIN = dict(dim=512, bytes_per_frame=8, phase_one_iters=4, phase_two_iters=6, s
 TRAIN_SEARCHES = ("auto", "gramv3", "gramv3-int8", "seqbeam")
 TRAIN_TIME_ROUNDS = 5  # whole runs of each search, interleaved, for step times
 CHECK_KEYS = ("frames", "index_agreement", "sse_rel_diff", "max_abs_err")
-# (impl, e_dtype, M, dim): beams that take the spill layout, R=4, 8 codebooks
+# (impl, e_dtype, M, dim): beams that take the spill layout, on seeded codebooks
+# (experiments/seqbeam_times.py::seeded_problem)
 SPILL_BEAMS = (("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 64, 512),
                ("v2", "f32", 64, 1024), ("v2", "f32", 32, 768), ("v1", "f32", 24, 1024),
                ("v1", "f32", 64, 384))
@@ -726,33 +725,21 @@ def probe_phase(dev) -> list:
               f"vs plain {json.dumps(agreement)}", flush=True)
         if ch.name == "bf16_chain":
             print(f"[probe bf16_chain] bounds: split-c bf16 products {entry['bound_ms']:.4f} ms, "
-                  f"f32 FMAs {entry['bound_f32_ms']:.4f} ms; the earlier f32-FMA kernel "
-                  + ", ".join(f"{m} {v:.4f}" for m, v in entry["before_ms"].items())
-                  + " ms; the kernel's " + ", ".join(
-                      f"{k} alone {v:.4f}" for k, v in entry["parts_ms"].items())
-                  + f" ms; a chain launches {entry['profiled_kernels']}", flush=True)
+                  f"f32 FMAs {entry['bound_f32_ms']:.4f} ms; a chain launches "
+                  f"{entry['profiled_kernels']}", flush=True)
     return entries
 
 
 def bf16_chain_extras(e, c) -> dict:
-    """P5 beside its plain arithmetic's bound: the f32-FMA bound, the
-    earlier kernel's time whole and in parts, the kernel's chunk loads alone
-    and its wgmmas alone, and the device kernels one chain launches (by
-    ``torch.profiler``), which must be P5's own, so that no library call
-    computes its products."""
+    """P5 beside its plain arithmetic's bound (the f32-FMA bound), and the
+    device kernels one chain launches (by ``torch.profiler``), which must be
+    P5's own two, so that no library call computes its products."""
     from quantization_tpu_torch.experiments import int8_mxu_probe as P56
-    from quantization_tpu_torch.utils.device import device_ms
 
     mb, d = e.shape
     cs = c.shape[0]
-    out = {
-        "bound_f32_ms": _bound(0, {"f32": P56.STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)})[
-            "bound_ms"],
-        "before_ms": {m: device_ms(lambda: P56.bf16_chain_fma_cuda(e, c, m), 10)
-                      for m in P56.FMA_MODES},
-        "parts_ms": {p: device_ms(lambda: P56.bf16_chain_part_cuda(e, c, p), 20)
-                     for p in P56.TC_PARTS},
-    }
+    out = {"bound_f32_ms": _bound(
+        0, {"f32": P56.STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)})["bound_ms"]}
     P56.bf16_chain_cuda(e, c)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -761,8 +748,11 @@ def bf16_chain_extras(e, c) -> dict:
     names = sorted({ev.name for ev in prof.events()
                     if ev.device_type == torch.autograd.DeviceType.CUDA})
     out["profiled_kernels"] = names
-    check(all("split_kernel" in n or "bf16_chain_tc_kernel" in n for n in names),
-          f"probe bf16_chain: a chain launches kernels not its own: {names}")
+    own = ("split_kernel", "bf16_chain_tc_kernel")
+    # an empty list (a profiler that saw no device activity) proves nothing
+    check(all(any(k in n for n in names) for k in own)
+          and all(any(k in n for k in own) for n in names),
+          f"probe bf16_chain: a chain must launch its two kernels and no other: {names}")
     return out
 
 
@@ -935,41 +925,25 @@ def spill_phase(dev) -> dict:
     held against its plain version with the bars of phase 3.  Returns, per
     kernel ("seqbeam_v2", "seqbeam_v1"), the per-config entries with kernel,
     plain and bound ms."""
-    import numpy as np
-
-    from quantization_tpu_torch.core import QuantizerConfig
+    from quantization_tpu_torch.experiments.seqbeam_times import NC, PASSES, R, seeded_problem
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.device import device_ms
-    from quantization_tpu_torch.utils.torch_interop import params_from_numpy
 
     out = {"seqbeam_v2": [], "seqbeam_v1": []}
-    nc, passes = 8, 2
     for impl, e_dtype, M, dim in SPILL_BEAMS:
-        rng = np.random.default_rng(dim + M)
-        centers = (rng.standard_normal((nc, 256, dim)) * 0.5).astype(np.float32)
-        arrays = {"centers": centers,
-                  "to_logits_w": (centers.reshape(nc * 256, dim)
-                                  + 0.5 * rng.standard_normal((nc * 256, dim))).astype(np.float32),
-                  "to_logits_b": np.zeros(nc * 256, np.float32),
-                  "logits_scale": np.float32(0.0), "centers_scale": np.float32(0.0)}
-        x = (centers[np.arange(nc)[None], rng.integers(0, 256, (SPILL_B, nc))].sum(1)
-             + 2.0 * rng.standard_normal((SPILL_B, dim))).astype(np.float32)
-        kw = dict(pool_mask="altparity") if impl == "v2" else {}
-        problem = K2.seqbeam_problem(params_from_numpy(arrays, device=dev),
-                                     QuantizerConfig(dim, 256, nc), torch.from_numpy(x).to(dev),
-                                     M=M, R=4, passes=passes, e_dtype=e_dtype, impl=impl, **kw)
+        problem, centers = seeded_problem(impl, e_dtype, M, dim, SPILL_B, dev)
         layout = K2.seqbeam_layout(problem)
         check(layout["kind"] == "spill", f"spill beam {impl} {e_dtype} M={M} d{dim}: {layout}")
-        chk = against_plain(problem, torch.from_numpy(centers).to(dev))
+        chk = against_plain(problem, centers)
         name = f"spill_{impl}_{e_dtype}_m{M}_d{dim}"
         check(chk["ok"], f"{name}: kernel vs plain at B={SPILL_B}: {chk}")
-        entry = {"config": name, "shape": (f"B={SPILL_B} D={dim} nc={nc} passes={passes} M={M} "
-                                           f"R=4 {e_dtype} E"),
+        entry = {"config": name, "shape": (f"B={SPILL_B} D={dim} nc={NC} passes={PASSES} M={M} "
+                                           f"R={R} {e_dtype} E"),
                  "layout": layout, **{k: chk[k] for k in CHECK_KEYS},
                  "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
                  "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 1),
-                 **_seqbeam_bound(SPILL_B, dim, nc, passes, M, e_dtype)}
+                 **_seqbeam_bound(SPILL_B, dim, NC, PASSES, M, e_dtype)}
         out["seqbeam_v1" if impl == "v1" else "seqbeam_v2"].append(entry)
         print(f"[spill {name}] {entry['shape']}: agreement with plain "
               f"{chk['index_agreement']:.6f}, sse rel diff {chk['sse_rel_diff']:+.2e}; kernel "

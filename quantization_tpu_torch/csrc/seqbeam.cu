@@ -148,7 +148,10 @@ struct Layout {
                        // reorder copy; f32 E: both E buffers, spill_bytes / 2 apart)
 };
 
-// Beams that may take the spill layout; the others compile without it.
+// Beams that may take the spill layout.  Each compiles a second kernel for
+// it (SPILL), so that E's buffers stay in shared memory, as the compiler sees
+// them, in the kernel of the full and compact layouts; the others compile
+// without it.
 __host__ __device__ constexpr bool spills(int et, int M) { return et == kF32 ? M >= 24 : M >= 64; }
 
 __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
@@ -786,21 +789,21 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
 // V1: the v1 kernel (f32 E, every step a pool step, v1's score and pool
 // packing); it reads qg/csq in place of gmod.  REQ: the int8 requant rule
 // (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).  TIMED: the stage-timed
-// build, which adds its clock64() sums to a.stages.  bf16 and int8 E take
-// the wgmma design (WG), f32 E the mma.sync one (see the top of the file).
-template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED>
+// build, which adds its clock64() sums to a.stages.  SPILL: the spill
+// layout (spills(ET, M) only).  bf16 and int8 E take the wgmma design (WG),
+// f32 E the mma.sync one (see the top of the file).
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   constexpr bool WG = ET != kF32;
   constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
-  constexpr bool SPILLS = spills(ET, M);
+  static_assert(!SPILL || spills(ET, M), "a beam that never spills");
   extern __shared__ __align__(16) unsigned char smem[];
   StageClock<TIMED> clk;
   clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  // only the wide beams ever take the compact or spill layout, so the
-  // others compile to the full one alone
-  const int kind = (WG && M >= 32) || SPILLS ? a.kind : kFull;
-  const bool spill = SPILLS && kind == kSpill;
+  // only the wide wgmma beams ever take the compact layout, so the others
+  // compile to the full one alone
+  const int kind = SPILL ? kSpill : (WG && M >= 32 ? a.kind : kFull);
   const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, kind);
   const bool stg = L.ahead;  // WG: the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
@@ -810,7 +813,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   // spill: claim a free scratch slot (a resident block holds one at most,
   // and frees it at its end)
   unsigned char* eslot = nullptr;
-  if (spill) {
+  if (SPILL) {
     int* cell = reinterpret_cast<int*>(smem + L.slot);
     if (tid == 0) {
       int s = blockIdx.x % a.nslots;
@@ -825,7 +828,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   // wgmma's rows stay in E[0] (a pool step extends from the copy in the
   // slot); f32 E's two buffers lie in the slot
   auto Eb = [&](int i) -> unsigned char* {
-    if (spill) return WG ? smem + L.e0 : eslot + (i ? L.spill_bytes / 2 : 0);
+    if (SPILL) return WG ? smem + L.e0 : eslot + (i ? L.spill_bytes / 2 : 0);
     return smem + (i ? L.e1 : L.e0);
   };
   float* Er = reinterpret_cast<float*>(smem + L.er);
@@ -1152,7 +1155,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       }
       // spill (wgmma): the parents' rows go to the slot, and the children
       // are extended from there into E[0]
-      const bool from_slot = SPILLS && WG && spill && pool;
+      const bool from_slot = SPILL && WG && pool;
       if (extend) {
         const int dst = pool ? cur ^ 1 : cur;
         if (WG && stg) {
@@ -1217,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     const int b = fb + i / nc;
     if (b < a.B) a.out[(size_t)b * nc + i % nc] = sol[i];
   }
-  if (spill) {
+  if (SPILL) {
     // every write to the slot is done before the next block may claim it
     __threadfence();
     __syncthreads();
@@ -1227,14 +1230,23 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   clk.finish(a.stages + (size_t)blockIdx.x * kStageCols, tid);
 }
 
-template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED = false>
-int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL>
+int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
+  auto* k = seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED, SPILL>;
+  const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned blocks = (unsigned)((a.B + a.F - 1) / a.F);
-  if (blocks > 0) seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED><<<blocks, kThreads, smem, stream>>>(a);
+  if (blocks > 0) k<<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The kernel of a.kind's layout: the spill one's, or the other layouts'.
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED = false>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  if constexpr (spills(ET, M))
+    if (a.kind == kSpill) return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, true>(a, smem, stream);
+  return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, false>(a, smem, stream);
 }
 
 template <int ET, int REQ, bool LAZY>

@@ -49,20 +49,10 @@ STEPS = 24  # nc steps x 3 passes at the flagship
 INV127 = float(np.float32(1.0) / np.float32(127.0))
 MAX_D, MAX_CS = 512, 256  # the widths the kernels' shared memory holds
 
-_BF16_CHAIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-BF16_CHAIN_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch", _BF16_CHAIN_ARGS)
-# the same kernel with its chunk loads alone or its wgmmas alone, timed only
-BF16_CHAIN_PARTS_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch",
-                                     _BF16_CHAIN_ARGS)
-TC_PARTS = {"loads": 1, "wgmma": 2}
+BF16_CHAIN_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # bytes of the split c's scratch for (D, CS)
 SPLIT_BYTES = CFunction("int8_mxu_probe", "qtt_bf16_chain_split_bytes", [ctypes.c_int] * 2)
-# the earlier "bf16" chain kernel (f32 FMAs), timed beside it only: whole, its
-# c-tile loads alone, its FMAs alone
-BF16_CHAIN_FMA_KERNEL = CudaKernel(
-    "int8_mxu_probe", "qtt_bf16_chain_fma_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-FMA_MODES = {"whole": 0, "loads": 1, "fmas": 2}
 INT8_CHAIN_KERNEL = CudaKernel(
     "int8_mxu_probe", "qtt_int8_chain_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -99,9 +89,9 @@ def bf16_split(c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tenso
 
 def bf16_chain_split_model(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: each product of the "bf16"
-    chain as the f32 sum of three products of bf16-exact operands, one a
-    part of c; it differs from :func:`bf16_chain_plain` only in the order of
-    the f32 sums."""
+    chain as three products of bf16-exact operands, one a part of c, each
+    summed apart and then (hi + mid) + lo in f32; it differs from
+    :func:`bf16_chain_plain` only in the order of the f32 sums."""
     parts = [p.float() for p in bf16_split(c)]
     eb = e.to(torch.bfloat16)
     for _ in range(steps):
@@ -160,37 +150,11 @@ def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> tor
     """The kernel on the same inputs as :func:`bf16_chain_plain`: the split
     of c into a scratch buffer, then the chain, in pairs of blocks of 32
     rows."""
-    return _tc_chain(BF16_CHAIN_KERNEL, e, c, steps, 0)
-
-
-def bf16_chain_part_cuda(e: torch.Tensor, c: torch.Tensor, part: str,
-                         steps: int = STEPS) -> torch.Tensor:
-    """The kernel of :func:`bf16_chain_cuda` with only one ``part`` of its
-    work, to be timed: "loads" streams the split c through its ring and
-    runs no wgmma; "wgmma" runs its wgmmas on whatever the ring holds.  The
-    outputs mean nothing."""
-    return _tc_chain(BF16_CHAIN_PARTS_KERNEL, e, c, steps, TC_PARTS[part])
-
-
-def _tc_chain(kernel: CudaKernel, e, c, steps, mode) -> torch.Tensor:
     e, c, mb, d, cs, stream = _chain_args("bf16_chain_cuda", e, c)
     out = torch.empty_like(e)
     split = torch.empty(SPLIT_BYTES(d, cs), dtype=torch.uint8, device=e.device)
-    kernel(e.data_ptr(), c.data_ptr(), split.data_ptr(), out.data_ptr(), mb, d, cs, steps, mode,
-           stream)
-    return out
-
-
-def bf16_chain_fma_cuda(e: torch.Tensor, c: torch.Tensor, mode: str = "whole",
-                        steps: int = STEPS) -> torch.Tensor:
-    """The earlier "bf16" chain kernel (f32 FMAs on the CUDA cores), to be
-    timed beside :func:`bf16_chain_cuda`: ``mode`` "whole" computes the
-    chain; "loads" runs its c-tile loads alone and "fmas" its FMAs alone on a
-    tile already resident, whose outputs mean nothing."""
-    e, c, mb, d, cs, stream = _chain_args("bf16_chain_fma_cuda", e, c)
-    out = torch.empty_like(e)
-    BF16_CHAIN_FMA_KERNEL(e.data_ptr(), c.data_ptr(), out.data_ptr(), mb, d, cs, steps,
-                          FMA_MODES[mode], stream)
+    BF16_CHAIN_KERNEL(e.data_ptr(), c.data_ptr(), split.data_ptr(), out.data_ptr(), mb, d, cs,
+                      steps, stream)
     return out
 
 
@@ -246,6 +210,44 @@ def bf16_chain_agreement(got: torch.Tensor, want: torch.Tensor, e: torch.Tensor)
     return out
 
 
+# an f32 sum in any order within this many ulps of the sum of |terms| (the
+# kernel's and the plain version's products differ only in their order)
+SUM_ULPS = 4
+
+
+def _f32_toward(x: torch.Tensor, up: bool) -> torch.Tensor:
+    """float64 ``x`` rounded to f32 up or down."""
+    v = x.float()
+    off = v.double() < x if up else v.double() > x
+    return torch.where(off, torch.nextafter(v, torch.full_like(v, np.inf if up else -np.inf)), v)
+
+
+def bf16_step_bounds(e: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The least and the most one step of the "bf16" chain can give on
+    ``e`` when each of its f32 products lies within SUM_ULPS ulps of the sum
+    of |terms| of the exact product, as a sum in any order does: cross at
+    either end of its interval, rounded to bf16 either way between them,
+    then upd's interval over those, folded into E with the chain's f32
+    roundings.  Every rounding is monotone, so one step of the plain
+    version or of the kernel lies elementwise in the returned (lo, hi)."""
+    u = SUM_ULPS * 2.0 ** -24
+    ef = e.to(torch.bfloat16).double()
+    cd, ca = c.double(), c.double().abs()
+    cross = ef @ cd.T
+    t1 = u * (ef.abs() @ ca.T)
+    cb_lo = _f32_toward(cross - t1, False).to(torch.bfloat16).double()
+    cb_hi = _f32_toward(cross + t1, True).to(torch.bfloat16).double()
+    mid, half = (cb_lo + cb_hi) / 2, (cb_hi - cb_lo) / 2
+    t2 = half @ ca + u * (torch.maximum(cb_lo.abs(), cb_hi.abs()) @ ca)
+    upd = mid @ cd
+    ef32 = ef.float()
+
+    def fold(v):
+        return (ef32 + v * 1e-6).to(torch.bfloat16).float()
+
+    return fold(_f32_toward(upd - t2, False)), fold(_f32_toward(upd + t2, True))
+
+
 @dataclass
 class Chain:
     """One chain on its inputs: ``run()`` goes through the dispatcher,
@@ -283,13 +285,17 @@ def main() -> int:
         ms = device_ms(ch.run, 50)
         print(f"{ch.label}: {ms:.3f} ms/chain  {FLOPS / (ms * 1e-3) / 1e12:.1f} TFLOP/s",
               flush=True)
-    e, c = chs[0].inputs
-    for part in TC_PARTS:
-        ms = device_ms(lambda: bf16_chain_part_cuda(e, c, part), 20)
-        print(f"the bf16 chain, {part} alone: {ms:.3f} ms/chain", flush=True)
-    for mode in FMA_MODES:
-        ms = device_ms(lambda: bf16_chain_fma_cuda(e, c, mode), 20)
-        print(f"the earlier f32-FMA bf16 chain, {mode}: {ms:.3f} ms/chain", flush=True)
+    # one step where it changes many elements: a quarter of E's scaled by 1e-5
+    gen = torch.Generator().manual_seed(50)
+    e = torch.randn(1000, D, generator=gen)
+    e = torch.where(torch.rand(e.shape, generator=gen) < 0.25, e * 1e-5, e).cuda()
+    c = chs[0].inputs[1]
+    got, lo_hi = bf16_chain_cuda(e, c, 1), bf16_step_bounds(e, c)
+    print(f"the bf16 chain, one step on E (1000, {D}) with a quarter of its elements x 1e-5: "
+          f"{int((got != e.to(torch.bfloat16).float()).sum())} elements changed, "
+          f"{int(((got < lo_hi[0]) | (got > lo_hi[1])).sum())} outside the bounds of sums within "
+          f"{SUM_ULPS} ulps, {int((got != bf16_chain_plain(e, c, 1)).sum())} unequal to plain",
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     return 0
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     # no contraction of a*b+c into one fused multiply-add
     "--fmad=false",
     # optimize and assemble the kernels of a source in parallel: seqbeam's
-    # 42 template instantiations take a third of the time (measured on the
+    # template instantiations take a third of the time (measured on the
     # H100's host, same kernel times)
     "--split-compile=0",
     "-Xptxas", "-v",

@@ -380,13 +380,21 @@ def test_cuda_bf16_chain_matches_plain(cuda, MB, D, CS):
 
 
 @pytest.mark.gpu
-def test_cuda_bf16_chain_earlier_fma_kernel(cuda):
-    # the f32-FMA kernel kept to be timed beside the tensor-core one
-    e, c = _chain_inputs(cuda, 1000)
-    got = _launched_once(tprobe.BF16_CHAIN_FMA_KERNEL,
-                         lambda: tprobe.bf16_chain_fma_cuda(e, c, "whole"))
-    chk = tprobe.bf16_chain_agreement(got, tprobe.bf16_chain_plain(e, c), e)
-    assert chk["ok"], chk
+@pytest.mark.parametrize("MB,D,CS", [(1000, 512, 256), (2048, 256, 128)])
+def test_cuda_bf16_chain_one_step_on_tiny_elements(cuda, MB, D, CS):
+    # a quarter of E's elements scaled by 1e-5, so that a step changes most
+    # of them (where no f32 summation order but the plain one's own meets
+    # the agreement bar): one step of the kernel within the bounds that
+    # products within 4 ulps of their sums of |terms| allow
+    rng = np.random.default_rng(50)
+    e = rng.standard_normal((MB, D)).astype(np.float32)
+    c = (rng.standard_normal((CS, D)) * 0.05).astype(np.float32)
+    e = np.where(rng.random(e.shape) < 0.25, e * 1e-5, e).astype(np.float32)
+    e, c = torch.from_numpy(e).to(cuda), torch.from_numpy(c).to(cuda)
+    got = _launched_once(tprobe.BF16_CHAIN_KERNEL, lambda: tprobe.bf16_chain_cuda(e, c, 1))
+    lo, hi = tprobe.bf16_step_bounds(e, c)
+    assert bool(((got >= lo) & (got <= hi)).all())
+    assert int((got != e.to(torch.bfloat16).float()).sum()) > 0.2 * e.numel()
 
 
 @pytest.mark.gpu

@@ -9,7 +9,9 @@ product of the chain becomes three bf16 products summed in f32
 (``bf16_chain_split_model``).  Tolerances: the split bit for bit; the model
 against ``bf16_chain_plain`` with the card's bar (``bf16_chain_agreement``)
 on the script's distribution; one step's products within the f32 rounding of
-their sums on E with tiny elements.
+their sums on E with tiny elements, and one step of the chain within the
+bounds that rounding allows (``bf16_step_bounds``, which the card's kernel
+is held to as well).
 """
 
 import numpy as np
@@ -85,3 +87,27 @@ def test_split_products_exact_on_tiny_elements():
     # one bf16 part alone is not enough: c_hi's products miss by far more
     assert not bool((((ef @ hi.T).double() - ef.double() @ c.double().T).abs()
                      <= 4 * 2.0 ** -24 * (ef.abs().double() @ c.abs().double().T)).all())
+
+
+STEP_MODELS = {"plain": tprobe.bf16_chain_plain, "split": tprobe.bf16_chain_split_model}
+
+
+@pytest.mark.parametrize("model", list(STEP_MODELS))
+@pytest.mark.parametrize("seed,mb,tiny_frac", [(50, 64, 0.25), (0, 256, 0.0)])
+def test_one_step_within_its_bounds(model, seed, mb, tiny_frac):
+    e, c = _chain_inputs(seed, mb, tiny_frac)
+    got = STEP_MODELS[model](e, c, 1)
+    lo, hi = tprobe.bf16_step_bounds(e, c)
+    assert bool(((got >= lo) & (got <= hi)).all())
+    # the bounds pin nearly every element to one bf16 value
+    assert float((lo == hi).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("wrong", ["no step", "c_hi alone"])
+def test_one_step_bounds_refuse_a_wrong_step(wrong):
+    # on the tiny-element inputs, where a step changes most of those elements
+    e, c = _chain_inputs(50, 64, tiny_frac=0.25)
+    got = (e.to(torch.bfloat16).float() if wrong == "no step"
+           else tprobe.bf16_chain_plain(e, c.to(torch.bfloat16).float(), 1))
+    lo, hi = tprobe.bf16_step_bounds(e, c)
+    assert float(((got >= lo) & (got <= hi)).float().mean()) < 0.99
