@@ -52,6 +52,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    ``lazy_r1``.  Each launches its kernel (v1 its own count, counted around
    the call), its indexes pass the bars of phase 3 against the plain version
    on the same problem, and its squared error is within 1.012 x beam-5.
+   v1's stage-timed build gives the same indexes and prints a second
+   ``[seqbeam stages]`` line, as phase 3's.
    v1 holds to ported v2 at the same M, R and passes (f32 E, all-pool) as
    in the JAX tests (>= 95% of indexes equal, squared error within 1e-3),
    each lazy config to its eager twin (>= 98%, within 2e-3), and pass and
@@ -339,6 +341,8 @@ def main() -> int:
     launches["gramv3"] = launches.get("gramv3", 0) + n_k3
     # ---- 7. the rest of seqbeam
     rest = rest_phase(quantizers, main_frames, ladder)
+    print("[seqbeam stages] share of the warps' cycles, us a block-step: "
+          + "; ".join(rest["stage_lines"]), flush=True)
     for kernel, n in rest["launches"].items():
         launches[kernel] = launches.get(kernel, 0) + n
     k2_configs += rest["configs"]["seqbeam_v2"]
@@ -421,8 +425,8 @@ def main() -> int:
 
 @torch.no_grad()
 def stage_breakdown(problem) -> dict:
-    """Where K2's time goes on ``problem``, from its stage-timed build
-    (``ops.seqbeam.seqbeam_stages``), whose indexes must equal the shipped
+    """Where K2's or B4's time goes on ``problem``, from its stage-timed
+    build (``ops.seqbeam.seqbeam_stages``), whose indexes must equal the shipped
     kernel's: per stage, its share of the warps' summed cycles and its
     microseconds a block-step (that share of a block's mean lifetime, over
     passes x nc steps), the clock rate the blocks' own cycles over their
@@ -732,8 +736,8 @@ def probe_phase(dev) -> list:
 
 def bf16_chain_extras(e, c) -> dict:
     """P5 beside its plain arithmetic's bound (the f32-FMA bound), and the
-    device kernels one chain launches (by ``torch.profiler``), which must be
-    P5's own two, so that no library call computes its products."""
+    device kernels a chain launches (by ``torch.profiler``), which
+    must be P5's own two, so that no library call computes its products."""
     from quantization_tpu_torch.experiments import int8_mxu_probe as P56
 
     mb, d = e.shape
@@ -742,11 +746,22 @@ def bf16_chain_extras(e, c) -> dict:
         0, {"f32": P56.STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)})["bound_ms"]}
     P56.bf16_chain_cuda(e, c)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        P56.bf16_chain_cuda(e, c)
-        torch.cuda.synchronize()
-    names = sorted({ev.name for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA})
+    # one chain traced after a warm-up step: the tracer has been seen to miss
+    # the first kernel of a window it starts cold
+    seen = set()
+
+    def keep(prof):
+        seen.update(ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                                on_trace_ready=keep) as prof:
+        for _ in range(2):
+            P56.bf16_chain_cuda(e, c)
+            torch.cuda.synchronize()
+            prof.step()
+    names = sorted(seen)
     out["profiled_kernels"] = names
     own = ("split_kernel", "bf16_chain_tc_kernel")
     # an empty list (a profiler that saw no device activity) proves nothing
@@ -844,7 +859,7 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
     ]
     out = {"paths": [], "configs": {"seqbeam_v1": [], "seqbeam_v2": []},
            "checks": {"seqbeam_v1": [], "seqbeam_v2": []},
-           "launches": {"seqbeam_v1": 0, "seqbeam_v2": 0}}
+           "launches": {"seqbeam_v1": 0, "seqbeam_v2": 0}, "stage_lines": []}
     for name, dim, passes, kw, twin in configs:
         qq = quantizers[dim]
         nc = qq.num_codebooks
@@ -900,6 +915,9 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
                  "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 3),
                  "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 1),
                  **_seqbeam_bound(TIME_B, dim, nc, passes, sem["M"], sem.get("e_dtype", "f32"))}
+        if kernel == "seqbeam_v1":
+            entry["stages"] = stage_breakdown(problem)
+            out["stage_lines"].append(f"{name} ({entry['stages']['summary']})")
         out["configs"][kernel].append(entry)
         out["checks"][kernel].append({"where": f"encode path {name}", "shape": shape,
                                       "launches": n, **{k: chk[k] for k in CHECK_KEYS}})

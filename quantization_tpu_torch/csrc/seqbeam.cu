@@ -67,13 +67,33 @@
 // and exact float adds, not on the conversion pipe, which issues at a
 // quarter of the rate.
 //
-// f32 E (v1, the training search, an explicit e_dtype="f32") keeps the
-// mma.sync rescore (m16n8k16 bf16, A rounded to bf16 as it is loaded),
-// reading codebook rows from L2 in its k loop: with 4-byte E rows, E, X
-// and a ring do not fit in shared memory together.
+// f32 E (v1, the training search, an explicit e_dtype="f32"): E stays
+// row-major f32 in both buffers, which leaves no room for a ring of its own
+// beside X.  The rescore read its B fragments from L2 in its k loop, a round
+// trip each k step with nothing in flight across them: 54% of a block-step
+// at d512 and 35% at d256 for v1 (PERF.md, PR 8).  It now runs on wgmma
+// with A taken from registers (each thread loads its f32 E elements from
+// shared memory and rounds them to bf16, rows past the last zero, the next
+// chunk's while the current chunk's products run; every bf16 x bf16
+// product is exact in f32, so only the order of the f32 sums differs from
+// the plain version's) and B from K2's bf16 chunks through a ring of two
+// 32 KB slots in X's space: slot 0 lies past the extensions' staged
+// codeword rows and is loaded as soon as the selection has read X, slot 1
+// lies on the staged rows and is loaded once the extension has read them.
+// Four 16 KB slots, and eight with four of them in the E buffer the
+// rescore does not read, measured slower: a chunk's barrier and wait, not
+// the bytes in flight, hold it.  The extensions' codeword rows are staged
+// by cp.async as wgmma's are, and the score rows (v1: q_t[sol_t, :] and
+// |c_t|^2; v2: Gmod_t[sol_t, :]) arrive a step ahead by cp.async.  Where
+// the staged rows do not fit (f32 E from M=24 at some D), the compact
+// layout keeps one slot in X's space and reads the extensions' rows from
+// L2.  The spill layout (C2's f32 beams keep E in the global slot) keeps
+// the mma.sync rescore, reading the codebook from L2.
 //
-// Selection runs one warp per candidate row (R rounds of __reduce_min_sync
-// over the packed keys) and one warp per frame for the pool.  All f32
+// Selection runs one warp per candidate row (each lane's 8 packed keys
+// sorted, then R rounds of __reduce_min_sync over the lanes' first keys);
+// the pool ranks every entry of a frame's M*R keys by counting the smaller
+// ones, all warps at once (one warp a frame left most warps idle).  All f32
 // arithmetic is built with --fmad=false so that each rounding step matches
 // the plain version.
 
@@ -92,6 +112,7 @@ constexpr int kMaxPasses = 64;
 constexpr int kMaxChunks = 8;     // D <= 1024: D / 128 chunks of 4 per lane
 constexpr int kMaxNc = 16;
 constexpr int kChunk = 32768;     // a ring chunk: 256 codewords x 128 bytes of K
+constexpr int kKF = kChunk / (kCS * 2);  // f32 E: bf16 elements of K a ring chunk
 constexpr int kMaxRows = 64;      // frames x candidates per block
 constexpr int kXS = kCS + 8;      // padded row stride of the score tile (floats)
 constexpr size_t kMaxSmem = 232448;
@@ -139,10 +160,13 @@ struct Layout {
                      // f32 E: bytes a row (both padded: no bank conflicts)
   int root_stride;   // wgmma: bytes between the bf16 root rows' 16-byte K pieces
   int er_stride;     // floats per root-error row
+  int slots;         // f32 E outside the spill layout: ring slots (2 full, 1 compact)
   bool ahead;        // wgmma, not compact: the ring has room of its own and loads a
-                     // rescore ahead; the extensions' codeword rows are staged in X's space
+                     // rescore ahead
+  bool stage;        // full layout (not spill): the extensions' codeword rows are staged in
+                     // X's space
   size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys,
-      ring, bars, slot;
+      ring, bars, slot;  // f32 E: ring holds slot 0, xs slot 1
   size_t total;
   size_t spill_bytes;  // spill layout: the block's global scratch slot (wgmma: E[0]'s
                        // reorder copy; f32 E: both E buffers, spill_bytes / 2 apart)
@@ -153,6 +177,11 @@ struct Layout {
 // them, in the kernel of the full and compact layouts; the others compile
 // without it.
 __host__ __device__ constexpr bool spills(int et, int M) { return et == kF32 ? M >= 24 : M >= 64; }
+// Beams that may take the compact layout; the others compile to the full
+// layout alone (outside the spill kernel).
+__host__ __device__ constexpr bool compacts(int et, int M) {
+  return et == kF32 ? spills(et, M) : M >= 32;
+}
 
 __host__ __device__ inline size_t take(size_t* off, size_t bytes) {
   const size_t at = *off;
@@ -169,16 +198,21 @@ __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a 
 // a ring of two chunks and their mbarriers.  kCompact, for the wide beams
 // at large D where that does not fit: the ring lies in X's space and is
 // loaded only while its rescore runs, and the extensions read their
-// codeword rows from L2.  f32 E: E row-major, f32 score rows.  kSpill, where
-// neither fits: as kCompact, but E[1] holds only the root's bf16 rows (wgmma)
-// or E lies wholly in the global slot (f32 E), and a 16-byte cell holds the
-// slot's number.
+// codeword rows from L2.  f32 E: E row-major, the score rows f32 (v2's
+// Gmod rows bf16 in f32's room), double-buffered, with v1's |c|^2 row after
+// each buffer's F rows; X's space holds the staged codeword rows and ring
+// slot 0 past them, slot 1 on them (kFull), or one slot (kCompact).  kSpill,
+// where neither fits: wgmma as kCompact, but E[1] holds only the root's
+// bf16 rows; f32 E wholly in the global slot, single f32 score rows and no
+// ring; a 16-byte cell holds the slot's number.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
                                               bool lazy, int kind) {
   Layout L;
   const bool wg = et != kF32;
   const bool spill = kind == kSpill;
+  const bool rg = !wg && !spill;  // f32 E on the ring
   L.ahead = wg && kind == kFull;
+  L.stage = kind == kFull;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
   L.xrows = (L.rows + 15) / 16 * 16;
@@ -205,10 +239,16 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.e1 = take(&off, e1bytes);
   L.er = take(&off, (size_t)F * L.er_stride * 4);
   size_t xbytes = (size_t)L.xrows * kXS * 4;
+  // f32 E: the offset of ring slot 0 in X's space (full: past the staged
+  // rows and slot 1, which lies on them; compact: at its start, no slot 1)
+  const size_t lo = L.stage ? max_sz((rows + F) * 2 * D, (size_t)kChunk) : 0;
+  L.slots = !rg ? 0 : L.stage ? 2 : 1;
   if (L.ahead) xbytes = max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D));
   else if (wg) xbytes = max_sz(xbytes, 2 * (size_t)kChunk);
+  else if (rg) xbytes = max_sz(xbytes, lo + (size_t)kChunk);
   L.xs = take(&off, xbytes);
-  L.srow = take(&off, wg ? (size_t)2 * F * kCS * 2 : (size_t)F * kCS * 4);
+  L.srow = take(&off, wg ? (size_t)2 * F * kCS * 2
+                         : (size_t)(rg ? 2 * (F + 1) : F) * kCS * 4);
   L.sc0 = take(&off, rows * 4);
   L.sc1 = take(&off, rows * 4);
   L.rsc = take(&off, rows * 4);
@@ -221,8 +261,8 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   L.selp = take(&off, rows * 4);
   L.jdef = take(&off, lazy ? rows * 4 : 0);  // lazy_r1 only
   L.rkeys = take(&off, rows * R * 4);
-  L.ring = L.ahead ? take(&off, 2 * (size_t)kChunk) : L.xs;
-  L.bars = take(&off, wg ? 16 : 0);
+  L.ring = L.ahead ? take(&off, 2 * (size_t)kChunk) : L.xs + (rg ? lo : 0);
+  L.bars = take(&off, wg || rg ? 16 : 0);
   L.slot = take(&off, spill ? 16 : 0);
   L.total = off;
   return L;
@@ -399,6 +439,31 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
                : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A[64 x 16] . B[128 x 16]^T, bf16 x bf16 -> f32, A from registers
+// (each warp's 16 rows in the m16n8k16 A fragment layout)
+__device__ __forceinline__ void wgmma_bf16_ra(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+               "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+               ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+               ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+               ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+                 "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                 "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                 "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+                 "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+                 "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+                 "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+                 "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                 "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // Packed selection key: the score clamped at 0, its 8 low mantissa bits
 // replaced by the lane id.  Non-negative floats order like their bits.
 __device__ __forceinline__ uint32_t pack_key(float s, uint32_t id) {
@@ -406,18 +471,37 @@ __device__ __forceinline__ uint32_t pack_key(float s, uint32_t id) {
   return (__float_as_uint(v) & ~kLaneMask) | id;
 }
 
-// Warp-wide minimum of the keys held by the lanes; the (unique) winner is
-// removed from its owner's set unless this is the last round (`keep`).
-template <int N>
-__device__ __forceinline__ uint32_t extract_min(uint32_t (&keys)[N], bool keep = false) {
+// Warp-wide minimum of the keys held by the lanes (an R1 step's best child).
+__device__ __forceinline__ uint32_t warp_min(const uint32_t (&keys)[8]) {
   uint32_t m = keys[0];
 #pragma unroll
-  for (int q = 1; q < N; ++q) m = min(m, keys[q]);
-  const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, m);
-  if (!keep)
+  for (int q = 1; q < 8; ++q) m = min(m, keys[q]);
+  return __reduce_min_sync(0xFFFFFFFFu, m);
+}
+
+// The n smallest keys of a warp, in order (the top-R and the fan-out): a
+// lane's 8 keys sorted ascending first (a 19-comparator network), then each
+// round the warp-wide minimum of the lanes' first keys, which its lane drops
+// (pop_min).  The keys are distinct, so the winner has one owner.
+__device__ __forceinline__ void sort8(uint32_t (&k)[8]) {
+  constexpr int net[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6},
+                              {5, 7}, {1, 2}, {5, 6}, {0, 4}, {3, 7}, {1, 5}, {2, 6},
+                              {1, 4}, {3, 6}, {2, 4}, {3, 5}, {3, 4}};
 #pragma unroll
-    for (int q = 0; q < N; ++q)
-      if (keys[q] == w) keys[q] = kNone;
+  for (int c = 0; c < 19; ++c) {
+    const uint32_t lo = min(k[net[c][0]], k[net[c][1]]), hi = max(k[net[c][0]], k[net[c][1]]);
+    k[net[c][0]] = lo;
+    k[net[c][1]] = hi;
+  }
+}
+
+__device__ __forceinline__ uint32_t pop_min(uint32_t (&k)[8]) {
+  const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, k[0]);
+  if (k[0] == w) {
+#pragma unroll
+    for (int q = 0; q < 7; ++q) k[q] = k[q + 1];
+    k[7] = kNone;
+  }
   return w;
 }
 
@@ -479,9 +563,9 @@ __device__ __forceinline__ uint32_t load_a(const unsigned char* A, int stride, i
   return pack_bf16x2(v.x, v.y);
 }
 
-// f32 E: X[r, n] = sum_k bf16(A[r, k]) * C_t[n, k] in f32 for r < 16 *
-// mtiles and all 256 codewords n, on mma.sync.  Warp w owns codewords
-// [32 w, 32 w + 32) and reads their rows of C_t from L2.
+// f32 E in the spill layout: X[r, n] = sum_k bf16(A[r, k]) * C_t[n, k] in
+// f32 for r < 16 * mtiles and all 256 codewords n, on mma.sync.  Warp w
+// owns codewords [32 w, 32 w + 32) and reads their rows of C_t from L2.
 __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int mtiles,
                              const uint16_t* __restrict__ Ct, int D, float* X, int warp, int lane) {
   const int g = lane >> 2, q = lane & 3;
@@ -532,6 +616,85 @@ __device__ void rescore_bf16(const unsigned char* A, int stride, int rows, int m
   }
 }
 
+// The m64n128 sums of warpgroup tid / 128 into X's rows below `rows`:
+// thread (warp w, lane l) of a warpgroup holds rows 16 w + l / 4 (+ 8),
+// columns 8 j + 2 (l % 4) (+ 1), j < 16.  I8: s32 sums dequantized by rsc[r].
+template <bool I8, class Acc>
+__device__ __forceinline__ void store_sums(const Acc (&d)[64], const float* rsc, float* X, int rows,
+                                           int tid) {
+  const int wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
+  const int r0 = 16 * w + (l >> 2), r1 = r0 + 8;
+  const float s0 = I8 && r0 < rows ? rsc[r0] : 1.0f, s1 = I8 && r1 < rows ? rsc[r1] : 1.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = wg * 128 + 8 * j + 2 * (l & 3);
+    if (r0 < rows) {
+      X[r0 * kXS + col] = I8 ? (float)d[4 * j] * s0 : (float)d[4 * j];
+      X[r0 * kXS + col + 1] = I8 ? (float)d[4 * j + 1] * s0 : (float)d[4 * j + 1];
+    }
+    if (r1 < rows) {
+      X[r1 * kXS + col] = I8 ? (float)d[4 * j + 2] * s1 : (float)d[4 * j + 2];
+      X[r1 * kXS + col + 1] = I8 ? (float)d[4 * j + 3] * s1 : (float)d[4 * j + 3];
+    }
+  }
+}
+
+// f32 E outside the spill layout: X[r, n] = sum_k bf16(A[r, k]) * C_t[n,
+// k] in f32 for r < rows and all 256 codewords n, on wgmma.  A: f32 rows
+// (`stride` bytes a row), rounded to bf16 into registers as they are
+// loaded, rows at or past `rows` zero; chunk c + 1's while chunk c's
+// products run.  B: the codebook's D / 64 chunks of 32 KB (K2's: [8 16-byte
+// K pieces][256 codewords][16 bytes]), chunk c of the rescore in ring slot
+// c % S (`slot`, completing on full[c % S]); the caller has issued the
+// first chunks, and after both warpgroups are done with chunk c thread 0
+// refills its slot with chunk c + S of this rescore.  Warpgroup w owns
+// codewords [128 w, 128 w + 128).
+template <bool TIMED, class Slot, class Issue>
+__device__ void wg_rescore_f32(const unsigned char* A, int stride, int rows, int nchunks, int S,
+                               const Slot& slot, uint64_t* full, int& g, const Issue& issue,
+                               float* X, StageClock<TIMED>& clk, int stage, int tid) {
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  const int wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
+  const int r0 = 16 * w + (l >> 2), r1 = r0 + 8, kq = 2 * (l & 3);
+  // chunk c's A fragments, rounded to bf16
+  auto load = [&](int c, uint32_t (&fa)[kKF / 16][4]) {
+#pragma unroll
+    for (int s = 0; s < kKF / 16; ++s) {
+      const int k = kKF * c + 16 * s + kq;
+      fa[s][0] = load_a(A, stride, rows, r0, k);
+      fa[s][1] = load_a(A, stride, rows, r1, k);
+      fa[s][2] = load_a(A, stride, rows, r0, k + 8);
+      fa[s][3] = load_a(A, stride, rows, r1, k + 8);
+    }
+  };
+  // chunk c (A in `fa`, loaded): wait for its slot, run its products, then
+  // load chunk c + 1's A into `next` while they run; once both warpgroups
+  // are done with the slot, refill it with chunk c + S
+  auto step = [&](int c, const uint32_t (&fa)[kKF / 16][4], uint32_t (&next)[kKF / 16][4]) {
+    mbar_wait(full + g % S, (g / S) & 1);
+    const unsigned char* B = slot(g % S) + wg * 128 * 16;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < kKF / 16; ++s)
+      wgmma_bf16_ra(d, fa[s], wg_desc(B + s * 2 * kCS * 16, kCS * 16, 128), c | s);
+    wg_commit();
+    if (c + 1 < nchunks) load(c + 1, next);
+    wg_wait0();
+    clk.sync(stage);  // both warpgroups are done with the slot
+    if (tid == 0 && c + S < nchunks) issue(g + S);
+    ++g;
+  };
+  uint32_t fa0[kKF / 16][4], fa1[kKF / 16][4];
+  load(0, fa0);
+  for (int c = 0; c < nchunks; c += 2) {  // nchunks is even
+    step(c, fa0, fa1);
+    step(c + 1, fa1, fa0);
+  }
+  store_sums<false>(d, nullptr, X, rows, tid);
+}
+
 // bf16 and int8 E: X[r, n] for r < rows and all 256 codewords n, on wgmma.
 // A: K-chunked rows (`stride` bytes between 16-byte K pieces; the m64 tile
 // reads past `rows`, and those rows' sums are dropped).  B: `nchunks`
@@ -576,23 +739,7 @@ __device__ void wg_rescore(const unsigned char* A, int stride, int nchunks, unsi
     clk.sync(stage);  // both warpgroups are done with the slot
     if (tid == 0 && (ahead || c + 2 < nchunks)) issue(g + 2);
   }
-  // thread (warp w, lane l) of a warpgroup holds rows 16 w + l / 4 (+ 8),
-  // columns 8 j + 2 (l % 4) (+ 1), j < 16
-  const int w = (tid >> 5) & 3, l = tid & 31;
-  const int r0 = 16 * w + (l >> 2), r1 = r0 + 8;
-  const float s0 = I8 && r0 < rows ? rsc[r0] : 1.0f, s1 = I8 && r1 < rows ? rsc[r1] : 1.0f;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = wg * 128 + 8 * j + 2 * (l & 3);
-    if (r0 < rows) {
-      X[r0 * kXS + col] = I8 ? (float)d[4 * j] * s0 : (float)d[4 * j];
-      X[r0 * kXS + col + 1] = I8 ? (float)d[4 * j + 1] * s0 : (float)d[4 * j + 1];
-    }
-    if (r1 < rows) {
-      X[r1 * kXS + col] = I8 ? (float)d[4 * j + 2] * s1 : (float)d[4 * j + 2];
-      X[r1 * kXS + col + 1] = I8 ? (float)d[4 * j + 3] * s1 : (float)d[4 * j + 3];
-    }
-  }
+  store_sums<I8>(d, rsc, X, rows, tid);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -795,17 +942,18 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
 template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   constexpr bool WG = ET != kF32;
+  constexpr bool RG = !WG && !SPILL;  // f32 E on its ring
   constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
   static_assert(!SPILL || spills(ET, M), "a beam that never spills");
   extern __shared__ __align__(16) unsigned char smem[];
   StageClock<TIMED> clk;
   clk.start();
   const int F = a.F, D = a.D, nc = a.nc, R = a.R;
-  // only the wide wgmma beams ever take the compact layout, so the others
-  // compile to the full one alone
-  const int kind = SPILL ? kSpill : (WG && M >= 32 ? a.kind : kFull);
+  // only the beams of compacts() ever take the compact layout, so the
+  // others compile to the full one alone
+  const int kind = SPILL ? kSpill : (compacts(ET, M) ? a.kind : kFull);
   const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, kind);
-  const bool stg = L.ahead;  // WG: the extensions' codeword rows are staged
+  const bool stg = L.stage;  // the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fb = blockIdx.x * F;
@@ -833,7 +981,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   };
   float* Er = reinterpret_cast<float*>(smem + L.er);
   float* X = reinterpret_cast<float*>(smem + L.xs);
-  float* srow = reinterpret_cast<float*>(smem + L.srow);        // f32 E
+  float* srow = reinterpret_cast<float*>(smem + L.srow);        // f32 E (RG: buffer t & 1)
   uint16_t* srow2 = reinterpret_cast<uint16_t*>(smem + L.srow);  // WG: bf16, buffer t & 1
   auto scb = [&](int i) { return reinterpret_cast<float*>(smem + (i ? L.sc1 : L.sc0)); };
   float* rsc = reinterpret_cast<float*>(smem + L.rsc);
@@ -847,12 +995,13 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   uint32_t* rkeys = reinterpret_cast<uint32_t*>(smem + L.rkeys);
   unsigned char* ring = smem + L.ring;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
-  unsigned char* cst = smem + L.xs;  // WG: the extension's staged codeword rows (X's space)
+  unsigned char* cst = smem + L.xs;  // the extension's staged codeword rows (X's space)
   // bytes of a row of the codebook whose deltas the steps' extensions add:
   // int8 with int8 E, else bf16
   const int crb = ET == kI8 ? D : 2 * D;
 
-  // f32 E: the per-frame score row of codebook t, v2 Gmod_t[sol_t, :], v1 q_t[sol_t, :]
+  // f32 E, spill: the per-frame score row of codebook t, v2 Gmod_t[sol_t, :],
+  // v1 q_t[sol_t, :]
   auto load_srow = [&](int t) {
     for (int i = tid; i < F * kCS; i += kThreads) {
       const int f = i / kCS;
@@ -870,6 +1019,46 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     }
     cp_async_commit();
   };
+  // RG: the rows of load_srow by cp.async into buffer t & 1 (F + 1 rows of
+  // 256 floats), v2's bf16 rows in the first half of their f32 rows, and
+  // v1's |c_t|^2 as row F
+  auto srow_f = [&](int t, int f) { return srow + ((t & 1) * (F + 1) + f) * kCS; };
+  auto fetch_srow_f = [&](int t) {
+    constexpr int pieces = V1 ? 64 : 32;  // 16-byte pieces a row
+    for (int i = tid; i < (V1 ? F + 1 : F) * pieces; i += kThreads) {
+      const int f = i / pieces, piece = i % pieces;
+      const void* src;
+      if (!V1)
+        src = a.gmod + ((size_t)t * kCS + sol[f * nc + t]) * kCS + piece * 8;
+      else if (f < F)
+        src = a.qg + ((size_t)t * kCS + sol[f * nc + t]) * kCS + piece * 4;
+      else
+        src = a.csq + (size_t)t * kCS + piece * 4;
+      cp_async16(reinterpret_cast<unsigned char*>(srow_f(t, f)) + piece * 16, src);
+    }
+    cp_async_commit();
+  };
+  // RG: the ring's sequence, per pass the D / 64 bf16 chunks of each
+  // codebook in order; thread 0 loads chunk s into slot s % S (S divides D /
+  // 64), slot 0 at L.ring, slot 1 at the start of X's space
+  const int nf = D / kKF, per_pass_f = nc * nf, total_f = a.passes * per_pass_f;
+  auto slot_f = [&](int k) { return k == 0 ? ring : smem + L.xs; };
+  const int S = L.slots;
+  int g = 0;  // WG, RG: ring chunks consumed
+  auto issue_f = [&](int s) {
+    if (s >= total_f) return;
+    bulk_load(slot_f(s % S), a.cpb + (size_t)(s % per_pass_f) * kChunk, kChunk,
+              full + s % S);
+  };
+  // RG: the next rescore's chunk 0, once X is read, and (full layout)
+  // chunk 1, once the staged rows are read; the caller fences and syncs
+  // first
+  auto issue_first = [&]() {
+    if (RG && tid == 0) issue_f(g);
+  };
+  auto issue_second = [&]() {
+    if (RG && tid == 0 && S > 1) issue_f(g + 1);
+  };
   // WG: the ring's sequence, per pass the root's bf16 chunks of codebook 0,
   // then the E-type chunks of codebooks 1 .. nc-1; thread 0 loads chunk s
   // into slot s & 1
@@ -884,12 +1073,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                      ((size_t)(1 + (r - nr) / ns) * ns + (r - nr) % ns) * kChunk;
     bulk_load(ring + (s & 1) * kChunk, src, kChunk, full + (s & 1));
   };
-  int g = 0;  // WG: ring chunks consumed
 
-  if (WG && tid == 0) {
-    mbar_init(full);
-    mbar_init(full + 1);
-  }
+  if ((WG || RG) && tid == 0)
+    for (int k = 0; k < 2; ++k) mbar_init(full + k);
   for (int i = tid; i < F * nc; i += kThreads) {
     const int b = fb + i / nc;
     sol[i] = b < a.B ? a.idx0[(size_t)b * nc + i % nc] : 0;
@@ -899,12 +1085,17 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     issue(0);
     issue(1);
   }
+  issue_first();
+  issue_second();
 
   for (int p = 0; p < a.passes; ++p) {
     // the fan-out's and step 1's score rows load while the root is summed
     if constexpr (WG) {
       fetch_srow(0);
       fetch_srow(1);
+    } else if constexpr (RG) {
+      fetch_srow_f(0);
+      fetch_srow_f(1);
     }
     // ---- root: E = -x + sum_s bf16(C_s[sol_s]) in f32, codebook order; 8
     // consecutive values a thread, every codebook's row loaded at once.  WG:
@@ -948,7 +1139,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     }
     if (WG) fence_proxy_async();
     clk.lap(kStRoot);
-    if constexpr (WG)
+    if constexpr (WG || RG)
       cp_async_wait_all();
     else
       load_srow(0);
@@ -966,6 +1157,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     if constexpr (WG)
       wg_rescore<false>(smem + L.e1, L.root_stride, nr, ring, full, g, L.ahead, issue, rsc, X, F,
                         clk, kStRoot, tid);
+    else if constexpr (RG)
+      wg_rescore_f32(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, nf, S,
+                     slot_f, full, g, issue_f, X, clk, kStRoot, tid);
     else
       rescore_bf16(reinterpret_cast<const unsigned char*>(Er), L.er_stride * 4, F, 1, a.C, D, X,
                    warp, lane);
@@ -977,31 +1171,43 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       if constexpr (WG) {
         const uint16_t* sr = srow2 + f * kCS;
         row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], bf2f(sr[i0])), lane, keys);
+      } else if constexpr (RG && V1) {
+        const float* sr = srow_f(0, f);
+        row_keys<V1>(xr, sr, srow_f(0, F), row_base<V1>(ss0[f], xr[i0], sr[i0]), lane, keys);
+      } else if constexpr (RG) {
+        const uint16_t* sr = reinterpret_cast<const uint16_t*>(srow_f(0, f));
+        row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], bf2f(sr[i0])), lane, keys);
       } else {
         const float* sr = srow + f * kCS;
         row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss0[f], xr[i0], sr[i0]), lane, keys);
       }
+      sort8(keys);
       for (int m = 0; m < M; ++m) {
-        const uint32_t w = extract_min(keys, m == M - 1);
+        const uint32_t w = pop_min(keys);
         if (lane == 0) {
           selj[f * M + m] = (int)(w & kLaneMask);
           ss[f * M + m] = __uint_as_float(w & ~kLaneMask);
         }
       }
     }
+    if (RG) fence_proxy_async();  // X is read: step 1's first chunks may land there
     clk.sync(kStRoot);
+    issue_first();
     for (int i = tid; i < RW * nc; i += kThreads) {
       const int r = i / nc, s = i - r * nc;
       chb(0)[i] = s == 0 ? selj[r] : sol[(r / M) * nc + s];
     }
-    if (WG && stg) {
-      // stage the bf16 rows C_0[j] of every row into X's space and C_0[i]
-      // of every frame into E[1] (the root's A rows are spent)
+    // the fan-out's C_0[i] of every frame: WG (int8 E has no room for it in
+    // X's space) in E[1], where the root's A rows are spent; f32 E after
+    // the rows' C_0[j]
+    unsigned char* ci0 = WG ? Eb(1) : cst + (size_t)RW * 2 * D;
+    if (stg) {
+      // stage the bf16 rows C_0[j] of every row into X's space, and C_0[i]
       const int pieces = 2 * D / 16;
       for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
         const int row = i / pieces, off = (i - row * pieces) * 16;
         unsigned char* to =
-            row < RW ? cst + (size_t)row * 2 * D : Eb(1) + (size_t)(row - RW) * 2 * D;
+            row < RW ? cst + (size_t)row * 2 * D : ci0 + (size_t)(row - RW) * 2 * D;
         const int j = row < RW ? selj[row] : sol[(row - RW) * nc];
         cp_async16(to + off, reinterpret_cast<const unsigned char*>(a.C + (size_t)j * D) + off);
       }
@@ -1017,15 +1223,16 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const float csc0 = ET == kI8 ? a.csc[0] : 1.0f;
       if (stg)
         extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, cst + (size_t)r * 2 * D,
-                                            Eb(1) + (size_t)f * 2 * D, nullptr, nullptr, er, 0,
+                                            ci0 + (size_t)f * 2 * D, nullptr, nullptr, er, 0,
                                             Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
       else
         extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, a.C + (size_t)selj[r] * D,
                                             a.C + (size_t)sol[f * nc] * D, nullptr, nullptr, er,
                                             0, Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
     }
-    if (WG) fence_proxy_async();
+    if (WG || RG) fence_proxy_async();
     clk.sync(kStRoot);
+    issue_second();
 
     int cur = 0;
     bool pend = false;  // lazy_r1: step t-1 deferred its E update (jdef)
@@ -1036,6 +1243,8 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const float csc_t = ET == kI8 ? a.csc[t] : 1.0f;
       if constexpr (WG) {
         if (t + 1 < nc) fetch_srow(t + 1);
+      } else if constexpr (RG) {
+        if (t + 1 < nc) fetch_srow_f(t + 1);
       } else {
         load_srow(t);
       }
@@ -1047,6 +1256,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
         // rsc is read after the rescore's first barrier
         wg_rescore<ET == kI8>(Eb(cur), L.e_stride, ns, ring, full, g, L.ahead, issue, rsc, X, RW,
                               clk, kStRescore, tid);
+      } else if constexpr (RG) {
+        wg_rescore_f32(Eb(cur), L.e_stride, RW, nf, S, slot_f, full, g, issue_f, X, clk,
+                       kStRescore, tid);
       } else {
         clk.sync(kStRescore);
         rescore_bf16(Eb(cur), L.e_stride, RW, mtiles, a.C + (size_t)t * kCS * D, D, X, warp, lane);
@@ -1074,6 +1286,12 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           const uint16_t* sr = srow2 + ((t & 1) * F + f) * kCS;
           row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS,
                        row_base<V1>(ss[r], xr[it], bf2f(sr[it])), lane, keys);
+        } else if constexpr (RG && V1) {
+          const float* sr = srow_f(t, f);
+          row_keys<V1>(xr, sr, srow_f(t, F), row_base<V1>(ss[r], xr[it], sr[it]), lane, keys);
+        } else if constexpr (RG) {
+          const uint16_t* sr = reinterpret_cast<const uint16_t*>(srow_f(t, f));
+          row_keys<V1>(xr, sr, a.csq, row_base<V1>(ss[r], xr[it], bf2f(sr[it])), lane, keys);
         } else {
           const float* sr = srow + f * kCS;
           row_keys<V1>(xr, sr, a.csq + (size_t)t * kCS, row_base<V1>(ss[r], xr[it], sr[it]), lane,
@@ -1081,7 +1299,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
         }
         if (!pool) {
           // R1: each parent keeps its best child in place
-          const uint32_t w = extract_min(keys, true);
+          const uint32_t w = warp_min(keys);
           if (lane == 0) {
             selj[r] = (int)(w & kLaneMask);
             selp[r] = r - f * M;
@@ -1090,53 +1308,60 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
             if (defer) jdef[r] = (int)(w & kLaneMask);
           }
         } else {
+          sort8(keys);
           for (int k = 0; k < R; ++k) {
-            const uint32_t w = extract_min(keys, k == R - 1);
+            const uint32_t w = pop_min(keys);
             if (lane == 0) rkeys[r * R + k] = w;
           }
         }
       }
+      if (RG) fence_proxy_async();  // X is read: the next rescore's first chunks may land there
       clk.sync(kStSelect);
+      issue_first();
       if (pool) {
-        // ---- top-M of each frame's M*R pool.  v2: the parent id above
-        // the lane bits; v1: the pool lane m*R + r in the lane bits
+        // ---- top-M of each frame's M*R pool: every entry counts its
+        // frame's smaller keys, all warps at once; the keys are distinct, so
+        // the entry of rank n < M is the frame's n-th best.  v2: the parent id
+        // above the lane bits; v1: the pool lane m*R + r in the lane bits
         const uint32_t mbits = (uint32_t)(M - 1) << 8;
-        for (int f = warp; f < F; f += kWarps) {
-          const uint32_t* fk = rkeys + f * M * R;
-          uint32_t keys[16];
+        const int P = M * R;
+        for (int i = tid; i < F * P; i += kThreads) {
+          const int f = i / P, e = i - f * P;
+          const uint32_t* fk = rkeys + f * P;
+          auto pack = [&](uint32_t k, int q, int par) {
+            return V1 ? (k & ~kLaneMask) | (uint32_t)q : (k & ~mbits) | ((uint32_t)par << 8);
+          };
+          const uint32_t w = pack(fk[e], e, e / R);
+          int rank = 0;
+          for (int q = 0, par = 0, kk = 0; q < P; q += 4) {
+            const uint4 k4 = *reinterpret_cast<const uint4*>(fk + q);
+            const uint32_t kv[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
-          for (int q = 0; q < 16; ++q) {
-            const int e = lane + 32 * q;
-            keys[q] = e >= M * R ? kNone
-                      : V1       ? (fk[e] & ~kLaneMask) | (uint32_t)e
-                                 : (fk[e] & ~mbits) | ((uint32_t)(e / R) << 8);
-          }
-          for (int n = 0; n < M; ++n) {
-            const uint32_t w = extract_min(keys, n == M - 1);
-            if (lane == 0) {
-              if (V1) {
-                const int e = (int)(w & kLaneMask);
-                selj[f * M + n] = (int)(fk[e] & kLaneMask);
-                selp[f * M + n] = e / R;
-                ss[f * M + n] = __uint_as_float(w & ~kLaneMask);
-              } else {
-                selj[f * M + n] = (int)(w & kLaneMask);
-                selp[f * M + n] = (int)((w >> 8) & (uint32_t)(M - 1));
-                ss[f * M + n] = __uint_as_float(w & ~(mbits | kLaneMask));
+            for (int u = 0; u < 4; ++u) {
+              rank += pack(kv[u], q + u, par) < w;
+              if (++kk == R) {
+                kk = 0;
+                ++par;
               }
             }
+          }
+          if (rank < M) {
+            const int n = f * M + rank;
+            selj[n] = (int)((V1 ? fk[e] : w) & kLaneMask);
+            selp[n] = e / R;
+            ss[n] = __uint_as_float(w & ~((V1 ? 0u : mbits) | kLaneMask));
           }
         }
         clk.sync(kStPool);
       }
       // ---- extension (none on the last step of a pass, or a deferring R1
-      // step).  WG: stage C_t[j] of every row, then C_t[i] of every frame
+      // step).  Staged: C_t[j] of every row, then C_t[i] of every frame
       // (X is free), the copies landing while the beam is reordered
       const bool extend = !last && !defer;
       const unsigned char* ct =
           ET == kI8 ? reinterpret_cast<const unsigned char*>(a.C8 + (size_t)t * kCS * D)
                     : reinterpret_cast<const unsigned char*>(a.C + (size_t)t * kCS * D);
-      if (WG && stg && extend) {
+      if (stg && extend) {
         const int pieces = crb / 16;
         for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
           const int row = i / pieces, off = (i - row * pieces) * 16;
@@ -1158,7 +1383,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const bool from_slot = SPILL && WG && pool;
       if (extend) {
         const int dst = pool ? cur ^ 1 : cur;
-        if (WG && stg) {
+        if (stg) {
           cp_async_wait_all();
           clk.sync(kStExtend);
         }
@@ -1198,13 +1423,15 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
                                                  csc_t, lane);
         }
       }
-      // E's new rows are read by the next wgmma, and without `ahead` the
-      // ring's next copies land in X's space
-      if (WG && (extend || !L.ahead)) fence_proxy_async();
-      if (WG) cp_async_wait_all();  // the next step's score rows
+      // WG: E's new rows are read by the next wgmma, and without `ahead`
+      // the ring's next copies land in X's space; RG: the next rescore's
+      // chunk 1 lands in slot 1, on the staged rows, once they are read
+      if ((WG && (extend || !L.ahead)) || RG) fence_proxy_async();
+      if (WG || RG) cp_async_wait_all();  // the next step's score rows
       if (pool) cur ^= 1;
       pend = defer;
       clk.sync(kStExtend);
+      issue_second();
     }
     // ---- pass end: the best candidate by packed (ss, m) becomes the root
     for (int f = warp; f < F; f += kWarps) {
@@ -1298,13 +1525,13 @@ int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
 
 // Frames per block for a configuration and its layout (`*kind`): the most
 // F (F * M <= 64 candidate rows, at least 16) whose shared memory fits, in
-// the full layout if any F fits it, else (bf16 and int8 E, M >= 32) in the
-// compact one, else (spills(): f32 E from M = 24, wgmma's M = 64) in the
-// spill one; 0 if none does.  Every beam narrower than 24 fits the full
-// layout.
+// the full layout if any F fits it, else (bf16 and int8 E with M >= 32, f32
+// E with spills()) in the compact one, else (spills(): f32 E from M = 24,
+// wgmma's M = 64) in the spill one; 0 if none does.  Every beam narrower
+// than 24 fits the full layout.
 int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, int* kind) {
   for (int k = kFull; k <= kSpill; ++k) {
-    if ((k == kCompact && (e_dtype == kF32 || M < 32)) || (k == kSpill && !spills(e_dtype, M)))
+    if ((k == kCompact && !compacts(e_dtype, M)) || (k == kSpill && !spills(e_dtype, M)))
       continue;
     for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
       if (make_layout(e_dtype, M, F, D, nc, R, lazy, k).total <= kMaxSmem) {
@@ -1347,7 +1574,7 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
   if (passes > kMaxPasses || passes < 0 || requant < kStep || requant > kBound)
     return (int)cudaErrorInvalidValue;
   if ((e_dtype == kI8 && !csc) || (requant != kStep && (e_dtype != kI8 || lazy)) ||
-      (requant == kBound && !cmax) || (lazy && !gx) || (e_dtype != kF32 && !chunks_bf16) ||
+      (requant == kBound && !cmax) || (lazy && !gx) || !chunks_bf16 ||
       (e_dtype == kI8 && !chunks_i8))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes, spill, slots, nslots);
@@ -1364,14 +1591,29 @@ int v2_args(const void* x, const void* idx0, const void* centers, const void* gm
   return err;
 }
 
+int v1_args(const void* x, const void* idx0, const void* centers, const void* qgram,
+            const void* csq, const void* chunks_bf16, void* out, int B, int D, int nc, int M,
+            int R, int passes, void* spill, void* slots, int nslots, Args* out_args,
+            size_t* smem) {
+  if (passes > kMaxPasses || passes < 0 || M * R > kCS || !chunks_bf16)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes, spill, slots, nslots);
+  a.cpb = (const unsigned char*)chunks_bf16;
+  a.qg = (const float*)qgram;
+  a.csq = (const float*)csq;
+  const int err = layout_args(&a, kF32, M, false, smem);
+  *out_args = a;
+  return err;
+}
+
 }  // namespace
 
 // x (B, D) f32; idx0 (B, nc) int32; centers (nc * 256, D) bf16; gmod
 // (nc * 256, 256) bf16; centers_i8 (nc * 256, D) int8 and csc (nc,) f32 for
 // e_dtype 2 (int8), else null; cmax (nc,) f32 for requant 2 ("bound"), else
-// null; gx (nc * 256, 256) bf16 for lazy != 0, else null; chunks_bf16 and
-// (int8 E) chunks_i8: centers and centers_i8 as the ring's chunks (Args::cpb,
-// Args::cpi) for e_dtype 1 and 2, else null; out (B, nc) int32. pool_masks:
+// null; gx (nc * 256, 256) bf16 for lazy != 0, else null; chunks_bf16:
+// centers as the ring's chunks (Args::cpb); chunks_i8: centers_i8 as them
+// (Args::cpi) for e_dtype 2, else null; out (B, nc) int32. pool_masks:
 // `passes` host words, bit t set where step t is a pool step. e_dtype: 0 f32,
 // 1 bf16, 2 int8. requant: 0 step, 1 pass, 2 bound (int8 only). spill, slots,
 // nslots: for a spill layout (qtt_seqbeam_layout), nslots scratch slots of its
@@ -1441,21 +1683,37 @@ extern "C" int qtt_seqbeam_layout(int e_dtype, int M, int D, int nc, int R, int 
   return 0;
 }
 
-// The v1 kernel: x, idx0, centers, out, spill, slots and nslots as above;
-// qgram (nc * 256, 256) f32, the Gram of the bf16 centers; csq (nc * 256,)
-// f32, the squared norms of the f32 centers.  f32 E, every step after the
+// The v1 kernel: x, idx0, centers, chunks_bf16, out, spill, slots and
+// nslots as above; qgram (nc * 256, 256) f32, the Gram of the bf16 centers;
+// csq (nc * 256,) f32, the squared norms of the f32 centers.  f32 E, every step after the
 // fan-out a pool step.  Checked by the caller: M a multiple of 8 in [8, 64],
 // M * R <= 256.
 extern "C" int qtt_seqbeam_v1_launch(const void* x, const void* idx0, const void* centers,
-                                     const void* qgram, const void* csq, void* out, int B, int D,
-                                     int nc, int M, int R, int passes, void* spill, void* slots,
-                                     int nslots, void* stream) {
-  if (passes > kMaxPasses || passes < 0 || M * R > kCS) return (int)cudaErrorInvalidValue;
-  Args a = make_args(x, idx0, centers, out, B, D, nc, R, passes, spill, slots, nslots);
-  a.qg = (const float*)qgram;
-  a.csq = (const float*)csq;
+                                     const void* qgram, const void* csq, const void* chunks_bf16,
+                                     void* out, int B, int D, int nc, int M, int R, int passes,
+                                     void* spill, void* slots, int nslots, void* stream) {
+  Args a;
   size_t smem;
-  const int err = layout_args(&a, kF32, M, false, &smem);
+  const int err = v1_args(x, idx0, centers, qgram, csq, chunks_bf16, out, B, D, nc, M, R, passes,
+                          spill, slots, nslots, &a, &smem);
   if (err) return err;
   return launch_v1(a, M, smem, (cudaStream_t)stream);
+}
+
+// The stage-timed build of the v1 kernel, at the JAX wrapper's defaults only
+// (M=16, R=8): the arguments of qtt_seqbeam_v1_launch, then stages, a zeroed
+// (blocks, 10) int64 buffer, filled as by qtt_seqbeam_v2_timed_launch.
+extern "C" int qtt_seqbeam_v1_timed_launch(const void* x, const void* idx0, const void* centers,
+                                           const void* qgram, const void* csq,
+                                           const void* chunks_bf16, void* out, int B, int D,
+                                           int nc, int M, int R, int passes, void* spill,
+                                           void* slots, int nslots, void* stages, void* stream) {
+  if (M != 16 || R != 8 || !stages) return (int)cudaErrorInvalidValue;
+  Args a;
+  size_t smem;
+  const int err = v1_args(x, idx0, centers, qgram, csq, chunks_bf16, out, B, D, nc, M, R, passes,
+                          spill, slots, nslots, &a, &smem);
+  if (err) return err;
+  a.stages = (long long*)stages;
+  return launch<kF32, 16, true, kStep, false, true>(a, smem, (cudaStream_t)stream);
 }

@@ -81,7 +81,7 @@ SEQBEAM_KERNEL = CudaKernel(
 )
 SEQBEAM_V1_KERNEL = CudaKernel(
     "seqbeam", "qtt_seqbeam_v1_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _SPILL_ARGS + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _SPILL_ARGS + [ctypes.c_void_p],
 )
 # the v2 kernel's stage-timed build (the auto ladder's two rungs only)
 SEQBEAM_TIMED_KERNEL = CudaKernel(
@@ -89,7 +89,12 @@ SEQBEAM_TIMED_KERNEL = CudaKernel(
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 3
     + _SPILL_ARGS + [ctypes.c_void_p] * 2,
 )
-# its columns: per block, each stage's clock64() cycles summed over the
+# the v1 kernel's stage-timed build (the JAX wrapper's defaults, M=16, R=8)
+SEQBEAM_V1_TIMED_KERNEL = CudaKernel(
+    "seqbeam", "qtt_seqbeam_v1_timed_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + _SPILL_ARGS + [ctypes.c_void_p] * 2,
+)
+# their columns: per block, each stage's clock64() cycles summed over the
 # block's warps, then the block's own cycles and nanoseconds
 STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "extension", "barrier")
 # the kernel's layout of (e_dtype code, M, D, nc, R, lazy) into a 4-element
@@ -164,7 +169,7 @@ class SeqbeamTables:
     gx_bf16: Optional[torch.Tensor] = None  # (nc, cs, cs) bf16 C_{t-1}.C_t^T, block 0 zero (lazy)
     cs_sumsq: Optional[torch.Tensor] = None  # (nc, cs) f32 |c|^2 of the f32 centers (v1)
     q_gram: Optional[torch.Tensor] = None  # (nc, cs, cs) f32 Gram of the bf16 centers (v1)
-    # bf16 and int8 E: the bf16 (and int8) centers as the v2 kernel's ring chunks
+    # the bf16 centers as the kernels' ring chunks; int8 E: the int8 centers too
     chunks_bf16: Optional[torch.Tensor] = None
     chunks_i8: Optional[torch.Tensor] = None
 
@@ -175,13 +180,14 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
     v2, the bf16 modified Gram blocks (computed in f32); for int8 E the
     per-codebook symmetric int8 centers with scale ``amax / 127`` and, for
     ``requant="bound"``, each codebook's worst-case |c8(j) - c8(i)|_inf; for
-    ``lazy_r1`` the bf16 cross-codebook Gram blocks; for bf16 and int8 E the
-    centers rearranged as the kernel's ring chunks (:func:`_ring_chunks`).
-    v1 takes the f32 squared norms of the f32 centers and the f32 Gram of
-    the bf16 centers (its ``q`` rows)."""
+    ``lazy_r1`` the bf16 cross-codebook Gram blocks; the bf16 centers (int8
+    E: and the int8 ones) rearranged as the kernels' ring chunks
+    (:func:`_ring_chunks`).  v1 takes the f32 squared norms of the f32
+    centers and the f32 Gram of the bf16 centers (its ``q`` rows)."""
     centers = centers.float()
     cs_sumsq = (centers * centers).sum(dim=-1)  # (nc, cs)
     tables = SeqbeamTables(centers_bf16=centers.to(torch.bfloat16))
+    tables.chunks_bf16 = _ring_chunks(tables.centers_bf16)
     if impl == "v1":
         cb = tables.centers_bf16.float()
         tables.cs_sumsq = cs_sumsq
@@ -198,8 +204,6 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
             ci = tables.centers_i8.float()
             tables.cmax = (ci.amax(dim=1) - ci.amin(dim=1)).amax(dim=1)
         tables.chunks_i8 = _ring_chunks(tables.centers_i8)
-    if e_dtype != "f32":
-        tables.chunks_bf16 = _ring_chunks(tables.centers_bf16)
     if lazy_r1:
         gx = torch.bmm(centers[:-1], centers[1:].transpose(1, 2))  # (nc-1, cs, cs)
         tables.gx_bf16 = torch.cat([torch.zeros_like(gx[:1]), gx]).to(torch.bfloat16)
@@ -456,22 +460,29 @@ def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
 
 
 def seqbeam_stages(problem: SeqbeamProblem) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The v2 kernel's stage-timed build on the same problem as
+    """The stage-timed build of the kernel on the same problem as
     :func:`seqbeam_cuda`: the same (B, nc) indexes, and a (blocks,
     len(STAGES) + 2) int64 tensor holding, per block of frames, the
     ``clock64()`` cycles of each of :data:`STAGES` summed over the block's
     warps, then the block's own cycles and nanoseconds.  Built only for the
-    auto ladder's rungs (M=8, ``requant="step"``, no ``lazy_r1``, bf16 or
-    int8 E); CUDA tensors only."""
-    if problem.impl != "v2" or problem.M != 8 or problem.requant != "step" or (
+    auto ladder's rungs (v2, M=8, ``requant="step"``, no ``lazy_r1``, bf16 or
+    int8 E) and for v1 at the JAX wrapper's defaults (M=16, R=8); CUDA
+    tensors only."""
+    if problem.impl == "v1":
+        if problem.M != 16 or problem.R != 8:
+            raise ValueError("the stage-timed seqbeam v1 takes M=16 and R=8")
+        kernel = SEQBEAM_V1_TIMED_KERNEL
+    elif problem.M != 8 or problem.requant != "step" or (
             problem.lazy_r1 or problem.e_dtype == "f32"):
-        raise ValueError("the stage-timed seqbeam takes M=8, requant='step', no lazy_r1 and "
+        raise ValueError("the stage-timed seqbeam v2 takes M=8, requant='step', no lazy_r1 and "
                          "bf16 or int8 E")
+    else:
+        kernel = SEQBEAM_TIMED_KERNEL
     if not problem.x.is_cuda:
         raise ValueError("seqbeam_stages needs CUDA tensors")
     blocks = -(-problem.x.shape[0] // seqbeam_layout(problem)["frames"])
     stages = torch.zeros(blocks, len(STAGES) + 2, dtype=torch.int64, device=problem.x.device)
-    return _launch(problem, SEQBEAM_TIMED_KERNEL, stages.data_ptr()), stages
+    return _launch(problem, kernel, stages.data_ptr()), stages
 
 
 def seqbeam_layout(problem: SeqbeamProblem) -> dict:
@@ -527,13 +538,17 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
         raise TypeError("seqbeam tables must hold bf16 centers")
     out = torch.empty(B, nc, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the kernels stream the codebooks through their rings of chunks
+    cpb = tables.chunks_bf16
+    if cpb is None or (e_dtype == "int8" and tables.chunks_i8 is None):
+        raise TypeError("seqbeam tables must hold the ring chunks")
     if problem.impl == "v1":
         qg = tables.q_gram.float().contiguous()
         csq = tables.cs_sumsq.float().contiguous()
-        _on_device(x, idx0, centers, qg, csq)
+        _on_device(x, idx0, centers, qg, csq, cpb)
         kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
-               out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots), nslots, *extra,
-               stream)
+               cpb.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots),
+               nslots, *extra, stream)
         return out
     int8 = e_dtype == "int8"
     gmod = tables.gmod_bf16.contiguous()
@@ -544,10 +559,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     if gmod.dtype != torch.bfloat16 or (int8 and ci8.dtype != torch.int8) or (
             gx is not None and gx.dtype != torch.bfloat16):
         raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
-    # bf16 and int8 E stream the codebooks through the kernel's ring of chunks
-    cpb, cpi = (tables.chunks_bf16, tables.chunks_i8) if e_dtype != "f32" else (None, None)
-    if e_dtype != "f32" and (cpb is None or (int8 and cpi is None)):
-        raise TypeError("seqbeam tables for bf16 and int8 E must hold the ring chunks")
+    cpi = tables.chunks_i8 if int8 else None
     _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
     words = (ctypes.c_uint32 * max(passes, 1))(*masks)
     kernel(
@@ -564,10 +576,11 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _ring_chunks(c: torch.Tensor) -> torch.Tensor:
-    """(nc, 256, D) bf16 or int8 codebooks as the v2 kernel's ring chunks:
-    per codebook, one chunk per 128 bytes of a row, each [8 16-byte K
+    """(nc, 256, D) bf16 or int8 codebooks as the kernels' ring chunks: per
+    codebook, one chunk per 128 bytes of a row, each [8 16-byte K
     pieces][256 codewords][16 bytes], the layout wgmma's B operand reads.  A
-    chunk is one contiguous 32 KB copy."""
+    chunk is one contiguous 32 KB copy.  The f32-E kernels stream the bf16
+    chunks through a ring of their own."""
     nc, cs, _ = c.shape
     b = c.contiguous().view(torch.uint8).reshape(nc, cs, -1, 8, 16)
     return b.permute(0, 2, 3, 1, 4).contiguous()

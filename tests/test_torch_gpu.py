@@ -90,7 +90,7 @@ def test_cuda_seqbeam_matches_plain(cuda, e_dtype):
     assert chk["ok"], chk
 
 
-def _seqbeam_case(cuda, seed, nc, dim, B, **kw):
+def _seqbeam_case(cuda, seed, nc, dim, B, passes=2, **kw):
     """A seqbeam problem on trained-like codebooks, and the f32 centers."""
     rng = np.random.default_rng(seed)
     arrays = _trained_like(rng, nc, 256, dim)
@@ -99,7 +99,7 @@ def _seqbeam_case(cuda, seed, nc, dim, B, **kw):
          + 2.0 * rng.standard_normal((B, dim))).astype(np.float32)
     problem = tseq.seqbeam_problem(
         params_from_numpy(arrays, device=cuda), QuantizerConfig(dim, 256, nc),
-        torch.from_numpy(x).to(cuda), passes=2, **kw)
+        torch.from_numpy(x).to(cuda), passes=passes, **kw)
     return problem, torch.from_numpy(centers).to(cuda)
 
 
@@ -115,6 +115,17 @@ def test_cuda_seqbeam_v1_matches_plain(cuda, M, R, dim):
     assert tseq.SEQBEAM_V1_KERNEL.launches == v1 + 1 and tseq.SEQBEAM_KERNEL.launches == v2
     # f32 E: the bf16 rescores sum in mma.sync order on the card, in the
     # plain matmul's order in the plain version; the bars of against_plain
+    chk = against_plain(problem, centers, got)
+    assert chk["ok"], chk
+
+
+@pytest.mark.gpu
+def test_cuda_seqbeam_f32_training_search_shape_matches_plain(cuda):
+    # the trainer's seqbeam search: v2 with f32 E, M=16, R=8, one pass, a
+    # batch of 600 at d512 (19 blocks of 32 frames, the last ragged)
+    problem, centers = _seqbeam_case(cuda, 12, 8, 512, 600, passes=1, M=16, R=8)
+    assert problem.e_dtype == "f32" and tseq.seqbeam_layout(problem)["kind"] == "full"
+    got = _launched_once(tseq.SEQBEAM_KERNEL, lambda: tseq.seqbeam_cuda(problem))
     chk = against_plain(problem, centers, got)
     assert chk["ok"], chk
 
@@ -192,6 +203,18 @@ def test_cuda_seqbeam_compact_layout(cuda, e_dtype, M, dim):
     assert chk["ok"], chk
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,M,dim", [("v2", 32, 640), ("v1", 40, 512), ("v1", 24, 896)])
+def test_cuda_seqbeam_f32_compact_layout(cuda, impl, M, dim):
+    # f32-E beams whose staged codeword rows do not fit beside E and X: one
+    # ring slot in X's space, the extensions' rows read from L2
+    kw = dict(pool_mask="altparity") if impl == "v2" else {}
+    problem, centers = _seqbeam_case(cuda, 9, 8, dim, 301, M=M, R=4, impl=impl, **kw)
+    assert tseq.seqbeam_layout(problem)["kind"] == "compact"
+    chk = against_plain(problem, centers, tseq.seqbeam_cuda(problem))
+    assert chk["ok"], chk
+
+
 # the beams no block fits beside E, X and a ring: their E leaves the block
 # (bf16: E's reorder copy; f32: both E buffers, in a global scratch slot)
 SPILL_BEAMS = [("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 64, 512),
@@ -216,7 +239,9 @@ def test_cuda_seqbeam_spill_layout_matches_plain(cuda, impl, e_dtype, M, dim, la
 
 # (e_dtype, M, dim, nc, R, lazy_r1) -> (frames a block, kind, shared-memory
 # bytes) as before the spill layout: the ladder's rungs, the training
-# search, v1's and phase 7's lazy configs
+# search, v1's and phase 7's lazy configs; the f32 rows as f32 E's ring and
+# staged rows made them (v1 at d512 and the training search: 175,984 bytes
+# before; v1 at d256: 214,672)
 LAYOUTS_BEFORE = {
     ("int8", 8, 512, 8, 4, False): (8, "full", 231344),
     ("int8", 8, 512, 8, 4, True): (8, "full", 231600),
@@ -224,8 +249,8 @@ LAYOUTS_BEFORE = {
     ("bf16", 8, 512, 8, 4, True): (4, "full", 186976),
     ("bf16", 16, 512, 8, 4, False): (2, "full", 178560),
     ("bf16", 8, 256, 4, 4, False): (8, "full", 220976),
-    ("f32", 16, 512, 8, 8, False): (2, "full", 175984),
-    ("f32", 16, 256, 4, 8, False): (4, "full", 214672),
+    ("f32", 16, 512, 8, 8, False): (2, "full", 213888),
+    ("f32", 16, 256, 4, 8, False): (4, "full", 220832),
 }
 
 
@@ -247,6 +272,19 @@ def test_cuda_seqbeam_stage_timed_build_same_indexes(cuda, e_dtype):
     got, stages = tseq.seqbeam_stages(problem)
     assert torch.equal(got, tseq.seqbeam_cuda(problem))
     assert stages.shape[1] == len(tseq.STAGES) + 2
+    assert bool((stages > 0).all())  # every stage ran in every block, and the clocks moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc,dim", [(8, 512), (4, 256)])  # phase 7's two v1 widths
+def test_cuda_seqbeam_v1_stage_timed_build_same_indexes(cuda, nc, dim):
+    problem, _ = _seqbeam_case(cuda, 10, nc, dim, 1000, M=16, R=8, impl="v1")
+    before = tseq.SEQBEAM_V1_KERNEL.launches
+    got, stages = tseq.seqbeam_stages(problem)
+    assert tseq.SEQBEAM_V1_KERNEL.launches == before  # the timed build has its own count
+    assert torch.equal(got, tseq.seqbeam_cuda(problem))
+    blocks = -(-1000 // tseq.seqbeam_layout(problem)["frames"])
+    assert stages.shape == (blocks, len(tseq.STAGES) + 2)
     assert bool((stages > 0).all())  # every stage ran in every block, and the clocks moved
 
 

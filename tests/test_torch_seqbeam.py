@@ -160,10 +160,13 @@ def test_scheduling_knobs_do_not_change_results():
 @pytest.mark.parametrize("e_dtype", ["bf16", "int8"])
 def test_ring_chunks_hold_the_codebooks_in_wgmma_order(e_dtype):
     # the v2 kernel's ring reads chunk k of codebook t as [8 16-byte K
-    # pieces][256 codewords][16 bytes] of row bytes [128 k, 128 k + 128)
+    # pieces][256 codewords][16 bytes] of row bytes [128 k, 128 k + 128);
+    # f32 E streams the same bf16 chunks
     arrays, _, _ = _problem(4, 5)
     tables = tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), e_dtype)
-    assert tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), "f32").chunks_bf16 is None
+    assert torch.equal(
+        tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), "f32").chunks_bf16,
+        tables.chunks_bf16)
     pairs = [(tables.centers_bf16, tables.chunks_bf16)]
     if e_dtype == "int8":
         pairs.append((tables.centers_i8, tables.chunks_i8))

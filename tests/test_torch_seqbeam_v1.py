@@ -153,3 +153,37 @@ def test_v1_refuses_what_jax_refuses(mirror, kw):
     tc = tcore.QuantizerConfig(dim=128, codebook_size=CS, num_codebooks=4)
     with pytest.raises(ValueError):
         tseq.seqbeam_encode_indexes(params_from_numpy(arrays), tc, torch.from_numpy(x), **kw)
+
+
+@pytest.mark.parametrize("nc,dim", [(4, 128), (2, 512)])
+def test_v1_ring_chunks_hold_every_codeword_element_once(nc, dim):
+    # f32 E's ring reads 32 KB chunk s of a pass as [8 16-byte K pieces][256
+    # codewords][16 bytes]: codebook s // (dim / 64), row bytes [128 c, 128
+    # c + 128) for c = s % (dim / 64); the wgmma descriptor of k step h < 4
+    # reads pieces 2 h and 2 h + 1 of codeword n at byte 16 (256 p + n)
+    arrays, _, _ = _numpy_problem(nc, 11, dim=dim)
+    tables = tseq.seqbeam_tables(torch.from_numpy(arrays["centers"]), impl="v1")
+    rows = tables.centers_bf16.contiguous().view(torch.int16)  # (nc, 256, dim)
+    # every element's place (codebook, codeword, element) as one id
+    ids = torch.arange(nc * CS * dim, dtype=torch.int64).reshape(nc, CS, dim)
+    chunks = tables.chunks_bf16.view(torch.int16).reshape(-1, 8, CS, 8)  # 32 KB chunks
+    assert chunks.shape[0] == nc * dim // 64 and tables.chunks_bf16.is_contiguous()
+    place = torch.empty(chunks.shape, dtype=torch.int64)
+    for s in range(chunks.shape[0]):
+        t, c = divmod(s, dim // 64)
+        for p in range(8):
+            k0 = 64 * c + 8 * p
+            place[s, p] = ids[t, :, k0:k0 + 8]
+            assert torch.equal(chunks[s, p], rows[t, :, k0:k0 + 8])
+    assert torch.equal(place.flatten().sort().values, ids.flatten())  # each exactly once
+
+
+def test_v1_stage_timed_build_refuses_cpu_and_other_beams(mirror):
+    _, _, arrays, x = mirror
+    tc = tcore.QuantizerConfig(dim=128, codebook_size=CS, num_codebooks=4)
+    p, xt = params_from_numpy(arrays), torch.from_numpy(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tseq.seqbeam_stages(tseq.seqbeam_problem(p, tc, xt, 16, 8, 3, impl="v1"))
+    for M, R in ((8, 8), (16, 4), (24, 8), (32, 8)):
+        with pytest.raises(ValueError, match="M=16 and R=8"):
+            tseq.seqbeam_stages(tseq.seqbeam_problem(p, tc, xt, M, R, 3, impl="v1"))
