@@ -29,9 +29,14 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    of both trained quantizers, with bf16 and int8 tables, and at d512 also
    with the ``altparity`` schedule; each launches K3 (counted around the
    call), its indexes are held against the plain gramv3 on the same problem
-   (every index equal, or the bars of phase 3), and its squared error
-   against 1.012 x beam-5; kernel, plain, bound and the encode time split
-   into precompute (XC, table, init) + kernel + rest;
+   (every index equal), and its squared error against 1.012 x beam-5;
+   kernel, plain, bound and the encode time split into precompute +
+   kernel + rest, the precompute by device time into the logits-argmax
+   init, the Gram table, XC, ``ss0`` and the table's layout.  At d512 bf16,
+   d512 int8 and d256 bf16 the stage-timed build
+   (``ops.gramv3.gramv3_stages``) gives the same indexes and prints the
+   ``[gramv3 stages]`` line: each stage's share of the warps' cycles and
+   its microseconds a frame-step, with registers and blocks an SM;
 6. training at full width: ``QuantizerTrainer(dim=512, bytes_per_frame=8,
    phase_one_iters=4, phase_two_iters=6)`` on batches of 600 frames, driven
    with ``step_many`` across the phase switch, for ``train_search`` "auto"
@@ -333,7 +338,9 @@ def main() -> int:
               f"{kernel_ms:.3f} + rest; launches {path['launches']}", flush=True)
 
     # ---- 5. K3 on the serving path; 6. training at full width
-    gram_paths, k3_configs, k3_checks, n_k3 = gram_phase(quantizers, main_frames)
+    gram_paths, k3_configs, k3_checks, n_k3, k3_stages = gram_phase(quantizers, main_frames)
+    print("[gramv3 stages] share of the warps' cycles, us a frame-step: " + "; ".join(k3_stages),
+          flush=True)
     train_paths, train_checks = train_phase(samplers[512], dev)
     for c in train_checks:
         (k3_checks if c["kernel"] == "gramv3" else k2_checks).append(c)
@@ -462,13 +469,16 @@ def stage_breakdown(problem) -> dict:
 def gram_phase(quantizers: dict, main_frames: dict):
     """Phase 5: ``encode(search_method="gramv3")`` on the main path's frames
     of both trained quantizers, for each of GRAM_CONFIGS.  Returns the path
-    entries, K3's per-config entries, its checks and its launches."""
+    entries, K3's per-config entries, its checks, its launches and the stage
+    lines."""
     from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.experiments.gramv3_times import (STAGE_CONFIGS, precompute_split,
+                                                                 stage_breakdown)
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.device import device_ms
 
-    paths, configs, checks, launches = [], [], [], 0
+    paths, configs, checks, launches, stage_lines = [], [], [], 0, []
     for dim, g_dtype, pool_mask in GRAM_CONFIGS:
         qq = quantizers[dim]
         nc = qq.num_codebooks
@@ -486,7 +496,7 @@ def gram_phase(quantizers: dict, main_frames: dict):
         problem = K3.gramv3_problem(qq.params, qq.config, x, passes=GRAM_PASSES, **kw)
         indexes = codec.unpack_indexes(codes, qq.codebook_size, nc)
         chk = against_plain(problem, qq.get_centers().detach(), got=indexes)
-        check(chk["ok"], f"{name}: encode indexes vs the plain gramv3: {chk}")
+        check(chk["index_agreement"] == 1.0, f"{name}: encode indexes vs the plain gramv3: {chk}")
         shape = f"B={TIME_B} D={dim} nc={nc} passes={GRAM_PASSES} M=8 R=4"
         checks.append({"where": f"serving path {name}", "shape": shape,
                        **{k: chk[k] for k in CHECK_KEYS}})
@@ -501,6 +511,10 @@ def gram_phase(quantizers: dict, main_frames: dict):
                  "ms": device_ms(lambda: K3.gramv3_cuda(problem), 5),
                  "plain_ms": device_ms(lambda: K3.gramv3_plain(problem), 2)}
         entry.update(_gramv3_bound(TIME_B, nc, GRAM_PASSES, 8, g_dtype))
+        entry["precompute_split"] = split = precompute_split(qq, x, g_dtype)
+        if (dim, g_dtype) in STAGE_CONFIGS and not pool_mask:
+            entry["stages"] = stage_breakdown(problem)
+            stage_lines.append(f"{name} ({entry['stages']['summary']})")
         configs.append(entry)
         paths.append({
             "path": "encode(search_method='gramv3')", "dim": dim,
@@ -513,8 +527,10 @@ def gram_phase(quantizers: dict, main_frames: dict):
               f"quality {(ratio - 1.0) * 100.0:+.3f}% vs beam-5; kernel {entry['ms']:.3f} ms, "
               f"plain {entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}); encode {enc_s * 1e3:.3f} ms = precompute {prep_ms:.3f} + "
-              f"kernel {entry['ms']:.3f} + rest; launches {n}", flush=True)
-    return paths, configs, checks, launches
+              f"kernel {entry['ms']:.3f} + rest; precompute by part: " + ", ".join(
+                  f"{k[:-3]} {v:.3f}" for k, v in split.items()) + f" ms; launches {n}",
+              flush=True)
+    return paths, configs, checks, launches, stage_lines
 
 
 def train_phase(sampler, dev):
@@ -983,13 +999,20 @@ def step_ms(trainer, batches) -> float:
 
 def _gramv3_bound(B: int, nc: int, passes: int, M: int, g_dtype: str) -> dict:
     """Per frame and pass, one root row and M rows for each later codebook,
-    each the sum of nc table rows of 256: B x passes x (1 + (nc-1) M) x nc x
-    256 adds, counted at the f32 add rate (the int8 tables' int32 sums are
-    exact in f32 too); the bytes are XC, the initial indexes, the root
-    scores, the table and the output."""
+    each the sum of nc table rows of 256, counted at the f32 add rate (the
+    int8 tables' integer sums are exact in f32 too).  bf16 sums each row in
+    codebook order, so every candidate adds all nc rows: B x passes x (1 +
+    (nc-1) M) x nc x 256 adds.  int8 sums are exact in any order, so at step
+    t the rows s >= t that every candidate shares need adding once: M t +
+    (nc - t) rows a step, and nc for the root row.  The bytes are XC, the
+    initial indexes, the root scores, the table and the output."""
     cs = 256
     K = nc * cs
-    adds = B * passes * (1 + (nc - 1) * M) * nc * cs
+    if g_dtype == "int8":
+        rows = nc + sum(M * t + nc - t for t in range(1, nc))
+    else:
+        rows = (1 + (nc - 1) * M) * nc
+    adds = B * passes * rows * cs
     nbytes = B * K * 4 + B * nc * 4 + B * 4 + K * K * (1 if g_dtype == "int8" else 2) + B * nc * 4
     return _bound(nbytes, {"f32": adds})
 

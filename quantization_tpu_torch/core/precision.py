@@ -5,6 +5,13 @@ contraction for ``Precision.HIGHEST``.  On the GPU the counterpart is to
 keep TF32 off for both matmuls and convolutions, which this module sets
 when it is imported (``core`` imports it first).  The hand-written kernels
 choose bf16 or int8 operands deliberately, never by accident.
+
+One product takes the tensor cores deliberately: the Gram-table encode's
+``XC`` and Gram table (``ops/gramv3.py::bf16_product``), whose operands are
+bf16 values, as the JAX package computes them (``jnp.dot`` of bf16 with f32
+output).  Their products are exact there; only the order of the f32 sums
+moves.  Where the card's torch has no ``torch.mm(..., out_dtype=)``, that
+product allows TF32 in a local scope and restores the setting.
 """
 
 from __future__ import annotations

@@ -15,33 +15,61 @@
 // mantissa bits, the truncated value carried forward), top-R per parent then
 // the top M of the M*R pool with the parent id above the lane bits, the
 // in-place R1 step, and the pass winner by packed (ss, m), whose truncated
-// ss is the next pass's root score.  bf16 tables are summed in f32, int8
-// tables exactly in int32 (the kernel works in units of the table scale).
+// ss is the next pass's root score.  bf16 tables are summed in f32 in
+// codebook order, int8 tables exactly in integers (the kernel works in
+// units of the table scale).
 //
 // Bound: operations.  The TPU computes SG as a one-hot matmul; here a
-// rescore row is a gather-sum of nc table rows, B * passes * (1 + (nc-1) M)
-// rows of nc * 256 adds in all, against the FP32 add rate.  Design: one warp
-// owns one frame and runs its whole search with no block-wide barrier; lane
-// l owns codewords 8l .. 8l+7, so each table row is one 16-byte (bf16) or
-// 8-byte (int8) load a lane, 512 or 256 contiguous bytes a warp.  The table
-// (at most 8 MB at nc = 8 in bf16) stays in L2, and the M candidates of a
-// frame share most of their rows, which L1 serves.  Selection uses the warp
-// reductions of csrc/seqbeam.cu.  Built with --fmad=false so every f32 step
-// rounds as in the plain version, which it matches on every index.
+// rescore row is a gather-sum of nc table rows against the FP32 add rate.
+// Design: one warp owns one frame and runs its whole search with no
+// barrier; lane l owns codewords 8l .. 8l+7, so a table row is one 16-byte
+// (bf16) or 8-byte (int8) load a lane.  Latency holds it, so occupancy
+// counts: 8 blocks of 4 warps an SM for int8, 7 for bf16.
+// - nc is a template parameter, and so is the step t of a candidate's
+//   score row (a switch), so its own table rows are loaded before their
+//   sums start (in groups of 4 for bf16, to keep to 64 registers).
+// - At step t the rows s >= t are the same for every candidate (s > t the
+//   root's, s = t the broadcast diagonal row), so they are loaded once a
+//   step: bf16 keeps them unpacked in the warp's shared memory and each
+//   candidate adds them in codebook order after its own t rows; int8 sums
+//   them once, in 16-bit lanes of codewords XORed by 0x80 (unsigned, at
+//   most 8 x 255, no carry), and a candidate adds that sum to its own rows'
+//   in one IADD a pair; the bias nc x 128 goes when the sum becomes a float.
+// - A candidate's index row is 8 bytes in its lane's registers; the pool's
+//   reorder is a shuffle from the parent's lane.
+// - The pool: each parent's keys are taken smallest first (a warp minimum
+//   of the lanes' minima; the winner's lane then finds its next) while
+//   they can still enter the pool's top M (after w, no key of the parent
+//   gives a pool key below (w & ~(mbits | 255)) | m << 8) and are inserted
+//   into a sorted list across the lanes, whose M-th entry is the bound.
+//   That is the top M of every parent's top-R: the pool keys are distinct,
+//   and a key above the M-th of a subset stays above the M-th of the whole.
+//   A parent whose R keys all enter before the list fills takes them from
+//   its lanes' keys sorted first, with nothing to check.
+// Built with --fmad=false; Q = 2 (SG - XC) is formed as fma(SG, 2, -2 XC),
+// which rounds once on an exact 2 (SG - XC), the same value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kCS = 256;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxNC = 8;
+// resident blocks an SM: at most 64 registers a thread for int8, 73 for
+// bf16 (whose shared rows take 3.5 KB of shared memory a warp at nc = 8)
+template <bool I8>
+constexpr int kMinBlocks = I8 ? 8 : 7;
 constexpr int kMaxPool = 256;     // M * R
 constexpr int kMaxPasses = 64;
 constexpr uint32_t kLaneMask = 0xFFu;
 constexpr uint32_t kNone = 0xFFFFFFFFu;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+// stages of the timed build (ops/gramv3.py::STAGES)
+enum { kStRoot, kStLoad, kStScore, kStTopR, kStPool, kStReorder, kStPassEnd, kStages };
 
 struct Args {
   const float* xc;          // (B, nc * 256), scale-divided for int8
@@ -49,8 +77,61 @@ struct Args {
   const float* ss0;         // (B,), scale-divided for int8
   const void* gt;           // (nc, nc * 256, 256) bf16 or int8: gt[t, s*256+i, j]
   int32_t* out;             // (B, nc)
-  int B, nc, R, passes;
+  int B, R, passes;
   uint32_t pool[kMaxPasses];  // bit t of pool[p]: step t of pass p is a pool step
+  long long* stages;          // timed build: (blocks, kStages + 2)
+};
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Per-warp clock64() cycles of each stage; ON = false compiles to nothing.
+// lap(s) charges the cycles since the last lap to stage s; landed(v) waits
+// for v (a loaded value) first.  A copy of csrc/seqbeam.cu's, without the
+// barrier stage: this kernel has no barrier.
+template <bool ON>
+struct StageClock {
+  static constexpr bool kOn = ON;
+  long long acc[kStages];
+  long long t0, last, ns0;
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) {
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) acc[s] = 0;
+      ns0 = global_ns();
+      t0 = last = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int s) {
+    if constexpr (ON) {
+      const long long now = clock64();
+      acc[s] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void landed(uint32_t v) {
+    if constexpr (ON) {
+      asm volatile("" ::"r"(v));
+      lap(kStLoad);
+    }
+  }
+  // lane 0 of each warp adds its sums to the block's row, and the longest
+  // warp's own cycles and nanoseconds stand for the block's
+  __device__ __forceinline__ void finish(long long* stages, int lane) {
+    if constexpr (ON) {
+      if (lane == 0) {
+        unsigned long long* r =
+            reinterpret_cast<unsigned long long*>(stages + (size_t)blockIdx.x * (kStages + 2));
+#pragma unroll
+        for (int s = 0; s < kStages; ++s) atomicAdd(r + s, (unsigned long long)acc[s]);
+        atomicMax(r + kStages, (unsigned long long)(clock64() - t0));
+        atomicMax(r + kStages + 1, (unsigned long long)(global_ns() - ns0));
+      }
+    }
+  }
 };
 
 // Packed selection key: the score clamped at 0, its 8 low mantissa bits
@@ -60,215 +141,457 @@ __device__ __forceinline__ uint32_t pack_key(float s, uint32_t id) {
   return (__float_as_uint(v) & ~kLaneMask) | id;
 }
 
-// Warp-wide minimum of the keys held by the lanes; the (unique) winner is
-// removed from its owner's set.
-__device__ __forceinline__ uint32_t extract_min(uint32_t (&keys)[8]) {
-  uint32_t m = keys[0];
+__device__ __forceinline__ uint32_t min8(const uint32_t (&k)[8]) {
+  uint32_t m = k[0];
 #pragma unroll
-  for (int q = 1; q < 8; ++q) m = min(m, keys[q]);
-  const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, m);
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-    if (keys[q] == w) keys[q] = kNone;
-  return w;
+  for (int q = 1; q < 8; ++q) m = min(m, k[q]);
+  return m;
 }
 
-// Q(j) = 2 (SG(j) - XC_t(j)) for this lane's codewords j = 8 lane + q, where
-// SG sums the nc rows ch[0..nc) of the target block gt_t in codebook order.
-template <bool I8>
-__device__ __forceinline__ void score_row(const void* gt_t, const int* ch, int nc,
-                                          const float (&xcv)[8], int lane, float (&Q)[8]) {
-  if (I8) {
-    int acc[8];
+// The n smallest keys of a warp, in order (the fan-out): a lane's 8 keys
+// sorted ascending first (a 19-comparator network), then each round the
+// warp-wide minimum of the lanes' first keys, which its lane drops.  The
+// keys are distinct, so the winner has one owner.  As in csrc/seqbeam.cu.
+__device__ __forceinline__ void sort8(uint32_t (&k)[8]) {
+  constexpr int net[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6},
+                              {5, 7}, {1, 2}, {5, 6}, {0, 4}, {3, 7}, {1, 5}, {2, 6},
+                              {1, 4}, {3, 6}, {2, 4}, {3, 5}, {3, 4}};
 #pragma unroll
-    for (int q = 0; q < 8; ++q) acc[q] = 0;
-    for (int s = 0; s < nc; ++s) {
-      const int8_t* row = reinterpret_cast<const int8_t*>(gt_t) + ((size_t)(s * kCS + ch[s])) * kCS;
-      const uint2 w = *reinterpret_cast<const uint2*>(row + 8 * lane);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[q] += (int)(int8_t)(w.x >> (8 * q));
-        acc[q + 4] += (int)(int8_t)(w.y >> (8 * q));
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) Q[q] = 2.0f * ((float)acc[q] - xcv[q]);
-  } else {
-    float acc[8];
-    for (int s = 0; s < nc; ++s) {
-      const uint16_t* row = reinterpret_cast<const uint16_t*>(gt_t) + ((size_t)(s * kCS + ch[s])) * kCS;
-      const uint4 w = *reinterpret_cast<const uint4*>(row + 8 * lane);
-      const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        v[2 * q] = __uint_as_float(u[q] << 16);
-        v[2 * q + 1] = __uint_as_float(u[q] & 0xFFFF0000u);
-      }
-      if (s == 0) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[q] = v[q];
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[q] = acc[q] + v[q];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) Q[q] = 2.0f * (acc[q] - xcv[q]);
+  for (int c = 0; c < 19; ++c) {
+    const uint32_t lo = min(k[net[c][0]], k[net[c][1]]), hi = max(k[net[c][0]], k[net[c][1]]);
+    k[net[c][0]] = lo;
+    k[net[c][1]] = hi;
   }
 }
 
-// Keys of S(j) = (ss - Q(i)) + Q(j) over this lane's codewords, with Q(i)
-// fetched from the lane that owns codeword i.
-__device__ __forceinline__ void row_keys(const float (&Q)[8], float ss, int i, int lane,
-                                         uint32_t (&keys)[8]) {
-  float qi = Q[0];
+__device__ __forceinline__ uint32_t pop_min(uint32_t (&k)[8]) {
+  const uint32_t w = __reduce_min_sync(kFull, k[0]);
+  if (k[0] == w) {
 #pragma unroll
-  for (int q = 1; q < 8; ++q)
-    if ((i & 7) == q) qi = Q[q];
-  qi = __shfl_sync(0xFFFFFFFFu, qi, i >> 3);
+    for (int q = 0; q < 7; ++q) k[q] = k[q + 1];
+    k[7] = kNone;
+  }
+  return w;
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint64_t row, int s) {
+  return (uint32_t)(row >> (8 * s)) & kLaneMask;
+}
+
+__device__ __forceinline__ uint64_t with_byte(uint64_t row, int s, uint32_t v) {
+  return (row & ~(0xFFull << (8 * s))) | ((uint64_t)v << (8 * s));
+}
+
+__device__ __forceinline__ void unpack8(const uint4 w, float (&v)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(u[q] << 16);
+    v[2 * q + 1] = __uint_as_float(u[q] & 0xFFFF0000u);
+  }
+}
+
+// An int8 row of 8 codewords (two words) added into four 16-bit-lane sums
+// of the codewords XORed by 0x80: sum[0] holds codewords 0 and 1, sum[1] 2
+// and 3, sum[2] 4 and 5, sum[3] 6 and 7.
+__device__ __forceinline__ void add_u8(const uint2 w, uint32_t (&sum)[4]) {
+  const uint32_t x = w.x ^ 0x80808080u, y = w.y ^ 0x80808080u;
+  sum[0] += __byte_perm(x, 0, 0x4140);
+  sum[1] += __byte_perm(x, 0, 0x4342);
+  sum[2] += __byte_perm(y, 0, 0x4140);
+  sum[3] += __byte_perm(y, 0, 0x4342);
+}
+
+// The rows of a step that every candidate shares: bf16 keeps rows 1 ..
+// nc-1 as f32 in the warp's shared memory (f[s-1][h][lane] holds the
+// lane's codewords 4h .. 4h+3, which only that lane writes and reads),
+// int8 their one biased sum in registers.
+template <bool I8, int NC>
+struct Shared {
+  float4 (*f)[2][32];
+  uint32_t sum[4];
+};
+
+template <bool I8>
+__device__ __forceinline__ const char* table_row(const char* gt_t, int s, uint32_t ch, int lane) {
+  constexpr size_t esz = I8 ? 1 : 2;
+  return gt_t + (((size_t)s * kCS + ch) * kCS + 8 * lane) * esz;
+}
+
+template <bool I8>
+using RowWord = typename std::conditional<I8, uint2, uint4>::type;
+
+template <bool I8>
+__device__ __forceinline__ RowWord<I8> load_row(const char* gt_t, int s, uint32_t ch, int lane) {
+  return __ldg(reinterpret_cast<const RowWord<I8>*>(table_row<I8>(gt_t, s, ch, lane)));
+}
+
+// Step t's shared rows s = t .. nc-1 of target block gt_t, with the root's
+// ids `sol` (row t is the diagonal: any id gives it).
+template <bool I8, int NC>
+__device__ __forceinline__ void load_shared(const char* gt_t, uint64_t sol, int t, int lane,
+                                            Shared<I8, NC>& sh) {
+  RowWord<I8> w[NC];
+#pragma unroll
+  for (int s = 1; s < NC; ++s)
+    if (s >= t) w[s] = load_row<I8>(gt_t, s, byte_of(sol, s), lane);
+  if constexpr (I8) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
+#pragma unroll
+    for (int s = 1; s < NC; ++s)
+      if (s >= t) add_u8(w[s], sh.sum);
+  } else {
+#pragma unroll
+    for (int s = 1; s < NC; ++s)
+      if (s >= t) {
+        float v[8];
+        unpack8(w[s], v);
+        sh.f[s - 1][0][lane] = make_float4(v[0], v[1], v[2], v[3]);
+        sh.f[s - 1][1][lane] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+  }
+}
+
+// SG of this lane's codewords for a candidate with ids `row` whose rows
+// s < T are its own and whose rows s >= T are the step's shared rows (T =
+// NC: every row its own, the root's fan-out).  The own rows are loaded in
+// groups (all of them for int8, 4 for bf16), each group's loads issued
+// before any of its sums; the timed build waits for a group to land.
+template <bool I8, int NC, int T, class Clock>
+__device__ __forceinline__ void sg_row(const char* gt_t, uint64_t row, int lane,
+                                       const Shared<I8, NC>& sh, float (&v)[8], Clock& clk) {
+  constexpr int G = I8 ? 8 : 4;
+  uint32_t acc[4];
+  if constexpr (I8) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = T < NC ? sh.sum[q] : 0u;
+  }
+#pragma unroll
+  for (int g0 = 0; g0 < T; g0 += G) {
+    constexpr int kG = G;  // rows of this group: min(G, T - g0)
+    RowWord<I8> w[kG];
+#pragma unroll
+    for (int s = g0; s < g0 + kG && s < T; ++s)
+      w[s - g0] = load_row<I8>(gt_t, s, byte_of(row, s), lane);
+    if constexpr (Clock::kOn) {
+      uint32_t all = 0;
+#pragma unroll
+      for (int s = g0; s < g0 + kG && s < T; ++s) all ^= w[s - g0].x ^ w[s - g0].y;
+      clk.landed(all);
+    }
+#pragma unroll
+    for (int s = g0; s < g0 + kG && s < T; ++s) {
+      if constexpr (I8) {
+        add_u8(w[s - g0], acc);
+      } else if (s == 0) {
+        unpack8(w[0], v);
+      } else {
+        float u[8];
+        unpack8(w[s - g0], u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = v[q] + u[q];
+      }
+    }
+  }
+  if constexpr (I8) {
+    // 2^23 + u as a float is exact for u < 2^23: minus 2^23 and the bias
+    // it is the exact integer sum
+    constexpr float kBias = 8388608.0f + 128.0f * NC;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v[2 * q] = __uint_as_float(__byte_perm(acc[q], 0x4B000000u, 0x7410)) - kBias;
+      v[2 * q + 1] = __uint_as_float(__byte_perm(acc[q], 0x4B000000u, 0x7432)) - kBias;
+    }
+  } else {
+#pragma unroll
+    for (int s = T; s < NC; ++s) {
+      const float4 lo = sh.f[s - 1][0][lane], hi = sh.f[s - 1][1][lane];
+      const float u[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = v[q] + u[q];
+    }
+  }
+}
+
+template <bool I8, int NC, class Clock>
+__device__ __forceinline__ void sg_step(int t, const char* gt_t, uint64_t row, int lane,
+                                        const Shared<I8, NC>& sh, float (&v)[8], Clock& clk) {
+  switch (t) {
+    case 1: sg_row<I8, NC, 1>(gt_t, row, lane, sh, v, clk); break;
+    case 2: if constexpr (NC > 2) sg_row<I8, NC, 2>(gt_t, row, lane, sh, v, clk); break;
+    case 3: if constexpr (NC > 3) sg_row<I8, NC, 3>(gt_t, row, lane, sh, v, clk); break;
+    case 4: if constexpr (NC > 4) sg_row<I8, NC, 4>(gt_t, row, lane, sh, v, clk); break;
+    case 5: if constexpr (NC > 5) sg_row<I8, NC, 5>(gt_t, row, lane, sh, v, clk); break;
+    case 6: if constexpr (NC > 6) sg_row<I8, NC, 6>(gt_t, row, lane, sh, v, clk); break;
+    default: if constexpr (NC > 7) sg_row<I8, NC, 7>(gt_t, row, lane, sh, v, clk); break;
+  }
+}
+
+// Keys of S(j) = (ss - Q(i)) + Q(j) over this lane's codewords, with
+// Q = fma(SG, 2, -x2), x2 = 2 XC, and Q(i) fetched from the lane that owns
+// codeword i.
+__device__ __forceinline__ void row_keys(const float (&sg)[8], const float (&x2)[8], float ss,
+                                         uint32_t i, int lane, uint32_t (&keys)[8]) {
+  float Q[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) Q[q] = __fmaf_rn(sg[q], 2.0f, -x2[q]);
+  // Q[i & 7] by a select tree on i's bits (an index would go through
+  // local memory)
+  const bool b0 = i & 1u, b1 = i & 2u, b2 = i & 4u;
+  const float q01 = b0 ? Q[1] : Q[0], q23 = b0 ? Q[3] : Q[2];
+  const float q45 = b0 ? Q[5] : Q[4], q67 = b0 ? Q[7] : Q[6];
+  const float q03 = b1 ? q23 : q01, q47 = b1 ? q67 : q45;
+  const float qi = __shfl_sync(kFull, b2 ? q47 : q03, (int)(i >> 3));
   const float base = ss - qi;
 #pragma unroll
   for (int q = 0; q < 8; ++q) keys[q] = pack_key(base + Q[q], (uint32_t)(8 * lane + q));
 }
 
-__device__ __forceinline__ void load_xc(const float* xcb, int t, int lane, float (&xcv)[8]) {
-  const float4* p = reinterpret_cast<const float4*>(xcb + t * kCS + 8 * lane);
-  const float4 a = p[0], b = p[1];
-  xcv[0] = a.x; xcv[1] = a.y; xcv[2] = a.z; xcv[3] = a.w;
-  xcv[4] = b.x; xcv[5] = b.y; xcv[6] = b.z; xcv[7] = b.w;
+// Insert g into the sorted list held across the lanes (entry lane + 32 c).
+template <int CPL>
+__device__ __forceinline__ void list_insert(uint32_t (&list)[CPL], uint32_t g, int lane) {
+#pragma unroll
+  for (int c = CPL - 1; c >= 0; --c) {
+    const uint32_t up = __shfl_up_sync(kFull, list[c], 1);
+    const uint32_t carry = __shfl_sync(kFull, list[c > 0 ? c - 1 : 0], 31);
+    const uint32_t prev = lane > 0 ? up : c > 0 ? carry : 0u;
+    list[c] = list[c] < g ? list[c] : max(prev, g);
+  }
 }
 
-template <bool I8, int M>
-__global__ void __launch_bounds__(kThreads) gramv3_kernel(const Args a) {
-  __shared__ int ch_s[kWarps][2][M * kMaxNC];  // candidate index rows, double-buffered
-  __shared__ uint32_t rk_s[kWarps][kMaxPool];  // top-R keys per parent
-  __shared__ float ss_s[kWarps][M];
-  __shared__ int selj_s[kWarps][M];
-  __shared__ int selp_s[kWarps][M];
-  __shared__ int sol_s[kWarps][kMaxNC];
+// 2 XC_t of this lane's codewords
+__device__ __forceinline__ void load_x2(const float* xcb, int t, int lane, float (&x2)[8]) {
+  const float4* p = reinterpret_cast<const float4*>(xcb + t * kCS + 8 * lane);
+  const float4 a = __ldg(p), b = __ldg(p + 1);
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) x2[q] = 2.0f * v[q];
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= a.B) return;  // whole warps only: no block-wide barrier below
-  const int nc = a.nc, R = a.R, K = nc * kCS;
-  const size_t tsz = I8 ? 1 : 2;
+// Candidate m lives in lane m % 32, register slot m / 32.
+template <int CPL, class V>
+__device__ __forceinline__ V slot_of(const V (&a)[CPL], int c) {
+  V v = a[0];
+#pragma unroll
+  for (int k = 1; k < CPL; ++k)
+    if (c == k) v = a[k];
+  return v;
+}
+
+template <bool I8, int NC, int M, bool TIMED>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const Args a) {
+  __shared__ float4 shared_rows[kWarps][I8 ? 1 : NC - 1][2][32];  // bf16: Shared::f
+  constexpr int CPL = (M + 31) / 32;  // candidates a lane
+  constexpr uint32_t mbits = (uint32_t)(M - 1) << 8;
+  constexpr size_t kBlockBytes = (size_t)NC * kCS * kCS * (I8 ? 1 : 2);  // one target block
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= a.B) return;  // whole warps only: no barrier below
+  StageClock<TIMED> clk;
+  clk.start();
   const char* gt = reinterpret_cast<const char*>(a.gt);
-  const float* xcb = a.xc + (size_t)b * K;
-  int* sol = sol_s[warp];
-  float* ss = ss_s[warp];
-  int* selj = selj_s[warp];
-  int* selp = selp_s[warp];
-  uint32_t* rk = rk_s[warp];
+  const float* xcb = a.xc + (size_t)b * NC * kCS;
 
-  if (lane < nc) sol[lane] = a.idx0[(size_t)b * nc + lane];
+  uint64_t sol = 0;  // the root's ids, byte s for codebook s
+  {
+    const int mine = lane < NC ? a.idx0[(size_t)b * NC + lane] : 0;
+#pragma unroll
+    for (int s = 0; s < NC; ++s) sol |= (uint64_t)(uint32_t)__shfl_sync(kFull, mine, s) << (8 * s);
+  }
   float ss_root = a.ss0[b];
-  __syncwarp();
+  uint64_t crow[CPL];  // the beam: ids and squared error of candidate lane + 32 c
+  float css[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    crow[c] = sol;
+    css[c] = 0.0f;
+  }
 
   for (int p = 0; p < a.passes; ++p) {
-    int cur = 0;
-    int* ch = ch_s[warp][cur];
     // ---- step 0: fan out from the root to its M best children
     {
-      float xcv[8], Q[8];
+      StageClock<false> off;  // step 0 is charged to root as a whole
+      Shared<I8, NC> none;
+      float x2[8], sg[8];
       uint32_t keys[8];
-      load_xc(xcb, 0, lane, xcv);
-      score_row<I8>(gt, sol, nc, xcv, lane, Q);
-      row_keys(Q, ss_root, sol[0], lane, keys);
-      for (int m = 0; m < M; ++m) {
-        const uint32_t w = extract_min(keys);
-        if (lane == 0) {
-          selj[m] = (int)(w & kLaneMask);
-          ss[m] = __uint_as_float(w & ~kLaneMask);
-        }
+      load_x2(xcb, 0, lane, x2);
+      sg_row<I8, NC, NC>(gt, sol, lane, none, sg, off);
+      row_keys(sg, x2, ss_root, byte_of(sol, 0), lane, keys);
+      sort8(keys);
+      for (int n = 0; n < M; ++n) {
+        const uint32_t w = pop_min(keys);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+          if (n == lane + 32 * c) {
+            css[c] = __uint_as_float(w & ~kLaneMask);
+            crow[c] = with_byte(sol, 0, w & kLaneMask);
+          }
       }
-      __syncwarp();
-      for (int i = lane; i < M * nc; i += 32) {
-        const int m = i / nc, s = i - m * nc;
-        ch[i] = s == 0 ? selj[m] : sol[s];
-      }
-      __syncwarp();
+      clk.lap(kStRoot);
     }
     // ---- steps 1..nc-1
-    for (int t = 1; t < nc; ++t) {
+    for (int t = 1; t < NC; ++t) {
       const bool pool = (a.pool[p] >> t) & 1u;
-      const void* gt_t = gt + (size_t)t * K * kCS * tsz;
-      float xcv[8];
-      load_xc(xcb, t, lane, xcv);
+      const char* gt_t = gt + (size_t)t * kBlockBytes;
+      float x2[8];
+      Shared<I8, NC> sh;
+      sh.f = shared_rows[threadIdx.x >> 5];
+      load_x2(xcb, t, lane, x2);
+      load_shared<I8, NC>(gt_t, sol, t, lane, sh);
+      clk.landed(0u);
+      uint32_t list[CPL];  // pool step: the smallest pool keys so far, entry lane + 32 c
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) list[c] = kNone;
+      uint32_t theta = kNone;  // the list's M-th entry
+      int filled = 0;          // entries in the list while it can hold all of a parent's R
+      const uint32_t it = byte_of(sol, t);  // every candidate's id at t is still the root's
       for (int m = 0; m < M; ++m) {
-        const int* row = ch + m * nc;
-        float Q[8];
+        const uint64_t row = __shfl_sync(kFull, slot_of<CPL>(crow, m >> 5), m & 31);
+        const float ss = __shfl_sync(kFull, slot_of<CPL>(css, m >> 5), m & 31);
+        float sg[8];
         uint32_t keys[8];
-        score_row<I8>(gt_t, row, nc, xcv, lane, Q);
-        row_keys(Q, ss[m], row[t], lane, keys);
+        sg_step<I8, NC>(t, gt_t, row, lane, sh, sg, clk);
+        row_keys(sg, x2, ss, it, lane, keys);
+        clk.lap(kStScore);
         if (!pool) {
           // R1: each parent keeps its best child in place
-          const uint32_t w = extract_min(keys);
-          if (lane == 0) {
-            ss[m] = __uint_as_float(w & ~kLaneMask);
-            ch[m * nc + t] = (int)(w & kLaneMask);
-          }
-        } else {
-          for (int k = 0; k < R; ++k) {
-            const uint32_t w = extract_min(keys);
-            if (lane == 0) rk[m * R + k] = w;
-          }
-        }
-      }
-      __syncwarp();
-      if (pool) {
-        // ---- top M of the M*R pool, parent id above the lane bits
-        const uint32_t mbits = (uint32_t)(M - 1) << 8;
-        uint32_t keys[8];
+          const uint32_t w1 = __reduce_min_sync(kFull, min8(keys));
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int e = lane + 32 * q;
-          keys[q] = e < M * R ? (rk[e] & ~mbits) | ((uint32_t)(e / R) << 8) : kNone;
-        }
-        for (int n = 0; n < M; ++n) {
-          const uint32_t w = extract_min(keys);
-          if (lane == 0) {
-            selj[n] = (int)(w & kLaneMask);
-            selp[n] = (int)((w >> 8) & (uint32_t)(M - 1));
-            ss[n] = __uint_as_float(w & ~(mbits | kLaneMask));
+          for (int c = 0; c < CPL; ++c)
+            if (m == lane + 32 * c) {
+              css[c] = __uint_as_float(w1 & ~kLaneMask);
+              crow[c] = with_byte(crow[c], t, w1 & kLaneMask);
+            }
+        } else if (filled + a.R <= M) {
+          // the list is not full before this parent's R-th key: every key
+          // enters, in order, with nothing to check
+          const uint32_t pbits = (uint32_t)m << 8;
+          sort8(keys);
+          for (int k = 0; k < a.R; ++k)
+            list_insert<CPL>(list, (pop_min(keys) & ~mbits) | pbits, lane);
+          filled += a.R;
+          theta = __shfl_sync(kFull, list[(M - 1) >> 5], (M - 1) & 31);
+        } else {
+          // this parent's keys, smallest first, while they can enter the
+          // top M: a key k >= w1 gives the pool key (k & ~mbits) | m << 8,
+          // at least (w1 & ~(mbits | 255)) | m << 8
+          const uint32_t pbits = (uint32_t)m << 8;
+          uint32_t lm = min8(keys);
+          for (int k = 0; k < a.R; ++k) {
+            const uint32_t w1 = __reduce_min_sync(kFull, lm);
+            if (((w1 & ~(mbits | kLaneMask)) | pbits) > theta) break;
+            const uint32_t g = (w1 & ~mbits) | pbits;
+            if (g < theta) {
+              list_insert<CPL>(list, g, lane);
+              theta = __shfl_sync(kFull, list[(M - 1) >> 5], (M - 1) & 31);
+            }
+            if (lm == w1) {
+              // its lane's next key, the smallest above w1: k - w1 - 1 keeps
+              // the order of the keys above w1 and wraps the others above them
+              uint32_t d[8];
+#pragma unroll
+              for (int q = 0; q < 8; ++q) d[q] = keys[q] - w1 - 1u;
+              const uint32_t next = min8(d);
+              lm = next > ~w1 - 1u ? kNone : next + w1 + 1u;
+            }
           }
         }
-        __syncwarp();
-        int* nxt = ch_s[warp][cur ^ 1];
-        for (int i = lane; i < M * nc; i += 32) {
-          const int n = i / nc, s = i - n * nc;
-          nxt[i] = s == t ? selj[n] : ch[selp[n] * nc + s];
+        clk.lap(kStTopR);
+      }
+      if (pool) {
+        // ---- entry n of the list is candidate n: parent, id and ss
+        int par[CPL];
+        uint32_t j[CPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          par[c] = (int)((list[c] >> 8) & (uint32_t)(M - 1));
+          j[c] = list[c] & kLaneMask;
+          css[c] = __uint_as_float(list[c] & ~(mbits | kLaneMask));
         }
-        __syncwarp();
-        cur ^= 1;
-        ch = nxt;
+        clk.lap(kStPool);
+        uint64_t nrow[CPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          uint64_t r = 0;
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) {
+            const uint64_t v = __shfl_sync(kFull, crow[k], par[c] & 31);
+            if ((par[c] >> 5) == k) r = v;
+          }
+          nrow[c] = with_byte(r, t, j[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) crow[c] = nrow[c];
+        clk.lap(kStReorder);
       }
     }
     // ---- pass end: the best candidate by packed (ss, m) becomes the root
     uint32_t k = kNone;
-    for (int m = lane; m < M; m += 32) k = min(k, pack_key(ss[m], (uint32_t)m));
-    const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, k);
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (lane + 32 * c < M) k = min(k, pack_key(css[c], (uint32_t)(lane + 32 * c)));
+    const uint32_t w = __reduce_min_sync(kFull, k);
     const int best = (int)(w & kLaneMask);
     ss_root = __uint_as_float(w & ~kLaneMask);
-    __syncwarp();
-    if (lane < nc) sol[lane] = ch[best * nc + lane];
-    __syncwarp();
+    sol = __shfl_sync(kFull, slot_of<CPL>(crow, best >> 5), best & 31);
+    clk.lap(kStPassEnd);
   }
-  if (lane < nc) a.out[(size_t)b * nc + lane] = sol[lane];
+  if (lane < NC) a.out[(size_t)b * NC + lane] = (int32_t)byte_of(sol, lane);
+  clk.finish(a.stages, lane);
 }
 
-template <bool I8>
-int launch_m(const Args& a, int M, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((a.B + kWarps - 1) / kWarps);
-  if (blocks == 0) return (int)cudaGetLastError();
-  switch (M) {
-    case 8: gramv3_kernel<I8, 8><<<blocks, kThreads, 0, stream>>>(a); break;
-    case 16: gramv3_kernel<I8, 16><<<blocks, kThreads, 0, stream>>>(a); break;
-    case 32: gramv3_kernel<I8, 32><<<blocks, kThreads, 0, stream>>>(a); break;
-    case 64: gramv3_kernel<I8, 64><<<blocks, kThreads, 0, stream>>>(a); break;
-    default: return (int)cudaErrorInvalidValue;
+// The kernel a launch with (nc, M, g_dtype) runs; the timed build is
+// instantiated for M = 8 only.
+template <bool TIMED, bool I8, int NC>
+const void* kernel_by_m(int M) {
+  if constexpr (TIMED) {
+    return M == 8 ? (const void*)gramv3_kernel<I8, NC, 8, true> : nullptr;
+  } else {
+    switch (M) {
+      case 8: return (const void*)gramv3_kernel<I8, NC, 8, false>;
+      case 16: return (const void*)gramv3_kernel<I8, NC, 16, false>;
+      case 32: return (const void*)gramv3_kernel<I8, NC, 32, false>;
+      case 64: return (const void*)gramv3_kernel<I8, NC, 64, false>;
+    }
+    return nullptr;
   }
-  return (int)cudaGetLastError();
+}
+
+template <bool TIMED, bool I8>
+const void* kernel_by_nc(int nc, int M) {
+  switch (nc) {
+    case 2: return kernel_by_m<TIMED, I8, 2>(M);
+    case 4: return kernel_by_m<TIMED, I8, 4>(M);
+    case 8: return kernel_by_m<TIMED, I8, 8>(M);
+  }
+  return nullptr;
+}
+
+template <bool TIMED>
+const void* kernel_for(int nc, int M, int g_dtype) {
+  return g_dtype == 1 ? kernel_by_nc<TIMED, true>(nc, M)
+                      : g_dtype == 0 ? kernel_by_nc<TIMED, false>(nc, M) : nullptr;
+}
+
+int launch(const void* fn, const void* xc, const void* idx0, const void* ss0, const void* gt,
+           void* out, int B, int R, int passes, const void* pool_masks, long long* stages,
+           cudaStream_t stream) {
+  if (!fn || passes > kMaxPasses || passes < 0 || R < 1) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.xc = (const float*)xc;
+  a.idx0 = (const int32_t*)idx0;
+  a.ss0 = (const float*)ss0;
+  a.gt = gt;
+  a.out = (int32_t*)out;
+  a.B = B; a.R = R; a.passes = passes;
+  for (int p = 0; p < kMaxPasses; ++p)
+    a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
+  a.stages = stages;
+  const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
+  if (blocks == 0) return (int)cudaGetLastError();
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace
@@ -280,20 +603,41 @@ int launch_m(const Args& a, int M, cudaStream_t stream) {
 extern "C" int qtt_gramv3_launch(const void* xc, const void* idx0, const void* ss0,
                                  const void* gt, void* out, int B, int nc, int M, int R,
                                  int passes, const void* pool_masks, int g_dtype, void* stream) {
-  if (passes > kMaxPasses || passes < 0 || nc > kMaxNC || nc < 1 || R < 1 || M * R > kMaxPool)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.xc = (const float*)xc;
-  a.idx0 = (const int32_t*)idx0;
-  a.ss0 = (const float*)ss0;
-  a.gt = gt;
-  a.out = (int32_t*)out;
-  a.B = B; a.nc = nc; a.R = R; a.passes = passes;
-  for (int p = 0; p < kMaxPasses; ++p) a.pool[p] = p < passes ? ((const uint32_t*)pool_masks)[p] : 0u;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (g_dtype) {
-    case 0: return launch_m<false>(a, M, s);
-    case 1: return launch_m<true>(a, M, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (M * R > kMaxPool) return (int)cudaErrorInvalidValue;
+  return launch(kernel_for<false>(nc, M, g_dtype), xc, idx0, ss0, gt, out, B, R, passes,
+                pool_masks, nullptr, (cudaStream_t)stream);
+}
+
+// The stage-timed build, at the serving path's beam only (M=8): the
+// arguments of qtt_gramv3_launch, then stages, a zeroed (blocks, 9) int64
+// buffer (blocks of 4 frames).  Per block it receives the clock64() cycles
+// of each stage summed over the block's warps (root, load, score, topr,
+// pool, reorder, pass_end), then the longest warp's own cycles and
+// %globaltimer nanoseconds.
+extern "C" int qtt_gramv3_timed_launch(const void* xc, const void* idx0, const void* ss0,
+                                       const void* gt, void* out, int B, int nc, int M, int R,
+                                       int passes, const void* pool_masks, int g_dtype,
+                                       void* stages, void* stream) {
+  if (M * R > kMaxPool || !stages) return (int)cudaErrorInvalidValue;
+  return launch(kernel_for<true>(nc, M, g_dtype), xc, idx0, ss0, gt, out, B, R, passes,
+                pool_masks, (long long*)stages, (cudaStream_t)stream);
+}
+
+// Registers a thread and resident blocks an SM of the kernel that a launch
+// with (nc, M, g_dtype) runs, the timed build's where timed != 0: out[0]
+// registers, out[1] blocks an SM, out[2] threads a block.
+extern "C" int qtt_gramv3_occupancy(int nc, int M, int g_dtype, int timed, void* out) {
+  const void* fn = timed ? kernel_for<true>(nc, M, g_dtype) : kernel_for<false>(nc, M, g_dtype);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, fn);
+  if (err) return err;
+  int blocks = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  if (err) return err;
+  int* o = (int*)out;
+  o[0] = attr.numRegs;
+  o[1] = blocks;
+  o[2] = kThreads;
+  return 0;
 }

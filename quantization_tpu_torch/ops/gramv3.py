@@ -12,9 +12,11 @@ error, a step scores every codeword j of codebook t as
 where ``i`` is the candidate's current index at t, ``XC = x . W^T`` and
 ``Gt`` is the codeword Gram matrix with every diagonal block replaced by the
 broadcast row ``csq_t[j] / 2``.  The CUDA kernel (``csrc/gramv3.cu``) gives
-each frame one warp and sums the ``nc`` table rows per candidate;
+each frame one warp; at step t it loads the rows s >= t that every
+candidate shares once, and a candidate its own rows s < t.
 :func:`gramv3_plain` is the same function in plain PyTorch, step for step,
-and is what a CPU tensor runs.
+and is what a CPU tensor runs; :func:`gramv3_stages` runs the kernel's
+stage-timed build.
 
 Semantics carried over from the TPU kernels, each of which changes results:
 
@@ -44,24 +46,29 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
 
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
 from ..utils.device import dispatch
-from .cuda_build import CudaKernel
+from .cuda_build import CFunction, CudaKernel
 from .seqbeam import LANE_BITS, LANE_MASK, _as_float, _keys, init_indexes_from_logits, pool_bits
 
 G_DTYPES = {"bf16": 0, "int8": 1}
 MAX_PASSES = 64
 CS = 256
 
-GRAMV3_KERNEL = CudaKernel(
-    "gramv3", "qtt_gramv3_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
-                                                  ctypes.c_void_p],
-)
+_LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
+GRAMV3_KERNEL = CudaKernel("gramv3", "qtt_gramv3_launch", _LAUNCH_ARGS + [ctypes.c_void_p])
+# the stage-timed build: the launch's arguments, then the stage buffer
+GRAMV3_TIMED_KERNEL = CudaKernel("gramv3", "qtt_gramv3_timed_launch",
+                                 _LAUNCH_ARGS + [ctypes.c_void_p] * 2)
+OCCUPANCY = CFunction("gramv3", "qtt_gramv3_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# the timed build's stages, in the order of its buffer's columns
+STAGES = ("root", "load", "score", "topr", "pool", "reorder", "pass_end")
+FRAMES_PER_BLOCK = 4  # one warp a frame
 
 
 def GRAMV3_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -145,28 +152,85 @@ def gramv3_problem(
     masks = pool_bits(pool_mask, nc, passes)
 
     centers = scaled_centers(params, config.scale_speed).detach().float()  # (nc, cs, D)
-    # bf16 operands, f32 products and sums (jnp.dot(bf16, bf16,
-    # preferred_element_type=f32) keeps f32; a bf16 torch.matmul would not)
-    ctab = centers.reshape(K, D).to(torch.bfloat16).float()
-    csq = (ctab * ctab).sum(dim=-1)  # (K,)
-    blk = torch.arange(nc, device=x.device).repeat_interleave(cs)
-    gtil = torch.where(blk[:, None] == blk[None, :], (csq / 2.0)[None, :], ctab @ ctab.t())
+    ctab = centers.reshape(K, D).to(torch.bfloat16)
+    gtil, inv = gram_table(ctab, nc, g_dtype)
+    xc = cross_terms(x, ctab)
+    ss0 = root_scores(centers, idx0, x)
+    if inv is not None:
+        xc, ss0 = xc * inv, ss0 * inv
+    gt = table_layout(gtil, nc)
+    return Gramv3Problem(x, xc.contiguous(), idx0.contiguous(), ss0.contiguous(), gt,
+                         M, R, passes, masks, g_dtype)
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.t()`` of bf16 operands as f32 sums of their exact products,
+    as ``jnp.dot(bf16, bf16, preferred_element_type=f32)`` computes it.
+
+    On the card it runs on the tensor cores with f32 output (``torch.mm``'s
+    ``out_dtype``, or a TF32 product where that torch lacks it: TF32 holds
+    every bf16 value exactly); the products are exact either way and only
+    the order of the f32 sums moves.  On the CPU it is the f32 product."""
+    if not a.is_cuda:
+        return a.float() @ b.float().t()
+    if "dtype" in torch.ops.aten.mm.overloads():
+        return torch.mm(a, b.t(), out_dtype=torch.float32)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return a.float() @ b.float().t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def gram_table(ctab: torch.Tensor, nc: int, g_dtype: str):
+    """The (K, K) table ``Gt`` of the (K, D) bf16 codewords ``ctab``: their
+    Gram matrix with every diagonal block replaced by the broadcast row
+    ``csq_t[j] / 2``, in bf16, or in int8 with one global scale; returns the
+    table and, for int8, ``1 / scale`` (else None)."""
+    cs = ctab.shape[0] // nc
+    ctab_f = ctab.float()
+    csq = (ctab_f * ctab_f).sum(dim=-1)  # (K,)
+    blk = torch.arange(nc, device=ctab.device).repeat_interleave(cs)
+    gtil = torch.where(blk[:, None] == blk[None, :], (csq / 2.0)[None, :],
+                       bf16_product(ctab, ctab))
     if g_dtype == "int8":
         amax = gtil.abs().max()
         scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-        gtil = torch.round(gtil / scale).to(torch.int8)
-        inv = 1.0 / scale
+        return torch.round(gtil / scale).to(torch.int8), 1.0 / scale
+    return gtil.to(torch.bfloat16), None
+
+
+def cross_terms(x: torch.Tensor, ctab: torch.Tensor) -> torch.Tensor:
+    """``XC = bf16(x) . ctab^T``, (B, K) f32."""
+    return bf16_product(x.to(torch.bfloat16), ctab)
+
+
+def root_scores(centers: torch.Tensor, idx0: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``ss0 = ||sum_s c_s(idx0_s) - x||^2`` in f32 from the (nc, cs, D) f32
+    centers.  On the card the codeword sums are one sparse product (a row
+    of nc ones a frame) and need no (B, nc, D) temporary."""
+    nc, cs, D = centers.shape
+    if x.is_cuda:
+        B = x.shape[0]
+        cols = idx0.long() + cs * torch.arange(nc, device=x.device)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "Sparse CSR tensor support is in beta")
+            warnings.filterwarnings("ignore", "Sparse invariant checks are implicitly disabled")
+            pick = torch.sparse_csr_tensor(
+                torch.arange(0, B * nc + 1, nc, device=x.device), cols.reshape(-1),
+                torch.ones(B * nc, device=x.device), size=(B, nc * cs), check_invariants=False)
+            recon0 = pick @ centers.reshape(nc * cs, D)
     else:
-        gtil = gtil.to(torch.bfloat16)
-        inv = None
-    xc = x.to(torch.bfloat16).float() @ ctab.t()  # (B, K)
-    recon0 = centers[torch.arange(nc, device=x.device)[None, :], idx0.long()].sum(dim=1)
-    ss0 = ((recon0 - x) ** 2).sum(dim=-1)
-    if inv is not None:
-        xc, ss0 = xc * inv, ss0 * inv
-    gt = gtil.reshape(K, nc, cs).permute(1, 0, 2).contiguous()  # (nc, K, cs)
-    return Gramv3Problem(x, xc.contiguous(), idx0.contiguous(), ss0.contiguous(), gt,
-                         M, R, passes, masks, g_dtype)
+        recon0 = centers[torch.arange(nc, device=x.device)[None, :], idx0.long()].sum(dim=1)
+    return ((recon0 - x) ** 2).sum(dim=-1)
+
+
+def table_layout(gtil: torch.Tensor, nc: int) -> torch.Tensor:
+    """The (K, K) table laid out per target codebook, (nc, K, cs):
+    ``gt[t, s*cs + i, j] = Gt[s*cs + i, t*cs + j]``."""
+    K = gtil.shape[0]
+    return gtil.reshape(K, nc, K // nc).permute(1, 0, 2).contiguous()
 
 
 def _sg(gt_t: torch.Tensor, ch: torch.Tensor) -> torch.Tensor:
@@ -228,14 +292,15 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
     return sol.to(torch.int32)
 
 
-def gramv3_cuda(problem: Gramv3Problem) -> torch.Tensor:
-    """The CUDA kernel on the same problem as :func:`gramv3_plain`."""
+def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
+    """Check ``problem``'s tensors and launch ``kernel`` on them with the
+    ``extra`` arguments before the stream; returns the (B, nc) indexes."""
     xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
     nc = gt.shape[0]
     K = nc * CS
     B = xc.shape[0]
     if not xc.is_cuda:
-        raise ValueError("gramv3_cuda needs CUDA tensors")
+        raise ValueError(f"{kernel.symbol} needs CUDA tensors")
     want_gt = torch.int8 if problem.g_dtype == "int8" else torch.bfloat16
     if (xc.dtype != torch.float32 or xc.shape != (B, K) or idx0.shape != (B, nc)
             or ss0.shape != (B,) or ss0.dtype != torch.float32
@@ -251,12 +316,46 @@ def gramv3_cuda(problem: Gramv3Problem) -> torch.Tensor:
         raise ValueError("gramv3_cuda needs all tensors on one device")
     out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
     words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
-    GRAMV3_KERNEL(
+    kernel(
         xc.data_ptr(), idx0.data_ptr(), ss0.data_ptr(), gt.data_ptr(), out.data_ptr(),
         B, nc, problem.M, problem.R, problem.passes, ctypes.addressof(words),
-        G_DTYPES[problem.g_dtype], torch.cuda.current_stream(xc.device).cuda_stream,
+        G_DTYPES[problem.g_dtype], *extra, torch.cuda.current_stream(xc.device).cuda_stream,
     )
     return out
+
+
+def gramv3_cuda(problem: Gramv3Problem) -> torch.Tensor:
+    """The CUDA kernel on the same problem as :func:`gramv3_plain`."""
+    return _launch(problem, GRAMV3_KERNEL)
+
+
+def gramv3_stages(problem: Gramv3Problem) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stage-timed build of the kernel on the same problem as
+    :func:`gramv3_cuda`: the same (B, nc) indexes, and a (blocks,
+    len(STAGES) + 2) int64 tensor holding, per block of
+    :data:`FRAMES_PER_BLOCK` frames, the ``clock64()`` cycles of each of
+    :data:`STAGES` summed over the block's warps (one a frame), then the
+    longest warp's own cycles and nanoseconds.  Built for the serving
+    path's beam only (M=8, any R and schedule); CUDA tensors only."""
+    if problem.M != 8:
+        raise ValueError("the stage-timed gramv3 takes M=8")
+    if not problem.xc.is_cuda:
+        raise ValueError("gramv3_stages needs CUDA tensors")
+    blocks = -(-problem.xc.shape[0] // FRAMES_PER_BLOCK)
+    stages = torch.zeros(blocks, len(STAGES) + 2, dtype=torch.int64, device=problem.xc.device)
+    return _launch(problem, GRAMV3_TIMED_KERNEL, stages.data_ptr()), stages
+
+
+def gramv3_occupancy(problem: Gramv3Problem, timed: bool = False) -> dict:
+    """Registers a thread, threads a block and resident blocks an SM of the
+    kernel that ``problem`` launches (of its stage-timed build where
+    ``timed``), as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 3)()
+    err = OCCUPANCY(problem.gt.shape[0], problem.M, G_DTYPES[problem.g_dtype], int(timed),
+                    ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"qtt_gramv3_occupancy failed: CUDA error {err}")
+    return {"registers": out[0], "blocks_per_sm": out[1], "threads_per_block": out[2]}
 
 
 def gramv3_encode_indexes(

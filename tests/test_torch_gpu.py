@@ -303,25 +303,91 @@ def test_main_path_on_card_launches_both_kernels(cuda):
 
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("nc,dim,M,R,pool_mask", [
-    (4, 128, 8, 4, None), (8, 96, 16, 8, "altparity"), (2, 256, 64, 4, None)])
-def test_cuda_gramv3_equals_plain(cuda, g_dtype, nc, dim, M, R, pool_mask):
-    rng = np.random.default_rng(5)
-    cs, B = 256, 1001  # a ragged last block
+def _gramv3_case(cuda, nc, dim, B, seed=5, **kw):
+    rng = np.random.default_rng(seed)
+    cs = 256
     arrays = _trained_like(rng, nc, cs, dim)
     x = (arrays["centers"][np.arange(nc)[None], rng.integers(0, cs, (B, nc))].sum(1)
          + 2.0 * rng.standard_normal((B, dim))).astype(np.float32)
-    problem = tg3.gramv3_problem(
-        params_from_numpy(arrays, device=cuda), QuantizerConfig(dim, cs, nc),
-        torch.from_numpy(x).to(cuda), M=M, R=R, passes=3, pool_mask=pool_mask, g_dtype=g_dtype)
+    return tg3.gramv3_problem(params_from_numpy(arrays, device=cuda), QuantizerConfig(dim, cs, nc),
+                              torch.from_numpy(x).to(cuda), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("nc,dim,M,R,pool_mask,passes", [  # every (nc, M) the kernel has
+    (4, 128, 8, 4, None, 3), (8, 96, 16, 8, "altparity", 3), (2, 256, 64, 4, None, 3),
+    (8, 512, 8, 4, "altparity", 5), (8, 128, 32, 8, None, 3), (8, 128, 64, 4, None, 2),
+    (4, 128, 16, 4, "altparity", 3), (4, 96, 32, 8, None, 3), (4, 128, 64, 2, None, 2),
+    (2, 128, 8, 4, None, 3), (2, 96, 16, 8, None, 3), (2, 128, 32, 8, "altparity", 3)])
+def test_cuda_gramv3_equals_plain(cuda, g_dtype, nc, dim, M, R, pool_mask, passes):
+    problem = _gramv3_case(cuda, nc, dim, 1001, M=M, R=R, passes=passes,  # a ragged last block
+                           pool_mask=pool_mask, g_dtype=g_dtype)
     before = tg3.GRAMV3_KERNEL.launches
     got = tg3.gramv3_cuda(problem)
     torch.cuda.synchronize()
     assert tg3.GRAMV3_KERNEL.launches == before + 1
     # the same f32 (bf16 table) or int32 (int8 table) sums in the same order
     assert torch.equal(got, tg3.gramv3_plain(problem))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("nc,dim", [(8, 512), (4, 256)])  # phase 5's two widths
+def test_cuda_gramv3_stage_timed_build_same_indexes(cuda, g_dtype, nc, dim):
+    problem = _gramv3_case(cuda, nc, dim, 1000, M=8, R=4, passes=2, g_dtype=g_dtype)
+    before, timed = tg3.GRAMV3_KERNEL.launches, tg3.GRAMV3_TIMED_KERNEL.launches
+    got, stages = tg3.gramv3_stages(problem)
+    assert tg3.GRAMV3_KERNEL.launches == before  # the timed build has its own count
+    assert tg3.GRAMV3_TIMED_KERNEL.launches == timed + 1
+    assert torch.equal(got, tg3.gramv3_cuda(problem))
+    assert stages.shape == (1000 // tg3.FRAMES_PER_BLOCK, len(tg3.STAGES) + 2)
+    assert bool((stages > 0).all())  # every stage ran in every block, and the clocks moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nc,dim", [(8, 512), (4, 256)])
+def test_cuda_gramv3_precompute_on_tensor_cores(cuda, nc, dim):
+    rng = np.random.default_rng(6)
+    cs, B = 256, 4096
+    arrays = _trained_like(rng, nc, cs, dim)
+    ctab = torch.from_numpy(arrays["centers"].reshape(nc * cs, dim)).to(cuda).to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((B, dim)).astype(np.float32)).to(cuda)
+    xb = x.to(torch.bfloat16)
+    # XC: the same exact products, summed in another order than the f32 product's
+    got, want = tg3.cross_terms(x, ctab), xb.float() @ ctab.float().t()
+    scale = xb.float().abs() @ ctab.float().abs().t()  # the sum of |terms|
+    err = (got - want).abs()
+    print(f"nc={nc} d{dim}: XC error / sum|terms| max {float((err / scale).max()):.3e} median "
+          f"{float((err / scale).median()):.3e}; max|err| / max|XC| "
+          f"{float(err.max() / want.abs().max()):.3e}; Frobenius "
+          f"{float(err.norm() / want.norm()):.3e}")
+    assert float((err / scale).max()) <= 1e-6
+    # the bf16 Gram table: off its diagonal blocks (which hold csq / 2) the
+    # card's f32 sums within the same reordering error of the f32
+    # product's, the table their rounding, so the two tables differ only
+    # where a bf16 rounding boundary lies between them
+    gt, _ = tg3.gram_table(ctab, nc, "bf16")
+    g32, g_tc = ctab.float() @ ctab.float().t(), tg3.bf16_product(ctab, ctab)
+    gscale = ctab.float().abs() @ ctab.float().abs().t()
+    csq = (ctab.float() ** 2).sum(-1)
+    blk = torch.arange(nc, device=cuda).repeat_interleave(cs)
+    diag = blk[:, None] == blk[None, :]
+    assert float(((g_tc - g32).abs() / gscale)[~diag].max()) <= 1e-6
+    assert torch.equal(gt, torch.where(diag, (csq / 2.0)[None, :], g_tc).to(torch.bfloat16))
+    ref = torch.where(diag, (csq / 2.0)[None, :], g32).to(torch.bfloat16)
+    print(f"nc={nc} d{dim}: {int((gt != ref).sum())} of {gt.numel()} bf16 Gram elements differ "
+          "from the f32 product's table")
+    # ss0 on the card (a sparse product) against the gather-sum, and the
+    # precompute repeats itself exactly
+    centers = torch.from_numpy(arrays["centers"]).to(cuda)
+    idx0 = torch.randint(0, cs, (B, nc), generator=torch.Generator().manual_seed(1)).to(cuda)
+    recon = centers[torch.arange(nc, device=cuda)[None, :], idx0].sum(1)
+    want = ((recon - x) ** 2).sum(-1)
+    got = tg3.root_scores(centers, idx0, x)
+    assert float(((got - want).abs() / want).max()) <= 1e-5
+    assert torch.equal(got, tg3.root_scores(centers, idx0, x))
+    assert torch.equal(tg3.cross_terms(x, ctab), tg3.cross_terms(x, ctab))
 
 
 @pytest.mark.gpu

@@ -198,3 +198,44 @@ def test_codec_gramv3_branch_matches_jax(as_bytes):
     assert (got == want).mean() >= 0.99
     q = tcodec.decode(tp, tc, torch.from_numpy(got))
     assert q.shape == x.shape
+
+
+def test_stage_timed_build_refuses_cpu_tensors_and_other_beams():
+    arrays, x, jc, jp, tc, tp = _both(4, 128, 37, 64)
+    problem = tg3.gramv3_problem(tp, tc, torch.from_numpy(x), M=8, R=4)
+    before = tg3.GRAMV3_TIMED_KERNEL.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tg3.gramv3_stages(problem)
+    with pytest.raises(ValueError, match="M=8"):  # built for the serving path's beam only
+        tg3.gramv3_stages(tg3.gramv3_problem(tp, tc, torch.from_numpy(x), M=16, R=4))
+    assert tg3.GRAMV3_TIMED_KERNEL.launches == before
+    assert tg3.STAGES == ("root", "load", "score", "topr", "pool", "reorder", "pass_end")
+
+
+@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
+def test_cpu_precompute_is_the_f32_formulas(g_dtype):
+    """On the CPU the precompute's parts are the f32 expressions of the JAX
+    wrapper as the port has always written them (the card takes the tensor
+    cores for XC and the Gram table, and a sparse product for ss0)."""
+    arrays, x, jc, jp, tc, tp = _both(4, 128, 38, 96)
+    xt = torch.from_numpy(x)
+    problem = tg3.gramv3_problem(tp, tc, xt, g_dtype=g_dtype)
+    nc, K = 4, 4 * CS
+    centers = torch.from_numpy(arrays["centers"])
+    ctab = centers.reshape(K, 128).to(torch.bfloat16).float()
+    csq = (ctab * ctab).sum(dim=-1)
+    blk = torch.arange(nc).repeat_interleave(CS)
+    gtil = torch.where(blk[:, None] == blk[None, :], (csq / 2.0)[None, :], ctab @ ctab.t())
+    xc = xt.to(torch.bfloat16).float() @ ctab.t()
+    recon0 = centers[torch.arange(nc)[None, :], problem.idx0.long()].sum(dim=1)
+    ss0 = ((recon0 - xt) ** 2).sum(dim=-1)
+    if g_dtype == "int8":
+        scale = gtil.abs().max() / 127.0
+        gtil = torch.round(gtil / scale).to(torch.int8)
+        xc, ss0 = xc * (1.0 / scale), ss0 * (1.0 / scale)
+    else:
+        gtil = gtil.to(torch.bfloat16)
+    assert torch.equal(problem.xc, xc) and torch.equal(problem.ss0, ss0)
+    assert torch.equal(problem.gt, gtil.reshape(K, nc, CS).permute(1, 0, 2))
+    # the layout: gt[t, s*cs + i, j] = Gt[s*cs + i, t*cs + j]
+    assert torch.equal(tg3.table_layout(gtil, nc)[2, 1 * CS + 5], gtil[1 * CS + 5, 2 * CS:3 * CS])
