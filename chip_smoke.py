@@ -82,7 +82,13 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    kernel, plain, bound and library times.  P5 has two bounds: the split-c
    scheme's bf16 products on the tensor cores (``bound_ms``) and the f32
    FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the kernels
-   a chain launches (``torch.profiler``), which must be P5's own two.
+   a chain launches (``torch.profiler``), which must be P5's own two.  P6
+   prints the ``[int8_chain stages]`` line from its stage-timed build (whose
+   output must equal the shipped kernel's): each stage's share of the
+   warps' cycles and its microseconds a block-step, with registers and
+   blocks an SM, and its barrier floor (its grid running its 24 barriers
+   and no other work) beside its bound; a chain must launch its own
+   kernel and no other.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -738,15 +744,22 @@ def probe_phase(dev) -> list:
         }
         if ch.name == "bf16_chain":
             entry.update(bf16_chain_extras(e, c))
+        else:
+            entry.update(int8_chain_extras(e, c))
         entries.append(entry)
         print(f"[probe {ch.name}] {ch.label}: {ms:.4f} ms/chain {entry['tflops']:.1f} TFLOP/s "
               f"(plain {entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f} "
-              f"({entry['bound_by']}), library {entry['library_ms']:.4f}); launches {n}; "
+              f"({entry['bound_by']})"
+              + (f", barrier floor {entry['barrier_floor_ms']:.4f}" if ch.name == "int8_chain"
+                 else "") + f", library {entry['library_ms']:.4f}); launches {n}; "
               f"vs plain {json.dumps(agreement)}", flush=True)
         if ch.name == "bf16_chain":
             print(f"[probe bf16_chain] bounds: split-c bf16 products {entry['bound_ms']:.4f} ms, "
                   f"f32 FMAs {entry['bound_f32_ms']:.4f} ms; a chain launches "
                   f"{entry['profiled_kernels']}", flush=True)
+        else:
+            print(entry.pop("stages_line"), flush=True)
+            print(f"[probe int8_chain] a chain launches {entry['profiled_kernels']}", flush=True)
     return entries
 
 
@@ -760,7 +773,30 @@ def bf16_chain_extras(e, c) -> dict:
     cs = c.shape[0]
     out = {"bound_f32_ms": _bound(
         0, {"f32": P56.STEPS * (2 * mb * d * cs + mb * cs + 3 * mb * d)})["bound_ms"]}
-    P56.bf16_chain_cuda(e, c)
+    out["profiled_kernels"] = _chain_kernels(
+        "bf16_chain", lambda: P56.bf16_chain_cuda(e, c), ("split_kernel", "bf16_chain_tc_kernel"))
+    return out
+
+
+def int8_chain_extras(e, c) -> dict:
+    """P6's stage-timed build (``[int8_chain stages]``, whose output must
+    equal the shipped kernel's), its barrier floor (the chain's grid running
+    its barriers and nothing else: what no design that keeps the per-step
+    global max removes; beside the bound, not in its place), and the device
+    kernels a chain launches, which must be its own one."""
+    from quantization_tpu_torch.experiments import int8_mxu_probe as P56
+
+    line, b = P56.stages_line(e, c)
+    return {"stages_line": line, "stages": b, "barrier_floor_ms": b["barrier_floor_ms"],
+            "profiled_kernels": _chain_kernels(
+                "int8_chain", lambda: P56.int8_chain_cuda(e, c), ("int8_chain_kernel",))}
+
+
+def _chain_kernels(name: str, run, own) -> list:
+    """The device kernels one call of ``run`` launches (by
+    ``torch.profiler``, after a warm-up call); it fails unless they are the
+    chain's ``own`` kernels, each at least once, and no other."""
+    run()
     torch.cuda.synchronize()
     # one chain traced after a warm-up step: the tracer has been seen to miss
     # the first kernel of a window it starts cold
@@ -774,17 +810,15 @@ def bf16_chain_extras(e, c) -> dict:
                                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
                                 on_trace_ready=keep) as prof:
         for _ in range(2):
-            P56.bf16_chain_cuda(e, c)
+            run()
             torch.cuda.synchronize()
             prof.step()
     names = sorted(seen)
-    out["profiled_kernels"] = names
-    own = ("split_kernel", "bf16_chain_tc_kernel")
     # an empty list (a profiler that saw no device activity) proves nothing
     check(all(any(k in n for n in names) for k in own)
           and all(any(k in n for k in own) for n in names),
-          f"probe bf16_chain: a chain must launch its two kernels and no other: {names}")
-    return out
+          f"probe {name}: a chain must launch its own kernels and no other: {names}")
+    return names
 
 
 def _matmul_library_ms(a, b) -> float:

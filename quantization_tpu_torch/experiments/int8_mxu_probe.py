@@ -20,7 +20,12 @@ after, for "bf16", a prologue that splits c:
   step, c as ``round(c * 127)``; the second product's left side is
   ``round(cross / max|cross| * 127)`` with the max over the WHOLE (2048,
   256) matrix, taken in the middle of every step, so the kernel is one
-  cooperative launch with a grid-wide barrier per step.
+  cooperative launch with a grid-wide barrier per step.  Blocks of 16 rows
+  run both products on int8 ``wgmma``, with c8 held in both K-major layouts
+  (shared memory and registers); the barrier is a slot a block carrying a
+  fresh tag and the block's max.  Its stage-timed build
+  (:func:`int8_chain_stages`, its own entry point and count) and the
+  barrier alone (:func:`int8_barrier_floor`) say where a step's time goes.
 
 A division by the constant 127 is a product with f32(1/127), as XLA
 rewrites it; a division by a tensor is a true IEEE division; rounding is
@@ -28,7 +33,9 @@ half to even.  Each chain has a plain PyTorch version (``*_plain``) and the
 kernel (``*_cuda``); the dispatcher runs the kernel on a CUDA tensor and
 the plain version on a CPU tensor.
 
-Run on the card:  python -m quantization_tpu_torch.experiments.int8_mxu_probe
+Run on the card:  python -m quantization_tpu_torch.experiments.int8_mxu_probe [--stages]
+(``--stages``: the int8 chain's ``[int8_chain stages]`` line and its barrier
+floor in place of the chains' times)
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from __future__ import annotations
 import ctypes
 import sys
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -53,10 +60,24 @@ BF16_CHAIN_KERNEL = CudaKernel("int8_mxu_probe", "qtt_bf16_chain_launch",
                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # bytes of the split c's scratch for (D, CS)
 SPLIT_BYTES = CFunction("int8_mxu_probe", "qtt_bf16_chain_split_bytes", [ctypes.c_int] * 2)
+# the int8 chain: e, c, img, slots, out, MB, D, CS, steps, tag0, stream
 INT8_CHAIN_KERNEL = CudaKernel(
     "int8_mxu_probe", "qtt_int8_chain_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_void_p])
 KERNELS = {"bf16_chain": BF16_CHAIN_KERNEL, "int8_chain": INT8_CHAIN_KERNEL}
+# the int8 chain's stage-timed build: the launch's arguments, then the stage buffer
+INT8_CHAIN_TIMED_KERNEL = CudaKernel(
+    "int8_mxu_probe", "qtt_int8_chain_timed_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_uint32] + [ctypes.c_void_p] * 2)
+# the chain's grid barriers with no other work (the barrier floor): slots,
+# out, MB, steps, tag0, stream
+INT8_BARRIER_KERNEL = CudaKernel(
+    "int8_mxu_probe", "qtt_int8_barrier_floor_launch",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_uint32, ctypes.c_void_p])
+INT8_OCCUPANCY = CFunction("int8_mxu_probe", "qtt_int8_chain_occupancy",
+                           [ctypes.c_int, ctypes.c_void_p])
+# the timed build's stages, in the order of its buffer's columns
+INT8_STAGES = ("prod1", "bmax", "gsync", "quant", "prod2", "requant")
 
 
 # operations of a chain's products as the JAX script counts them (:116):
@@ -143,7 +164,10 @@ def _chain_args(name: str, e: torch.Tensor, c: torch.Tensor):
     if d % 64 or cs % 64 or d > MAX_D or cs > MAX_CS:
         raise ValueError(f"{name} takes D and CS multiples of 64 up to {MAX_D} and {MAX_CS}; "
                          f"got D={d}, CS={cs}")
-    return e.contiguous(), c.contiguous(), mb, d, cs, torch.cuda.current_stream(dev).cuda_stream
+    # the kernels read rows as 16-byte vectors
+    e, c = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (e, c))
+    return e, c, mb, d, cs, torch.cuda.current_stream(dev).cuda_stream
 
 
 def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
@@ -160,16 +184,107 @@ def bf16_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> tor
 
 def int8_chain_cuda(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
     """The kernel on the same inputs as :func:`int8_chain_plain`: one
-    cooperative launch; every block must be resident at once, so MB is at
-    most 16 rows a block times the blocks the card holds (2,112 rows on 132
-    SMs), else the launch fails and this raises."""
-    e, c, mb, d, cs, stream = _chain_args("int8_chain_cuda", e, c)
+    cooperative launch of blocks of 16 rows, with c8's image (CS x D bytes)
+    as scratch; every block must be resident at once, so MB is at most 16
+    rows a block times the blocks the card holds (one an SM: 2,112 rows on
+    132 SMs), else the launch fails and this raises."""
+    return _int8_launch("int8_chain_cuda", INT8_CHAIN_KERNEL, e, c, steps)
+
+
+ROWS_PER_BLOCK = 16
+# per (device, stream): the grid barriers' slots (two 64-bit words a block,
+# zeroed once) and the next unused tag; each launch takes a tag a barrier,
+# so a slot never holds a tag that a later launch waits for
+_BARRIERS: Dict[Tuple[int, int], list] = {}
+_TAG_LIMIT = 2 ** 32
+
+
+def _barrier(device: torch.device, stream: int, mb: int, barriers: int) -> Tuple[int, int]:
+    """The slots' address and the first tag for a launch of ``barriers``
+    grid barriers on ``mb`` rows."""
+    blocks = -(-mb // ROWS_PER_BLOCK)
+    key = (device.index, stream)
+    entry = _BARRIERS.get(key)
+    if entry is None or entry[0].numel() < 2 * blocks or entry[1] + barriers >= _TAG_LIMIT:
+        entry = _BARRIERS[key] = [torch.zeros(2 * blocks, dtype=torch.int64, device=device), 1]
+    tag = entry[1]
+    entry[1] += barriers
+    return entry[0].data_ptr(), tag
+
+
+def _int8_launch(name: str, kernel: CudaKernel, e: torch.Tensor, c: torch.Tensor, steps: int,
+                 *extra) -> torch.Tensor:
+    e, c, mb, d, cs, stream = _chain_args(name, e, c)
+    if torch.cuda.is_current_stream_capturing():
+        # a replay would wait for the captured tags, which the slots
+        # already hold from the last replay, and pass with stale maxima
+        raise RuntimeError(f"{name} cannot be captured in a CUDA graph: each launch "
+                           "takes fresh barrier tags from the host")
     out = torch.empty_like(e)
-    # one slot a step for the bits of max|cross|, zeroed before the launch
-    gmax = torch.zeros(max(steps, 1), dtype=torch.int32, device=e.device)
-    INT8_CHAIN_KERNEL(e.data_ptr(), c.data_ptr(), gmax.data_ptr(), out.data_ptr(), mb, d, cs,
-                      steps, stream)
+    img = torch.empty(cs * d, dtype=torch.uint8, device=e.device)  # c8, row-major
+    # barrier 0 publishes c8's image, barrier 1 + s is step s's max
+    slots, tag = _barrier(e.device, stream, mb, steps + 1)
+    kernel(e.data_ptr(), c.data_ptr(), img.data_ptr(), slots, out.data_ptr(), mb, d, cs, steps,
+           tag, *extra, stream)
     return out
+
+
+def int8_chain_stages(e: torch.Tensor, c: torch.Tensor,
+                      steps: int = STEPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stage-timed build of the int8 chain on the same inputs as
+    :func:`int8_chain_cuda`: the same output, and a (blocks,
+    len(INT8_STAGES) + 2) int64 tensor holding, per block, the ``clock64()``
+    cycles of each of :data:`INT8_STAGES` summed over the block's warps,
+    then the longest warp's own cycles and nanoseconds.  CUDA tensors
+    only."""
+    if not (e.is_cuda and c.is_cuda):
+        raise ValueError("int8_chain_stages needs CUDA tensors")
+    blocks = -(-e.shape[0] // ROWS_PER_BLOCK)
+    stages = torch.zeros(blocks, len(INT8_STAGES) + 2, dtype=torch.int64, device=e.device)
+    out = _int8_launch("int8_chain_stages", INT8_CHAIN_TIMED_KERNEL, e, c, steps,
+                       stages.data_ptr())
+    return out, stages
+
+
+def int8_barrier_floor(mb: int, device: torch.device, steps: int = STEPS) -> torch.Tensor:
+    """The chain's grid for ``mb`` rows running ``steps`` of its grid
+    barriers, each with the block maxima the chain takes there and no
+    other work; returns each step's max, which must be the largest block
+    index plus the step."""
+    out = torch.empty(max(steps, 1), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    slots, tag = _barrier(device, stream, mb, steps)
+    INT8_BARRIER_KERNEL(slots, out.data_ptr(), mb, steps, tag, stream)
+    return out[:steps]
+
+
+def int8_chain_occupancy(timed: bool = False) -> dict:
+    """Registers a thread, threads a block and resident blocks an SM of the
+    int8 chain's kernel (of its stage-timed build where ``timed``)."""
+    out = (ctypes.c_int * 3)()
+    err = INT8_OCCUPANCY(int(timed), ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"qtt_int8_chain_occupancy failed: CUDA error {err}")
+    return {"registers": out[0], "blocks_per_sm": out[1], "threads_per_block": out[2]}
+
+
+def int8_stage_breakdown(stages: torch.Tensor, steps: int, threads: int) -> dict:
+    """Per stage of the timed build, its share of the warps' summed cycles
+    and its microseconds a block-step (a warp's mean cycles a step at the
+    clock rate that the blocks' own cycles over their nanoseconds give), and
+    the blocks' mean lifetime from their first step on, in microseconds."""
+    st = stages.double().cpu()
+    n = len(INT8_STAGES)
+    warps = threads // 32
+    ghz = float(st[:, n].sum() / st[:, n + 1].sum())
+    cyc = st[:, :n].sum(0)
+    us = cyc / (st.shape[0] * warps * max(steps, 1) * ghz * 1e3)
+    return {
+        "blocks": st.shape[0], "ghz": ghz,
+        "share": {k: float(v) for k, v in zip(INT8_STAGES, cyc / cyc.sum())},
+        "us_per_block_step": {k: float(v) for k, v in zip(INT8_STAGES, us)},
+        "steps_us": float(st[:, n + 1].mean() / 1e3),
+    }
 
 
 def bf16_chain(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> torch.Tensor:
@@ -275,12 +390,47 @@ def chains(device: torch.device) -> List[Chain]:
     ]
 
 
-def main() -> int:
+def stages_line(e: torch.Tensor, c: torch.Tensor) -> Tuple[str, dict]:
+    """The ``[int8_chain stages]`` line for the chain on (e, c), and its
+    numbers: the timed build's output must equal the shipped kernel's (else
+    this raises); each stage's share and us a block-step, the timed build's
+    ms beside the kernel's, registers and blocks an SM, and the barrier
+    floor: the chain's grid running its STEPS barriers and nothing else."""
+    got, stages = int8_chain_stages(e, c)
+    if not torch.equal(got, int8_chain_cuda(e, c)):
+        raise RuntimeError("the stage-timed int8 chain's output differs from the kernel's")
+    occ = int8_chain_occupancy()
+    b = int8_stage_breakdown(stages, STEPS, occ["threads_per_block"])
+    b.update(occ)
+    b["timed_ms"] = device_ms(lambda: int8_chain_stages(e, c), 20)
+    b["kernel_ms"] = device_ms(lambda: int8_chain_cuda(e, c), 20)
+    floor = int8_barrier_floor(e.shape[0], e.device)
+    blocks = -(-e.shape[0] // ROWS_PER_BLOCK)
+    if not torch.equal(floor.cpu(), torch.arange(STEPS, dtype=torch.float32) + blocks - 1):
+        raise RuntimeError(f"the barrier floor's maxima are wrong: {floor.tolist()}")
+    b["barrier_floor_ms"] = device_ms(lambda: int8_barrier_floor(e.shape[0], e.device), 20)
+    line = (f"[int8_chain stages] {b['blocks']} blocks, {b['ghz']:.3f} GHz, "
+            f"{b['registers']} registers, {b['blocks_per_sm']} block(s) an SM; timed "
+            f"{b['timed_ms']:.4f} ms vs {b['kernel_ms']:.4f} ms: " + ", ".join(
+                f"{k} {100 * b['share'][k]:.1f}% {b['us_per_block_step'][k]:.3f}"
+                for k in INT8_STAGES)
+            + f" us a block-step, total {sum(b['us_per_block_step'].values()):.3f} (the blocks' "
+            f"steps {b['steps_us']:.2f} us of the timed build's {b['timed_ms'] * 1e3:.2f}); "
+            f"barrier floor ({STEPS} barriers) {b['barrier_floor_ms']:.4f} ms")
+    return line, b
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("int8_mxu_probe: no CUDA device is available; the probes run only on a card",
               file=sys.stderr)
         return 2
     chs = chains(torch.device("cuda"))
+    if "--stages" in argv:
+        print(stages_line(*chs[1].inputs)[0], flush=True)
+        print(nvidia_smi_line(), flush=True)
+        return 0
     for ch in chs:
         ms = device_ms(ch.run, 50)
         print(f"{ch.label}: {ms:.3f} ms/chain  {FLOPS / (ms * 1e-3) / 1e12:.1f} TFLOP/s",

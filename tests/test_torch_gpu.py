@@ -471,11 +471,14 @@ def _chain_inputs(cuda, MB, D=512, CS=256):
     return e, (torch.randn(CS, D, generator=gen) * 0.05).to(cuda)
 
 
+# 1000: not a multiple of a block's rows; 2112: 132 blocks of 16 rows, 66
+# pairs of 32; 320 and 64: groups of tiles past D or CS
+CHAIN_SHAPES = [(2048, 512, 256), (1000, 512, 256), (2112, 512, 256), (2048, 256, 128),
+                (1000, 320, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("MB,D,CS", [
-    (2048, 512, 256), (1000, 512, 256),  # 1000: not a multiple of a pair's 32 rows
-    (2112, 512, 256),  # 132 blocks: more pairs than the card may hold at once
-    (2048, 256, 128), (1000, 320, 64)])  # 320, 64: odd tiles; one block has no codeword tile
+@pytest.mark.parametrize("MB,D,CS", CHAIN_SHAPES)
 def test_cuda_bf16_chain_matches_plain(cuda, MB, D, CS):
     e, c = _chain_inputs(cuda, MB, D, CS)
     got = _launched_once(tprobe.BF16_CHAIN_KERNEL, lambda: tprobe.bf16_chain_cuda(e, c))
@@ -502,8 +505,49 @@ def test_cuda_bf16_chain_one_step_on_tiny_elements(cuda, MB, D, CS):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("MB", [2048, 1000])
-def test_cuda_int8_chain_bit_exact_vs_plain(cuda, MB):
-    e, c = _chain_inputs(cuda, MB)
-    got = _launched_once(tprobe.INT8_CHAIN_KERNEL, lambda: tprobe.int8_chain_cuda(e, c))
-    assert torch.equal(got, tprobe.int8_chain_plain(e, c))
+@pytest.mark.parametrize("steps", [0, 1, 24])
+@pytest.mark.parametrize("MB,D,CS", CHAIN_SHAPES)
+def test_cuda_int8_chain_bit_exact_vs_plain(cuda, MB, D, CS, steps):
+    e, c = _chain_inputs(cuda, MB, D, CS)
+    got = _launched_once(tprobe.INT8_CHAIN_KERNEL, lambda: tprobe.int8_chain_cuda(e, c, steps))
+    assert torch.equal(got, tprobe.int8_chain_plain(e, c, steps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("MB,D,CS", [(2048, 512, 256), (1000, 320, 64)])
+def test_cuda_int8_chain_stage_timed_build_same_output(cuda, MB, D, CS):
+    e, c = _chain_inputs(cuda, MB, D, CS)
+    got, stages = _launched_once(tprobe.INT8_CHAIN_TIMED_KERNEL,
+                                 lambda: tprobe.int8_chain_stages(e, c))
+    assert torch.equal(got, tprobe.int8_chain_cuda(e, c))
+    assert stages.shape == (-(-MB // 16), len(tprobe.INT8_STAGES) + 2)
+    assert bool((stages > 0).all())
+    # the barrier floor's maxima: the largest block index plus the step
+    floor = _launched_once(tprobe.INT8_BARRIER_KERNEL,
+                           lambda: tprobe.int8_barrier_floor(MB, cuda))
+    assert torch.equal(floor.cpu(), torch.arange(24, dtype=torch.float32) + stages.shape[0] - 1)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_chain_refuses_graph_capture(cuda):
+    # its barrier tags come from the host at each launch, so a graph replay
+    # would meet its own old tags: capture raises before anything is recorded
+    e, c = _chain_inputs(cuda, 64, 512, 256)
+    before = tprobe.INT8_CHAIN_KERNEL.launches
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            tprobe.int8_chain_cuda(e, c, 2)
+    assert tprobe.INT8_CHAIN_KERNEL.launches == before
+    assert torch.equal(tprobe.int8_chain_cuda(e, c, 2), tprobe.int8_chain_plain(e, c, 2))
+
+
+@pytest.mark.gpu
+def test_cuda_int8_chain_refuses_a_grid_the_card_cannot_hold(cuda):
+    # one block of 16 rows an SM: one block more than the card holds fails
+    # the cooperative launch and raises; the card is left usable
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    e, c = _chain_inputs(cuda, 16 * (sms + 1), 512, 256)
+    with pytest.raises(RuntimeError, match="qtt_int8_chain_launch failed"):
+        tprobe.int8_chain_cuda(e, c, 2)
+    e, c = _chain_inputs(cuda, 16 * sms, 512, 256)
+    assert torch.equal(tprobe.int8_chain_cuda(e, c, 2), tprobe.int8_chain_plain(e, c, 2))

@@ -125,12 +125,14 @@ def test_assembly_plain_bit_exact_vs_jax(K):
     assert np.isfinite(want).all() == (K == 8)
 
 
-def _chain_inputs(seed, tiny_frac=0.0):
-    """E normal and c normal x 0.05, the script's distributions, with a
-    share ``tiny_frac`` of E's elements scaled by 1e-5."""
+def _chain_inputs(seed, tiny_frac=0.0, shape=(64, 128, 32)):
+    """E (MB, D) normal and c (CS, D) normal x 0.05, the script's
+    distributions, with a share ``tiny_frac`` of E's elements scaled by
+    1e-5; ``shape`` is (MB, D, CS)."""
+    mb, d, cs = shape
     rng = np.random.default_rng(seed)
-    e = rng.standard_normal((64, 128)).astype(np.float32)
-    c = (rng.standard_normal((32, 128)) * 0.05).astype(np.float32)
+    e = rng.standard_normal((mb, d)).astype(np.float32)
+    c = (rng.standard_normal((cs, d)) * 0.05).astype(np.float32)
     if tiny_frac:
         e = np.where(rng.random(e.shape) < tiny_frac, e * 1e-5, e).astype(np.float32)
     return e, c
@@ -146,13 +148,16 @@ def _chain_interpret(kernel, e, c):
     )(jnp.asarray(e), jnp.asarray(c)))
 
 
-@pytest.mark.parametrize("chain", ["bf16", "int8"])
-def test_chain_plain_vs_jax(chain):
+@pytest.mark.parametrize("chain,shape", [
+    pytest.param("bf16", (64, 128, 32), id="bf16"), pytest.param("int8", (64, 128, 32), id="int8"),
+    # the chain's second test shape on the card (D = 256, CS = 128)
+    pytest.param("int8", (48, 256, 128), id="int8-d256-cs128")])
+def test_chain_plain_vs_jax(chain, shape):
     mod = _mxu_probe()
     assert mod.STEPS == tprobe.STEPS
     # upd (about 1e-7 here) is far below half a bf16 ulp of |e| ~ 1: the
     # "bf16" chain moves only small elements, so a quarter of E is small
-    e, c = _chain_inputs(50, tiny_frac=0.25 if chain == "bf16" else 0.0)
+    e, c = _chain_inputs(50, tiny_frac=0.25 if chain == "bf16" else 0.0, shape=shape)
     kernel = mod.bf16_kernel if chain == "bf16" else mod.int8_kernel
     want = _chain_interpret(kernel, e, c)
     plain = tprobe.bf16_chain if chain == "bf16" else tprobe.int8_chain
@@ -180,6 +185,17 @@ def test_dispatch_runs_the_plain_version_on_the_cpu():
         tprim.minround_cuda(x, 3)
     with pytest.raises(ValueError, match="CUDA"):
         tprobe.int8_chain_cuda(e, c, 2)
+
+
+def test_int8_chain_stages_refuses_cpu_tensors():
+    # the stage-timed build exists only on the card: no plain version stands in
+    e = torch.randn(32, 64, generator=torch.Generator().manual_seed(1))
+    c = torch.randn(64, 64, generator=torch.Generator().manual_seed(2)) * 0.05
+    counts = [k.launches for k in (tprobe.INT8_CHAIN_TIMED_KERNEL, tprobe.INT8_BARRIER_KERNEL)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tprobe.int8_chain_stages(e, c, 2)
+    assert counts == [k.launches
+                      for k in (tprobe.INT8_CHAIN_TIMED_KERNEL, tprobe.INT8_BARRIER_KERNEL)]
 
 
 def test_probes_exit_nonzero_without_a_card(capsys):
