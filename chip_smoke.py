@@ -82,7 +82,11 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    kernel, plain, bound and library times.  P5 has two bounds: the split-c
    scheme's bf16 products on the tensor cores (``bound_ms``) and the f32
    FMAs of the plain arithmetic (``bound_f32_ms``); beside it, the kernels
-   a chain launches (``torch.profiler``), which must be P5's own two.  P6
+   a chain launches (``torch.profiler``), which must be P5's own two.  P3
+   prints the ``[matmul stages]`` line from its stage-timed build (whose
+   output must equal the shipped kernel's at both K): each stage's share of
+   the warps' cycles at each K and a warp's clocks an iteration (the slope
+   between the two K), with its registers and blocks an SM.  P6
    prints the ``[int8_chain stages]`` line from its stage-timed build (whose
    output must equal the shipped kernel's): each stage's share of the
    warps' cycles and its microseconds a block-step, with registers and
@@ -709,6 +713,14 @@ def probe_phase(dev) -> list:
               f"{entry['plain_ms'] * 1e3:.5f}, bound {entry['bound_ms'] * 1e3:.5f}"
               + (f", torch.matmul bf16 {entry['library_ms'] * 1e3:.5f}" if entry["library_ms"]
                  else "") + f"); launches {n}; max_abs_err {max(errs):.3g}", flush=True)
+        if p.name == "matmul":
+            # the stage-timed build, whose output must equal the kernel's
+            line, st = P14.stages_line(*p.inputs, p.Ks)
+            entry["stages"] = st
+            print(line, flush=True)
+            print(f"[probe matmul] {st['registers']} registers a thread, {st['blocks_per_sm']} "
+                  f"block(s) of {st['threads_per_block']} threads an SM, {st['blocks']} blocks",
+                  flush=True)
     for ch in P56.chains(dev):
         counter = P56.KERNELS[ch.name]
         counter.launches = 0

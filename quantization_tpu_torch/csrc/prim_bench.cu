@@ -8,8 +8,7 @@
 //   matmul_kernel   (:57)  K products bf16(a + i) . b^T with f32 sums;
 //   assembly_kernel (:68)  K passes of the fused elementwise score assembly.
 // Each equals its plain PyTorch version (quantization_tpu_torch/experiments/
-// prim_bench.py) bit for bit, except matmul, whose sums run in mma.sync
-// order.
+// prim_bench.py) bit for bit, except matmul, whose sums run in wgmma's order.
 //
 // Bound: operations, per iteration (the data stays on chip across the K
 // iterations, so an iteration moves no bytes of device memory).  Design:
@@ -18,10 +17,16 @@
 //   order of the packed non-negative floats, denormal keys included);
 // - gather: one thread per column keeps its 8 rows of the table in shared
 //   memory and its 8 indexes in registers; (idx + i) & 7 is the floor mod;
-// - matmul: a block owns 32 rows x 64 columns and keeps its rows of a (f32)
-//   and of b (bf16) in shared memory for all K; each iteration adds i to a,
-//   rounds to bf16 (nearest even) and runs mma.sync m16n8k16 into a fresh
-//   f32 fragment, then adds the fragment to the running sum;
+// - matmul: 2 M N D bf16 operations an iteration on the tensor cores, plus
+//   the conversions of a + i.  Reading the operands from shared memory every
+//   iteration, as the first port did, cost more than the products (measured
+//   by stage, PERF.md), so nothing is read in the loop: 4 blocks of 2
+//   warpgroups share a tile of 64 rows x 128 columns, each warpgroup a slice
+//   of 64 dimensions, its a in registers (wgmma's A, rounded to bf16 each
+//   iteration) and its b in shared memory (wgmma's B), loaded once; 128
+//   blocks, one an SM; the two warpgroups of an SM take turns on the tensor
+//   cores, each converting its next A while its products run; the tile's
+//   sums meet once at the end;
 // - assembly: one thread per element, col and row read once.
 // All f32 arithmetic is built with --fmad=false, so each step rounds as in
 // the plain version.
@@ -99,90 +104,290 @@ gather_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
 
 // ---- matmul
 
-constexpr int kMmRows = 32, kMmCols = 64, kMmThreads = 128;
-constexpr int kMmPad = 8;  // row padding (elements): conflict-free fragment loads
+// stages of the timed build (experiments/prim_bench.py::MATMUL_STAGES)
+enum { kStLoad, kStConvert, kStMma, kStAcc, kStEpilogue, kStages };
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ uint32_t clock_now() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(t)::"memory");
+  return t;
+}
+
+// Per-warp clock cycles of each stage, in 32 bits (registers are what the
+// kernel lacks); ON = false compiles to nothing.  lap(s) charges the cycles
+// since the last lap to stage s.  An instruction's wait for its operands
+// falls in the stage that uses them.
+template <bool ON>
+struct StageClock {
+  uint32_t acc[kStages];
+  uint32_t last;
+  long long ns0;
+  __device__ __forceinline__ void start() {
+    if constexpr (ON) {
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) acc[s] = 0;
+      ns0 = global_ns();
+      last = clock_now();
+    }
+  }
+  __device__ __forceinline__ void lap(int s) {
+    if constexpr (ON) {
+      const uint32_t now = clock_now();
+      acc[s] += now - last;
+      last = now;
+    }
+  }
+  // lane 0 of each warp adds its sums to the block's row of `stages`; the
+  // longest warp's own cycles (its stages' sum: every cycle from the start
+  // to the last lap is some stage's) and nanoseconds stand for the block's
+  __device__ __forceinline__ void finish(long long* stages, int lane) {
+    if constexpr (ON) {
+      if (lane == 0) {
+        const int blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+        unsigned long long* r =
+            reinterpret_cast<unsigned long long*>(stages + (size_t)blk * (kStages + 2));
+        unsigned long long total = 0;
+#pragma unroll
+        for (int s = 0; s < kStages; ++s) {
+          atomicAdd(r + s, (unsigned long long)acc[s]);
+          total += acc[s];
+        }
+        atomicMax(r + kStages, total);
+        atomicMax(r + kStages + 1, (unsigned long long)(global_ns() - ns0));
+      }
+    }
+  }
+};
+
+// 4 blocks (blockIdx.x = 0 .. 3) own a tile of 64 rows x 128 columns of out
+// and split the dimensions 8 ways: warpgroup h of block x takes the slice s =
+// 2 x + h, dimensions [16 KS s, 16 KS (s + 1)) (KS k-steps of 16, D <= 128 KS).
+constexpr int kMmRows = 64, kMmCols = 128, kMmSplit = 4, kMmGroups = 2;
+constexpr int kMmThreads = 128 * kMmGroups;
+constexpr int kMmSlices = kMmSplit * kMmGroups;
+constexpr int kMmTile = kMmRows * kMmCols;          // floats of a block's sums
+constexpr int kMmChain = 4;                         // iterations a product's sum runs in C
+constexpr int kMmMaxKs = 4;                         // D <= 512
+constexpr int kMmChunk = kMmCols * 16;              // bytes of b's 8 dimensions (a core-matrix column)
+constexpr int kMmBBytes = 2 * kMmMaxKs * kMmChunk;  // a warpgroup's slice of b
+constexpr int kMmRedStride = kMmCols + 8;           // floats a row of the block's sums (padded)
+constexpr size_t kMmSmem = (size_t)kMmGroups * kMmBBytes + (size_t)kMmRows * kMmRedStride * 4;
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-size_t matmul_smem(int D) {
-  return (size_t)kMmRows * (D + kMmPad) * 4 + (size_t)kMmCols * (D + kMmPad) * 2;
+// Descriptor of a K-major operand without swizzle: core matrices of 8 rows x
+// 16 bytes, `kstride` bytes between core matrices adjacent in K (the leading
+// byte offset), `rstride` between 8-row groups (the stride byte offset).
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t kstride, uint32_t rstride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(kstride >> 4) << 16) |
+         ((uint64_t)(rstride >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of this warpgroup's committed product groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= A[64 x 16] . B[128 x 16]^T, bf16 x bf16 -> f32: A from registers
+// (a warp's 16 rows, as mma.sync m16n8k16's A), B K-major in shared memory;
+// d is overwritten where accumulate == 0
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // out[M, N] = sum_{i<K} bf16(a + i) . b^T; a (M, D) f32, b (N, D) bf16.
-// Warp w computes rows 16 (w & 1) and columns 32 (w >> 1) of the block's tile.
-__global__ void __launch_bounds__(kMmThreads)
+// Warpgroup h of a block holds its slice of a (64 rows x 16 KS dimensions,
+// f32) in registers as wgmma's A fragments, and its slice of b (128 columns x
+// 16 KS dimensions) in shared memory as wgmma's K-major B, both loaded once;
+// each iteration it adds i, packs its A fragments to bf16 and runs KS wgmma
+// m64n128k16 into a product whose sum runs in wgmma's C for kMmChain
+// iterations (a chain's first k-step zeroes it), then adds the product into
+// its f32 sum: the same products as the plain version's, summed in another
+// order, and no chain of the tensor cores' sums grows with K.  The two
+// warpgroups of a block run the same steps out of phase, so one's
+// conversions and adds overlap the other's products.  After the loop the two
+// warpgroups' sums meet in shared memory; each block then publishes its
+// tile's sums in `part` (tile, x) and counts itself in `count` (tile, zeroed
+// by the caller), and the tile's last block to arrive adds the 4 in order of
+// x and writes them (no block waits for another).  Dimensions past D meet
+// zeros of b; rows past M are neither read nor written.  TIMED: the
+// stage-timed build (the same arithmetic, so the same output).
+template <int KS, bool TIMED>
+__global__ void __launch_bounds__(kMmThreads, 1)
 matmul_kernel(const float* __restrict__ a, const uint16_t* __restrict__ b,
-              float* __restrict__ out, int M, int N, int D, int K) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int as = D + kMmPad;
-  float* a_s = reinterpret_cast<float*>(smem);
-  uint16_t* b_s = reinterpret_cast<uint16_t*>(smem + (size_t)kMmRows * as * 4);
-  const int row0 = blockIdx.x * kMmRows, col0 = blockIdx.y * kMmCols;
-  for (int t = threadIdx.x; t < kMmRows * D; t += kMmThreads) {
-    const int r = t / D, k = t % D;
-    a_s[r * as + k] = row0 + r < M ? a[(size_t)(row0 + r) * D + k] : 0.0f;
-  }
-  for (int t = threadIdx.x; t < kMmCols * D; t += kMmThreads) {
-    const int n = t / D, k = t % D;
-    b_s[n * as + k] = b[(size_t)(col0 + n) * D + k];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+              float* __restrict__ out, float* __restrict__ part, int* __restrict__ count,
+              int M, int N, int D, int K, long long* __restrict__ stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
+  StageClock<TIMED> clk;
+  clk.start();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wgi = tid >> 7, w = (tid >> 5) & 3;
   const int g = lane >> 2, q = lane & 3;
-  const int wr = (warp & 1) * 16, wc = (warp >> 1) * 32;
-  const float* a0 = a_s + (wr + g) * as + 2 * q;
-  const float* a1 = a0 + 8 * as;
-  float acc[4][4];
+  const int row0 = blockIdx.z * kMmRows, col0 = blockIdx.y * kMmCols;
+  const int tile = blockIdx.z * gridDim.y + blockIdx.y;
+  const int dbase = 16 * KS * (2 * (int)blockIdx.x + wgi);  // the warpgroup's first dimension
+  unsigned char* bs = smem + (size_t)wgi * kMmBBytes;
+  float* red = reinterpret_cast<float*>(smem + (size_t)kMmGroups * kMmBBytes);
+  // b's slice: bs[c][n][8 bf16] (core-matrix column c = dimensions dbase + 8 c),
+  // zero past D
+  for (int t = tid & 127; t < 2 * KS * kMmCols; t += 128) {
+    const int n = t % kMmCols, c = t / kMmCols, d = dbase + 8 * c;
+    *reinterpret_cast<uint4*>(bs + (size_t)c * kMmChunk + 16 * n) =
+        d < D ? __ldg(reinterpret_cast<const uint4*>(b + (size_t)(col0 + n) * D + d))
+              : make_uint4(0u, 0u, 0u, 0u);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // A fragments of k-step ks: rows 16 w + g and + 8, dimensions dbase + 16 ks
+  // + 2 q (+1) and + 8 (+9): av[ks] = {(g, k), (g, k+1), (g+8, k), (g+8,
+  // k+1), then the same at k + 8}
+  const int r0 = row0 + 16 * w + g, r1 = r0 + 8;
+  float av[KS][8];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) acc[nt][u] = 0.0f;
-  for (int i = 0; i < K; ++i) {
-    const float fi = (float)i;
-    float prod[4][4];
+    for (int h = 0; h < 2; ++h) {
+      const int d = dbase + 16 * ks + 8 * h + 2 * q;
+      const bool okd = d < D;
+      const float2* p0 = reinterpret_cast<const float2*>(a + (size_t)r0 * D + d);
+      const float2* p1 = reinterpret_cast<const float2*>(a + (size_t)r1 * D + d);
+      const float2 x0 = okd && r0 < M ? __ldg(p0) : make_float2(0.0f, 0.0f);
+      const float2 x1 = okd && r1 < M ? __ldg(p1) : make_float2(0.0f, 0.0f);
+      av[ks][4 * h] = x0.x;
+      av[ks][4 * h + 1] = x0.y;
+      av[ks][4 * h + 2] = x1.x;
+      av[ks][4 * h + 3] = x1.y;
+    }
+  uint64_t db[KS];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+  for (int ks = 0; ks < KS; ++ks) db[ks] = wg_desc(bs + (size_t)2 * ks * kMmChunk, kMmChunk, 128);
+  float acc[64], prod[64];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) prod[nt][u] = 0.0f;
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      const float2 v00 = *reinterpret_cast<const float2*>(a0 + k0);
-      const float2 v10 = *reinterpret_cast<const float2*>(a1 + k0);
-      const float2 v01 = *reinterpret_cast<const float2*>(a0 + k0 + 8);
-      const float2 v11 = *reinterpret_cast<const float2*>(a1 + k0 + 8);
-      const uint32_t af[4] = {pack_bf16x2(v00.x + fi, v00.y + fi), pack_bf16x2(v10.x + fi, v10.y + fi),
-                              pack_bf16x2(v01.x + fi, v01.y + fi), pack_bf16x2(v11.x + fi, v11.y + fi)};
+  for (int j = 0; j < 64; ++j) acc[j] = prod[j] = 0.0f;
+  __syncthreads();
+  clk.lap(kStLoad);
+  // a product's sum runs in wgmma's C for kMmChain iterations, then is added
+  // into the f32 sum; A is double-buffered, so a warpgroup issues iteration
+  // i + 1's products before iteration i's have ended
+  uint32_t af[2][KS][4];
+  for (int i0 = 0; i0 < K; i0 += kMmChain) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint16_t* bp = b_s + (wc + nt * 8 + g) * as + k0 + 2 * q;
-        const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(bp),
-                                *reinterpret_cast<const uint32_t*>(bp + 8)};
-        mma_bf16(prod[nt], af, bf);
+    for (int j = 0; j < kMmChain; ++j) {
+      if (i0 + j < K) {
+        const float fi = (float)(i0 + j);
+        wg_wait<1>();  // the products that read af[j & 1] (iteration i - 2) have ended
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          af[j & 1][ks][0] = pack_bf16x2(av[ks][0] + fi, av[ks][1] + fi);
+          af[j & 1][ks][1] = pack_bf16x2(av[ks][2] + fi, av[ks][3] + fi);
+          af[j & 1][ks][2] = pack_bf16x2(av[ks][4] + fi, av[ks][5] + fi);
+          af[j & 1][ks][3] = pack_bf16x2(av[ks][6] + fi, av[ks][7] + fi);
+        }
+        clk.lap(kStConvert);
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) wgmma_n128(prod, af[j & 1][ks], db[ks], j > 0 || ks > 0);
+        wg_commit();
+        clk.lap(kStMma);
       }
     }
+    wg_wait<0>();
+    clk.lap(kStMma);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[nt][u] = acc[nt][u] + prod[nt][u];
+    for (int u = 0; u < 64; ++u) acc[u] = acc[u] + prod[u];
+    clk.lap(kStAcc);
   }
-  const int r0 = row0 + wr + g, r1 = r0 + 8;
+  // the block's sum: warpgroup 1's into `red`, then warpgroup 0 adds its own
+  // (acc[4 t + u]: row 16 w + g + 8 (u >> 1), column 8 t + 2 q + (u & 1))
+  float* rp = red + (size_t)(16 * w + g) * kMmRedStride + 2 * q;
+  if (wgi == 1) {
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = col0 + wc + nt * 8 + 2 * q;
-    if (r0 < M) *reinterpret_cast<float2*>(out + (size_t)r0 * N + col) = make_float2(acc[nt][0], acc[nt][1]);
-    if (r1 < M) *reinterpret_cast<float2*>(out + (size_t)r1 * N + col) = make_float2(acc[nt][2], acc[nt][3]);
+    for (int t = 0; t < 16; ++t) {
+      *reinterpret_cast<float2*>(rp + 8 * t) = make_float2(acc[4 * t], acc[4 * t + 1]);
+      *reinterpret_cast<float2*>(rp + 8 * kMmRedStride + 8 * t) =
+          make_float2(acc[4 * t + 2], acc[4 * t + 3]);
+    }
   }
+  __syncthreads();
+  if (wgi == 0) {
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      float2* p0 = reinterpret_cast<float2*>(rp + 8 * t);
+      float2* p1 = reinterpret_cast<float2*>(rp + 8 * kMmRedStride + 8 * t);
+      const float2 v0 = *p0, v1 = *p1;
+      *p0 = make_float2(acc[4 * t] + v0.x, acc[4 * t + 1] + v0.y);
+      *p1 = make_float2(acc[4 * t + 2] + v1.x, acc[4 * t + 3] + v1.y);
+    }
+  }
+  // the tile's sum: publish the block's, count it; the last block adds all 4
+  __syncthreads();
+  float* mine = part + ((size_t)tile * kMmSplit + blockIdx.x) * kMmTile;
+  for (int t = tid; t < kMmTile / 4; t += kMmThreads) {
+    const int r = t / (kMmCols / 4), c = 4 * (t % (kMmCols / 4));
+    __stcg(reinterpret_cast<float4*>(mine + r * kMmCols + c),
+           *reinterpret_cast<const float4*>(red + (size_t)r * kMmRedStride + c));
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(count + tile, 1) == kMmSplit - 1;
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    const float* tp = part + (size_t)tile * kMmSplit * kMmTile;
+    for (int t = tid; t < kMmTile / 4; t += kMmThreads) {
+      const int r = t / (kMmCols / 4), c = 4 * (t % (kMmCols / 4));
+      float4 sum = __ldcg(reinterpret_cast<const float4*>(tp + r * kMmCols + c));
+#pragma unroll
+      for (int x = 1; x < kMmSplit; ++x) {
+        const float* px = tp + x * kMmTile + r * kMmCols + c;
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(px));
+        sum = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+      }
+      if (row0 + r < M) *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * N + col0 + c) = sum;
+    }
+  }
+  clk.lap(kStEpilogue);
+  clk.finish(stages, lane);
 }
 
 // ---- assembly
@@ -222,20 +427,88 @@ extern "C" int qtt_gather_launch(const void* x, const void* idx, void* out, int 
   return (int)cudaGetLastError();
 }
 
-// a: (M, D) f32; b: (N, D) bf16; out: (M, N) f32.  N % 64 == 0, D % 16 == 0
-// and D small enough for the shared memory are checked by the caller.
-extern "C" int qtt_matmul_launch(const void* a, const void* b, void* out, int M, int N, int D,
-                                 int K, void* stream) {
+namespace {
+
+// the kernel for D's k-steps a warpgroup (D <= 128 KS)
+template <bool TIMED>
+const void* matmul_fn(int D) {
+  const int ks = (D + 16 * kMmSlices - 1) / (16 * kMmSlices);
+  if (ks <= 1) return (const void*)matmul_kernel<1, TIMED>;
+  if (ks == 2) return (const void*)matmul_kernel<2, TIMED>;
+  if (ks == 3) return (const void*)matmul_kernel<3, TIMED>;
+  return (const void*)matmul_kernel<kMmMaxKs, TIMED>;
+}
+
+// x: the dimension slices' block, y: columns, z: rows
+dim3 matmul_grid(int M, int N) {
+  return dim3(kMmSplit, N / kMmCols, (M + kMmRows - 1) / kMmRows);
+}
+
+template <bool TIMED>
+int matmul_launch(const void* a, const void* b, void* out, void* part, void* count, int M, int N,
+                  int D, int K, void* stages, void* stream) {
   if (M > 0) {
-    const size_t smem = matmul_smem(D);
-    const cudaError_t err = cudaFuncSetAttribute(
-        matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const void* fn = matmul_fn<TIMED>(D);
+    cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMmSmem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((M + kMmRows - 1) / kMmRows, N / kMmCols);
-    matmul_kernel<<<grid, kMmThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)a, (const uint16_t*)b, (float*)out, M, N, D, K);
+    const float* a_ = (const float*)a;
+    const uint16_t* b_ = (const uint16_t*)b;
+    float* o_ = (float*)out;
+    float* p_ = (float*)part;
+    int* c_ = (int*)count;
+    long long* s_ = (long long*)stages;
+    void* args[] = {(void*)&a_, (void*)&b_, (void*)&o_, (void*)&p_, (void*)&c_, (void*)&M,
+                    (void*)&N, (void*)&D, (void*)&K, (void*)&s_};
+    err = cudaLaunchKernel(fn, matmul_grid(M, N), dim3(kMmThreads), args, kMmSmem,
+                           (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// a: (M, D) f32; b: (N, D) bf16; out: (M, N) f32; part: tiles x 4 x 64 x 128
+// floats of scratch and count: tiles zeroed ints, tiles = ceil(M / 64) x (N /
+// 128).  N % 128 == 0, D % 16 == 0 and D <= 512 are checked by the caller.
+extern "C" int qtt_matmul_launch(const void* a, const void* b, void* out, void* part, void* count,
+                                 int M, int N, int D, int K, void* stream) {
+  return matmul_launch<false>(a, b, out, part, count, M, N, D, K, nullptr, stream);
+}
+
+// The stage-timed build: the arguments of qtt_matmul_launch, then stages, a
+// zeroed (blocks, 7) int64 buffer.  Per block it receives the clock cycles
+// of each stage summed over the block's warps (load, convert, mma, acc,
+// epilogue), then the longest warp's own cycles and %globaltimer
+// nanoseconds, from the kernel's start.
+extern "C" int qtt_matmul_timed_launch(const void* a, const void* b, void* out, void* part,
+                                       void* count, int M, int N, int D, int K, void* stages,
+                                       void* stream) {
+  if (!stages) return (int)cudaErrorInvalidValue;
+  return matmul_launch<true>(a, b, out, part, count, M, N, D, K, stages, stream);
+}
+
+// Registers a thread, resident blocks an SM, threads a block and blocks of
+// the grid of the matmul kernel (its stage-timed build where timed != 0) for
+// (M, N, D), into out[0..3].
+extern "C" int qtt_matmul_occupancy(int timed, int M, int N, int D, void* out) {
+  const void* fn = timed ? matmul_fn<true>(D) : matmul_fn<false>(D);
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)kMmSmem);
+  if (!err) err = (int)cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kMmThreads, kMmSmem);
+  if (err) return err;
+  const dim3 grid = matmul_grid(M, N);
+  int* o = (int*)out;
+  o[0] = attr.numRegs;
+  o[1] = blocks;
+  o[2] = kMmThreads;
+  o[3] = (int)(grid.x * grid.y * grid.z);
+  return 0;
 }
 
 // x, out: (rows, cols) f32.

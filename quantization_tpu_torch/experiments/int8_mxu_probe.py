@@ -17,9 +17,9 @@ after, for "bf16", a prologue that splits c:
   that arithmetic in plain PyTorch), in pairs of blocks that each take
   half of the split c;
 - the int8 chain: E as int8 with per-row f32 scales, requantized every
-  step, c as ``round(c * 127)``; the second product's left side is
-  ``round(cross / max|cross| * 127)`` with the max over the WHOLE (2048,
-  256) matrix, taken in the middle of every step, so the kernel is one
+  step, c as ``round(c * 127)`` saturated to int8; the second product's
+  left side is ``round(cross / max|cross| * 127)`` with the max over the
+  WHOLE (2048, 256) matrix, taken in the middle of every step, so the kernel is one
   cooperative launch with a grid-wide barrier per step.  Blocks of 16 rows
   run both products on int8 ``wgmma``, with c8 held in both K-major layouts
   (shared memory and registers); the barrier is a slot a block carrying a
@@ -124,6 +124,14 @@ def bf16_chain_split_model(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS)
     return eb.float()
 
 
+def round_to_int8(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded half to even and converted to int8 as
+    ``jnp.round(x).astype(jnp.int8)`` converts: saturated to [-128, 127] (a
+    bare ``.to(torch.int8)`` keeps the low byte, so 200 would give -56), NaN
+    to 0."""
+    return torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+
+
 def _requant(ef: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row int8 quantization: scale max|row| * f32(1/127), values
     round(ef / scale) half to even."""
@@ -142,10 +150,10 @@ def int8_chain_plain(e: torch.Tensor, c: torch.Tensor, steps: int = STEPS) -> to
     arithmetic; every integer product is exact, so the kernel equals it."""
     ef = e
     e8, s = _requant(ef)
-    c8 = torch.round(c * 127.0).to(torch.int8)
+    c8 = round_to_int8(c * 127.0)
     for _ in range(steps):
         cross = (_int_product(e8, c8.T) * s) * INV127
-        q8 = torch.round(cross / cross.abs().max() * 127.0).to(torch.int8)
+        q8 = round_to_int8(cross / cross.abs().max() * 127.0)
         upd = _int_product(q8, c8) * 1e-9
         ef = e8.float() * s + upd
         e8, s = _requant(ef)

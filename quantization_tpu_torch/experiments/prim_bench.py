@@ -21,7 +21,12 @@ kernel's arithmetic, and the kernel (``*_cuda``); the dispatcher of each
 probe runs the kernel on a CUDA tensor and the plain version on a CPU
 tensor.
 
-Run on the card:  python -m quantization_tpu_torch.experiments.prim_bench
+The matmul's stage-timed build (:func:`matmul_stages`, its own entry point
+and count) says where an iteration's time goes.
+
+Run on the card:  python -m quantization_tpu_torch.experiments.prim_bench [--stages]
+(``--stages``: the matmul's ``[matmul stages]`` line in place of the probes'
+times)
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from ..ops.cuda_build import CudaKernel
+from ..ops.cuda_build import CFunction, CudaKernel
 from ..utils.device import device_ms, dispatch, nvidia_smi_line
 
 INF = 1e30
@@ -49,17 +54,29 @@ MINROUND_KERNEL = CudaKernel(
 GATHER_KERNEL = CudaKernel(
     "prim_bench", "qtt_gather_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_void_p])
+# a, b, out, part, count, M, N, D, K, stream
 MATMUL_KERNEL = CudaKernel(
-    "prim_bench", "qtt_matmul_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    "prim_bench", "qtt_matmul_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_void_p])
+# the matmul's stage-timed build: the launch's arguments, then the stage buffer
+MATMUL_TIMED_KERNEL = CudaKernel(
+    "prim_bench", "qtt_matmul_timed_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 2)
+MATMUL_OCCUPANCY = CFunction("prim_bench", "qtt_matmul_occupancy",
+                             [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# the timed build's stages, in the order of its buffer's columns
+MATMUL_STAGES = ("load", "convert", "mma", "acc", "epilogue")
 ASSEMBLY_KERNEL = CudaKernel(
     "prim_bench", "qtt_assembly_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
     + [ctypes.c_void_p])
 KERNELS = {"minround": MINROUND_KERNEL, "gather": GATHER_KERNEL, "matmul": MATMUL_KERNEL,
            "assembly": ASSEMBLY_KERNEL}
 
-MATMUL_COLS_BLOCK = 64  # csrc/prim_bench.cu: a block's columns of the product
-MATMUL_MAX_D = 896  # the rows of a and b a block keeps in shared memory
+# csrc/prim_bench.cu: a tile of the product (rows, columns), whose sum over
+# the dimensions MATMUL_SPLIT blocks share
+MATMUL_TILE = (64, 128)
+MATMUL_SPLIT = 4
+MATMUL_MAX_D = 512  # 8 warpgroups x 4 k-steps of 16: what the tile's registers hold
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -150,22 +167,84 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
     return acc
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
-    """The kernel (``mma.sync`` m16n8k16 bf16, b in shared memory) on the
-    same inputs as :func:`matmul_plain`."""
-    _check_cuda("matmul_cuda", a, b)
+def _matmul_args(name: str, a: torch.Tensor, b: torch.Tensor):
+    _check_cuda(name, a, b)
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"expected (M, D) and (N, D), got {tuple(a.shape)}, {tuple(b.shape)}")
     M, D = a.shape
     N = b.shape[0]
     if a.dtype != torch.float32 or b.dtype != torch.bfloat16 or b.shape != (N, D):
         raise ValueError(f"expected (M, D) float32 and (N, D) bfloat16, got {a.dtype} "
                          f"{tuple(a.shape)}, {b.dtype} {tuple(b.shape)}")
-    if N % MATMUL_COLS_BLOCK or D % 16 or D > MATMUL_MAX_D:
-        raise ValueError(f"matmul_cuda takes N % {MATMUL_COLS_BLOCK} == 0 and D % 16 == 0, "
+    if N % MATMUL_TILE[1] or D % 16 or D > MATMUL_MAX_D:
+        raise ValueError(f"{name} takes N % {MATMUL_TILE[1]} == 0 and D % 16 == 0, "
                          f"D <= {MATMUL_MAX_D}; got N={N}, D={D}")
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty(M, N, dtype=torch.float32, device=a.device)
-    MATMUL_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, D, K, _stream(a))
+    return a.contiguous(), b.contiguous(), M, N, D
+
+
+def _matmul_scratch(M: int, N: int, device: torch.device):
+    """The output, the blocks' partial sums and the tiles' zeroed counts."""
+    tiles = -(-M // MATMUL_TILE[0]) * (N // MATMUL_TILE[1])
+    return (torch.empty(M, N, dtype=torch.float32, device=device),
+            torch.empty(tiles * MATMUL_SPLIT * MATMUL_TILE[0] * MATMUL_TILE[1],
+                        dtype=torch.float32, device=device),
+            torch.zeros(tiles, dtype=torch.int32, device=device))
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel (``wgmma`` bf16 with A from registers; each tile's
+    dimensions split across 4 blocks of 2 warpgroups) on the same inputs as
+    :func:`matmul_plain`."""
+    a, b, M, N, D = _matmul_args("matmul_cuda", a, b)
+    out, part, count = _matmul_scratch(M, N, a.device)
+    MATMUL_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), count.data_ptr(),
+                  M, N, D, K, _stream(a))
     return out
+
+
+def matmul_occupancy(M: int, N: int, D: int, timed: bool = False) -> dict:
+    """Registers a thread, resident blocks an SM, threads a block and the
+    grid's blocks of the matmul kernel for (M, N, D) (of its stage-timed
+    build where ``timed``), from the CUDA runtime."""
+    out = (ctypes.c_int * 4)()
+    err = MATMUL_OCCUPANCY(int(timed), M, N, D, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"qtt_matmul_occupancy failed: CUDA error {err}")
+    return {"registers": out[0], "blocks_per_sm": out[1], "threads_per_block": out[2],
+            "blocks": out[3]}
+
+
+def _matmul_timed(a: torch.Tensor, b: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the stage-timed build: its output and its (blocks,
+    len(MATMUL_STAGES) + 2) int64 buffer, without waiting for either."""
+    a, b, M, N, D = _matmul_args("matmul_stages", a, b)
+    out, part, count = _matmul_scratch(M, N, a.device)
+    stages = torch.zeros(count.numel() * MATMUL_SPLIT, len(MATMUL_STAGES) + 2,
+                         dtype=torch.int64, device=a.device)
+    MATMUL_TIMED_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        count.data_ptr(), M, N, D, K, stages.data_ptr(), _stream(a))
+    return out, stages
+
+
+def matmul_stages(a: torch.Tensor, b: torch.Tensor, K: int) -> Tuple[torch.Tensor, dict]:
+    """The stage-timed build of the matmul kernel on the same inputs as
+    :func:`matmul_cuda`: the same output, and per stage of
+    :data:`MATMUL_STAGES` its share of the warps' summed clock cycles and a
+    warp's mean cycles an iteration (the stage's cycles over K, so the
+    prologue's and the epilogue's one pass is spread over the K iterations;
+    the slope between two K in :func:`stages_line` cancels it).  CUDA
+    tensors only."""
+    out, stages = _matmul_timed(a, b, K)
+    occ = matmul_occupancy(a.shape[0], b.shape[0], a.shape[1], timed=True)
+    st = stages.double().cpu()
+    n = len(MATMUL_STAGES)
+    cyc = st[:, :n].sum(0) / (st.shape[0] * (occ["threads_per_block"] // 32))
+    return out, {
+        "blocks": st.shape[0], "ghz": float(st[:, n].sum() / st[:, n + 1].sum()),
+        "warp_cycles": {k: float(v) for k, v in zip(MATMUL_STAGES, cyc)},
+        "share": {k: float(v) for k, v in zip(MATMUL_STAGES, cyc / cyc.sum())},
+        "clocks_per_iteration": {k: float(v) / max(K, 1) for k, v in zip(MATMUL_STAGES, cyc)},
+    }
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
@@ -275,12 +354,53 @@ def slope_us(fn: Callable[[int], object], K1: int, K2: int, reps: int = 20) -> f
     return (t2 - t1) / (K2 - K1) * 1e3
 
 
-def main() -> int:
+def stages_line(a: torch.Tensor, b: torch.Tensor, Ks: Tuple[int, int] = (16, 48)
+                ) -> Tuple[str, dict]:
+    """The ``[matmul stages]`` line for the matmul kernel on (a, b) at both
+    K, and its numbers: the timed build's output must equal the shipped
+    kernel's at each K (else this raises); each stage's share of the warps'
+    cycles at each K and its clocks an iteration, a warp's cycles at K2
+    less those at K1 over K2 - K1 (the slope, as the probe's time); the
+    timed build's us an iteration beside the kernel's; registers and blocks
+    an SM."""
+    K1, K2 = Ks
+    br = {}
+    for K in Ks:
+        got, br[K] = matmul_stages(a, b, K)
+        if not torch.equal(got, matmul_cuda(a, b, K)):
+            raise RuntimeError(
+                f"the stage-timed matmul's output differs from the kernel's at K={K}")
+    occ = matmul_occupancy(a.shape[0], b.shape[0], a.shape[1])
+    slope = {k: (br[K2]["warp_cycles"][k] - br[K1]["warp_cycles"][k]) / (K2 - K1)
+             for k in MATMUL_STAGES}
+    out = {"by_K": {str(K): br[K] for K in Ks}, "clocks_per_iteration": slope,
+           "ghz": br[K2]["ghz"], "blocks": br[K2]["blocks"], **occ,
+           "timed_us": slope_us(lambda K: _matmul_timed(a, b, K), K1, K2),
+           "kernel_us": slope_us(lambda K: matmul_cuda(a, b, K), K1, K2)}
+    total = sum(slope.values())
+    line = (f"[matmul stages] {out['blocks']} blocks, {out['ghz']:.3f} GHz, "
+            f"{occ['registers']} registers, {occ['blocks_per_sm']} block(s) an SM of "
+            f"{occ['threads_per_block'] // 32} warps; timed {out['timed_us']:.5f} us vs "
+            f"{out['kernel_us']:.5f} us an iteration; " + "; ".join(
+                f"K={K}: " + ", ".join(f"{k} {100 * br[K]['share'][k]:.1f}%"
+                                       for k in MATMUL_STAGES) for K in Ks)
+            + f"; a warp's clocks an iteration (K={K2} less K={K1}): " + ", ".join(
+                f"{k} {slope[k]:.0f}" for k in MATMUL_STAGES) + f", total {total:.0f}")
+    return line, out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("prim_bench: no CUDA device is available; the probes run only on a card",
               file=sys.stderr)
         return 2
-    for p in probes(torch.device("cuda")):
+    ps = probes(torch.device("cuda"))
+    if "--stages" in argv:
+        print(stages_line(*ps[2].inputs)[0], flush=True)
+        print(nvidia_smi_line(), flush=True)
+        return 0
+    for p in ps:
         print(f"{p.label}: {slope_us(p.run, *p.Ks):9.4f} {p.unit}", flush=True)
     print(nvidia_smi_line(), flush=True)
     return 0

@@ -446,14 +446,38 @@ def test_cuda_gather_bit_exact_vs_plain(cuda, N, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1024, 1000])
-def test_cuda_matmul_matches_plain(cuda, M):
-    a = _uniform(cuda, 4, M, 512)
-    b = _uniform(cuda, 5, 256, 512).to(torch.bfloat16)
+# 256 and 400: fewer k-steps a warp, and dimensions past D in a warp's slice
+@pytest.mark.parametrize("M,D", [(1024, 512), (1000, 512), (1024, 256), (1000, 400)])
+def test_cuda_matmul_matches_plain(cuda, M, D):
+    a = _uniform(cuda, 4, M, D)
+    b = _uniform(cuda, 5, 256, D).to(torch.bfloat16)
     for K in (16, 48):
         got = _launched_once(tprim.MATMUL_KERNEL, lambda: tprim.matmul_cuda(a, b, K))
         # the same products in mma.sync order: within 1e-5 of the sum of |terms|
         assert tprim.matmul_close(got, tprim.matmul_plain(a, b, K), a, b, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,D", [(192, 512), (256, 520), (256, 8), (256, 640)])
+def test_cuda_matmul_refuses_shapes_it_does_not_take(cuda, N, D):
+    a = _uniform(cuda, 4, 64, D)
+    b = _uniform(cuda, 5, N, D).to(torch.bfloat16)
+    before = tprim.MATMUL_KERNEL.launches
+    with pytest.raises(ValueError, match="matmul_cuda takes"):
+        tprim.matmul_cuda(a, b, 2)
+    assert tprim.MATMUL_KERNEL.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1024, 1000])
+def test_cuda_matmul_stage_timed_build_same_output(cuda, M):
+    a = _uniform(cuda, 4, M, 512)
+    b = _uniform(cuda, 5, 256, 512).to(torch.bfloat16)
+    for K in (16, 48):
+        got, br = _launched_once(tprim.MATMUL_TIMED_KERNEL, lambda: tprim.matmul_stages(a, b, K))
+        assert torch.equal(got, tprim.matmul_cuda(a, b, K))
+        assert set(br["share"]) == set(tprim.MATMUL_STAGES)
+        assert all(br["warp_cycles"][k] > 0 for k in ("load", "convert", "mma"))
 
 
 @pytest.mark.gpu
@@ -465,10 +489,10 @@ def test_cuda_assembly_bit_exact_vs_plain(cuda, rows):
         assert torch.equal(got, tprim.assembly_plain(x, K))
 
 
-def _chain_inputs(cuda, MB, D=512, CS=256):
+def _chain_inputs(cuda, MB, D=512, CS=256, c_scale=0.05):
     gen = torch.Generator().manual_seed(7)
     e = torch.randn(MB, D, generator=gen).to(cuda)
-    return e, (torch.randn(CS, D, generator=gen) * 0.05).to(cuda)
+    return e, (torch.randn(CS, D, generator=gen) * c_scale).to(cuda)
 
 
 # 1000: not a multiple of a block's rows; 2112: 132 blocks of 16 rows, 66
@@ -511,6 +535,17 @@ def test_cuda_int8_chain_bit_exact_vs_plain(cuda, MB, D, CS, steps):
     e, c = _chain_inputs(cuda, MB, D, CS)
     got = _launched_once(tprobe.INT8_CHAIN_KERNEL, lambda: tprobe.int8_chain_cuda(e, c, steps))
     assert torch.equal(got, tprobe.int8_chain_plain(e, c, steps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("MB,D,CS", [(2048, 512, 256), (1000, 320, 64)])
+def test_cuda_int8_chain_saturates_c8_as_plain(cuda, MB, D, CS):
+    # c = 0.5 N(0, 1): c * 127 leaves int8's range, and the prologue
+    # saturates c8 as the plain version (and JAX) do
+    e, c = _chain_inputs(cuda, MB, D, CS, c_scale=0.5)
+    assert int(((c * 127.0).round().abs() > 127).sum()) > 100
+    got = _launched_once(tprobe.INT8_CHAIN_KERNEL, lambda: tprobe.int8_chain_cuda(e, c))
+    assert torch.equal(got, tprobe.int8_chain_plain(e, c))
 
 
 @pytest.mark.gpu

@@ -125,14 +125,14 @@ def test_assembly_plain_bit_exact_vs_jax(K):
     assert np.isfinite(want).all() == (K == 8)
 
 
-def _chain_inputs(seed, tiny_frac=0.0, shape=(64, 128, 32)):
-    """E (MB, D) normal and c (CS, D) normal x 0.05, the script's
-    distributions, with a share ``tiny_frac`` of E's elements scaled by
-    1e-5; ``shape`` is (MB, D, CS)."""
+def _chain_inputs(seed, tiny_frac=0.0, shape=(64, 128, 32), c_scale=0.05):
+    """E (MB, D) normal and c (CS, D) normal x ``c_scale`` (0.05: the
+    script's distributions), with a share ``tiny_frac`` of E's elements
+    scaled by 1e-5; ``shape`` is (MB, D, CS)."""
     mb, d, cs = shape
     rng = np.random.default_rng(seed)
     e = rng.standard_normal((mb, d)).astype(np.float32)
-    c = (rng.standard_normal((cs, d)) * 0.05).astype(np.float32)
+    c = (rng.standard_normal((cs, d)) * c_scale).astype(np.float32)
     if tiny_frac:
         e = np.where(rng.random(e.shape) < tiny_frac, e * 1e-5, e).astype(np.float32)
     return e, c
@@ -172,6 +172,26 @@ def test_chain_plain_vs_jax(chain, shape):
         assert (plain(torch.from_numpy(e), c16).numpy() != want).sum() > 100
 
 
+@pytest.mark.parametrize("c_scale", [0.5, 1.0])
+def test_int8_chain_plain_saturates_c8_as_jax(c_scale):
+    # c * 127 beyond int8's range: JAX saturates c8 (200 -> 127), and so
+    # must the port, where a bare cast would keep the low byte (200 -> -56)
+    e, c = _chain_inputs(50, shape=(64, 128, 32), c_scale=c_scale)
+    assert (np.abs(np.round(c * np.float32(127.0))) > 127).sum() > 100
+    want = _chain_interpret(_mxu_probe().int8_kernel, e, c)
+    got = tprobe.int8_chain(torch.from_numpy(e), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_round_to_int8_saturates_as_jax():
+    x = np.array([200.0, -200.0, 128.6, -128.6, 127.5, -127.5, 1e10, -1e10, 3.5, -2.5],
+                 np.float32)
+    want = np.array(jnp.round(jnp.asarray(x)).astype(jnp.int8))
+    got = tprobe.round_to_int8(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [127, -128, 127, -128, 127, -128, 127, -128, 4, -2])
+
+
 def test_dispatch_runs_the_plain_version_on_the_cpu():
     x = torch.rand(8, 128, generator=torch.Generator().manual_seed(0)) + 1.0
     e = torch.randn(32, 64, generator=torch.Generator().manual_seed(1))
@@ -196,6 +216,16 @@ def test_int8_chain_stages_refuses_cpu_tensors():
         tprobe.int8_chain_stages(e, c, 2)
     assert counts == [k.launches
                       for k in (tprobe.INT8_CHAIN_TIMED_KERNEL, tprobe.INT8_BARRIER_KERNEL)]
+
+
+def test_matmul_stages_refuses_cpu_tensors():
+    # the stage-timed build exists only on the card: no plain version stands in
+    a = torch.rand(32, 64, generator=torch.Generator().manual_seed(1))
+    b = torch.rand(64, 64, generator=torch.Generator().manual_seed(2)).to(torch.bfloat16)
+    counts = [k.launches for k in (tprim.MATMUL_TIMED_KERNEL, tprim.MATMUL_KERNEL)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tprim.matmul_stages(a, b, 2)
+    assert counts == [k.launches for k in (tprim.MATMUL_TIMED_KERNEL, tprim.MATMUL_KERNEL)]
 
 
 def test_probes_exit_nonzero_without_a_card(capsys):
