@@ -92,7 +92,13 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    warps' cycles and its microseconds a block-step, with registers and
    blocks an SM, and its barrier floor (its grid running its 24 barriers
    and no other work) beside its bound; a chain must launch its own
-   kernel and no other.
+   kernel and no other.  P1 and P2 print their floors beside their bounds
+   (``floor_ms``): P1's ``[floor minround]``, a chain of warp-wide
+   reductions on its grid (measured), with its fixed cost a call
+   (``fixed_ms``: the device time at the first K less its rounds); P2's
+   ``[floor gather]``, its shared loads from fixed rows with no index math
+   (measured), beside the rate the SMs serve them (computed, on that line
+   only).  Each floor kernel's output is checked before it is timed.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -709,10 +715,25 @@ def probe_phase(dev) -> list:
             "library_ms": _matmul_library_ms(*p.inputs) if p.name == "matmul" else None,
         }
         entries.append(entry)
+        floor_line = None
+        if p.name == "minround":
+            # the floor of one warp-wide reduction a round, measured; the
+            # fixed cost a call, which the slope does not see
+            floor_line, fl = P14.minround_floor_line(p.inputs[0], us, p.Ks)
+            entry.update(floor_ms=fl["floor_us"] * 1e-3, fixed_ms=fl["fixed_us"] * 1e-3)
+        elif p.name == "gather":
+            # the floor of one shared-memory load a gather, measured
+            floor_line, fl = P14.gather_floor_line(*p.inputs, us, p.Ks)
+            entry["floor_ms"] = fl["floor_us"] * 1e-3
         print(f"[probe {p.name}] {p.label}: {us:.5f} {p.unit} (plain "
               f"{entry['plain_ms'] * 1e3:.5f}, bound {entry['bound_ms'] * 1e3:.5f}"
+              + (f", floor {entry['floor_ms'] * 1e3:.5f}" if "floor_ms" in entry else "")
+              + (f", fixed {entry['fixed_ms'] * 1e3:.3f} us a call" if "fixed_ms" in entry
+                 else "")
               + (f", torch.matmul bf16 {entry['library_ms'] * 1e3:.5f}" if entry["library_ms"]
                  else "") + f"); launches {n}; max_abs_err {max(errs):.3g}", flush=True)
+        if floor_line:
+            print(floor_line, flush=True)
         if p.name == "matmul":
             # the stage-timed build, whose output must equal the kernel's
             line, st = P14.stages_line(*p.inputs, p.Ks)

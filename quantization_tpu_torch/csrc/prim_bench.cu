@@ -12,11 +12,24 @@
 //
 // Bound: operations, per iteration (the data stays on chip across the K
 // iterations, so an iteration moves no bytes of device memory).  Design:
-// - minround: one warp per row, four keys a lane, one __reduce_min_sync a
-//   round, as K2's selection code; keys compare as unsigned integers (the
-//   order of the packed non-negative floats, denormal keys included);
+// - minround: one warp per row, four keys a lane, keys compared as unsigned
+//   integers (the order of the packed non-negative floats, denormal keys
+//   included).  A round is one dependent chain a row, so its floor is the
+//   latency of one warp-wide reduction (redux_chain_kernel measures it).
+//   As K2's selection (csrc/seqbeam.cu, sort8 and pop_min): each lane sorts
+//   its own 4 keys once, then a round is __reduce_min_sync over the lanes'
+//   least keys, one compare and one select; the winning lane shifts its
+//   sorted keys off the chain (each capped at 1e30 once, so that the select
+//   on the chain is a plain one).  A taken key counts as 1e30 in later rounds,
+//   as in the JAX kernel, where it stays in the row;
 // - gather: one thread per column keeps its 8 rows of the table in shared
-//   memory and its 8 indexes in registers; (idx + i) & 7 is the floor mod;
+//   memory, 1 KB apart, and its 8 indexes in registers, scaled to bytes (idx
+//   << 10).  Each gather is one add and one mask, ((idx + i) << 10) & 0x1C00
+//   (the floor mod 8 of idx + i, as a row's byte offset), one shared load
+//   and one add: the shared-memory pipe (32 loads a clock an SM) is the
+//   floor (gather_floor_kernel measures it: the same loads from fixed rows,
+//   with no index math), and the loop, unrolled by 4, keeps the next loads
+//   in flight;
 // - matmul: 2 M N D bf16 operations an iteration on the tensor cores, plus
 //   the conversions of a + i.  Reading the operands from shared memory every
 //   iteration, as the first port did, cost more than the products (measured
@@ -43,58 +56,179 @@ constexpr int kLanes = 128;
 // ---- minround
 
 constexpr int kMinThreads = 256;  // 8 rows a block
+constexpr uint32_t kInfBits = 0x7149F2CAu;  // 1e30f, a taken key; its low byte names no lane
+constexpr uint32_t kNone = 0xFFFFFFFFu;    // above every key
 
-__global__ void __launch_bounds__(kMinThreads)
-minround_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kMinThreads / 32) + warp;
-  if (r >= rows) return;
-  const uint32_t inf_bits = __float_as_uint(1e30f);
+// The row's keys as the JAX kernel packs them: max(x, 0)'s bits with the
+// low byte replaced by the key's position, 4 lane + q.
+__device__ __forceinline__ void row_keys(const float* __restrict__ x, int r, int lane,
+                                         uint32_t (&key)[4]) {
   const float4 v = reinterpret_cast<const float4*>(x + (size_t)r * kLanes)[lane];
   const float xs[4] = {v.x, v.y, v.z, v.w};
-  uint32_t key[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const float f = isnan(xs[q]) ? xs[q] : fmaxf(xs[q], 0.0f);  // jnp.maximum(x, 0)
     key[q] = (__float_as_uint(f) & ~kMask) | (uint32_t)(4 * lane + q);
   }
-  for (int k = 0; k < K; ++k) {
-    const uint32_t m = min(min(key[0], key[1]), min(key[2], key[3]));
-    const uint32_t pos = __reduce_min_sync(0xFFFFFFFFu, m) & kMask;
+}
+
+// A lane's 4 keys ascending (a 5-comparator network).
+__device__ __forceinline__ void sort4(uint32_t (&k)[4]) {
+  constexpr int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if ((uint32_t)(4 * lane + q) == pos) key[q] = inf_bits;
+  for (int c = 0; c < 5; ++c) {
+    const uint32_t lo = min(k[net[c][0]], k[net[c][1]]), hi = max(k[net[c][0]], k[net[c][1]]);
+    k[net[c][0]] = lo;
+    k[net[c][1]] = hi;
   }
-  reinterpret_cast<float4*>(out + (size_t)r * kLanes)[lane] =
-      make_float4(__uint_as_float(key[0]), __uint_as_float(key[1]), __uint_as_float(key[2]),
-                  __uint_as_float(key[3]));
+}
+
+// Each round takes the row's least key w; its position w & 0xFF becomes
+// 1e30.  A lane holds `head`, its least key counting each taken key as
+// 1e30 (s[0] before its first take, then min(untaken, 1e30)), and behind
+// it its other untaken keys in order, each capped at 1e30 (u1 <= u2 <=
+// u3).  A round: w = the warp's least head; the lane whose head is w moves
+// u1 into head (one select), and if w is 1e30 nothing is taken (0xCA names
+// no lane), which leaves every head as it is.  Off the chain, the taking
+// lane shifts u and keeps w in `last`: a lane's taken keys are its keys up
+// to `last`, the largest it took.
+__global__ void __launch_bounds__(kMinThreads)
+minround_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kMinThreads / 32) + warp;
+  if (r >= rows) return;
+  uint32_t key[4];
+  row_keys(x, r, lane, key);
+  uint32_t s[4] = {key[0], key[1], key[2], key[3]};
+  sort4(s);
+  uint32_t head = s[0], last = kNone;  // kNone: nothing taken
+  uint32_t u1 = min(s[1], kInfBits), u2 = min(s[2], kInfBits), u3 = min(s[3], kInfBits);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const bool real = head != kInfBits;  // the lane's own: w is 1e30 only where head is
+    const uint32_t w = __reduce_min_sync(0xFFFFFFFFu, head);
+    const bool mine = head == w;
+    const bool take = mine && real;
+    head = mine ? u1 : head;
+    u1 = take ? u2 : u1;
+    u2 = take ? u3 : u2;
+    u3 = take ? kInfBits : u3;
+    last = take ? w : last;
+  }
+  const bool any = last != kNone;
+  reinterpret_cast<float4*>(out + (size_t)r * kLanes)[lane] = make_float4(
+      __uint_as_float(any && key[0] <= last ? kInfBits : key[0]),
+      __uint_as_float(any && key[1] <= last ? kInfBits : key[1]),
+      __uint_as_float(any && key[2] <= last ? kInfBits : key[2]),
+      __uint_as_float(any && key[3] <= last ? kInfBits : key[3]));
+}
+
+// The floor of a round: each row's warp takes its least key once, then runs
+// K dependent warp-wide reductions of it and nothing else; out[r] is the
+// row's least key.  Same grid as minround_kernel.
+__global__ void __launch_bounds__(kMinThreads)
+redux_chain_kernel(const float* __restrict__ x, uint32_t* __restrict__ out, int rows, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kMinThreads / 32) + warp;
+  if (r >= rows) return;
+  uint32_t key[4];
+  row_keys(x, r, lane, key);
+  uint32_t m = __reduce_min_sync(0xFFFFFFFFu, min(min(key[0], key[1]), min(key[2], key[3])));
+  for (int k = 0; k < K; ++k)
+    asm volatile("redux.sync.min.u32 %0, %0, 0xffffffff;" : "+r"(m));
+  if (lane == 0) out[r] = m;
 }
 
 // ---- gather
 
 constexpr int kGatherRows = 8;
-constexpr int kGatherThreads = 256;
+constexpr int kGatherThreads = 256;  // a row of the block's table: 1 KB
+constexpr int kGatherUnroll = 4;
+
+// The table's element at byte offset `row_bytes` (a row's offset, 0 to 7 KB)
+// of thread t's column (t4 = 4 t).
+__device__ __forceinline__ float table_at(const float* xs, uint32_t row_bytes, uint32_t t4) {
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(xs) + (row_bytes | t4));
+}
+
+// Thread t's column n of the table into shared memory (row r at byte
+// r << 10 of xs) and its 8 indexes, scaled to bytes (idx << 10).  Each
+// thread reads only its own column of xs: no barrier.
+__device__ __forceinline__ void gather_column(const float* __restrict__ x,
+                                              const int32_t* __restrict__ idx, int N, int n,
+                                              bool ok, float* xs, uint32_t (&id)[kGatherRows]) {
+#pragma unroll
+  for (int r = 0; r < kGatherRows; ++r) {
+    xs[r * kGatherThreads + threadIdx.x] = ok ? x[(size_t)r * N + n] : 0.0f;
+    id[r] = (ok ? (uint32_t)idx[(size_t)r * N + n] : 0u) << 10;
+  }
+}
 
 __global__ void __launch_bounds__(kGatherThreads)
 gather_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
               float* __restrict__ out, int N, int K) {
-  __shared__ float xs[kGatherRows][kGatherThreads];
+  __shared__ float xs[kGatherRows * kGatherThreads];
+  const int t = threadIdx.x;
+  const int n = blockIdx.x * kGatherThreads + t;
+  const bool ok = n < N;
+  const uint32_t t4 = 4u * (uint32_t)t;
+  uint32_t id[kGatherRows];  // (idx + i) << 10: its bits 10-12 are (idx + i) mod 8
+  gather_column(x, idx, N, n, ok, xs, id);
+  float acc[kGatherRows];
+#pragma unroll
+  for (int r = 0; r < kGatherRows; ++r) acc[r] = 0.0f;
+  // id[r] = (idx + i) << 10 at iteration i: one add and one mask a gather.
+  // Unrolled by hand: the compiler's own unroll of the one loop (#pragma
+  // unroll 4) schedules it 11% slower (measured in turns, PERF.md)
+  int i = 0;
+  for (; i + kGatherUnroll <= K; i += kGatherUnroll) {
+#pragma unroll
+    for (int j = 0; j < kGatherUnroll; ++j) {
+#pragma unroll
+      for (int r = 0; r < kGatherRows; ++r) {
+        acc[r] = acc[r] + table_at(xs, id[r] & 0x1C00u, t4);
+        id[r] += 1u << 10;
+      }
+    }
+  }
+  for (; i < K; ++i) {
+#pragma unroll
+    for (int r = 0; r < kGatherRows; ++r) {
+      acc[r] = acc[r] + table_at(xs, id[r] & 0x1C00u, t4);
+      id[r] += 1u << 10;
+    }
+  }
+  if (ok) {
+#pragma unroll
+    for (int r = 0; r < kGatherRows; ++r) out[(size_t)r * N + n] = acc[r];
+  }
+}
+
+// The floor of a gather: gather_kernel's table and loop with each row's
+// index fixed at idx mod 8, formed once, so that an iteration is 8 shared
+// loads (volatile, so that none leaves the loop) and 8 adds and nothing
+// else; out[r, n] = sum_{i<K} x[idx[r, n] mod 8, n], summed in order.
+__global__ void __launch_bounds__(kGatherThreads)
+gather_floor_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+                    float* __restrict__ out, int N, int K) {
+  __shared__ float xs[kGatherRows * kGatherThreads];
   const int t = threadIdx.x;
   const int n = blockIdx.x * kGatherThreads + t;
   const bool ok = n < N;
   uint32_t id[kGatherRows];
+  gather_column(x, idx, N, n, ok, xs, id);
+  const volatile float* at[kGatherRows];
 #pragma unroll
-  for (int r = 0; r < kGatherRows; ++r) {
-    xs[r][t] = ok ? x[(size_t)r * N + n] : 0.0f;
-    id[r] = ok ? (uint32_t)idx[(size_t)r * N + n] : 0u;
-  }
-  // each thread reads only its own column of xs: no barrier
+  for (int r = 0; r < kGatherRows; ++r)
+    at[r] = reinterpret_cast<const volatile float*>(reinterpret_cast<const char*>(xs) +
+                                                    ((id[r] & 0x1C00u) | 4u * (uint32_t)t));
   float acc[kGatherRows];
 #pragma unroll
   for (int r = 0; r < kGatherRows; ++r) acc[r] = 0.0f;
+#pragma unroll 4
   for (int i = 0; i < K; ++i) {
 #pragma unroll
-    for (int r = 0; r < kGatherRows; ++r) acc[r] = acc[r] + xs[(id[r] + (uint32_t)i) & 7u][t];
+    for (int r = 0; r < kGatherRows; ++r) acc[r] = acc[r] + *at[r];
   }
   if (ok) {
 #pragma unroll
@@ -417,12 +551,33 @@ extern "C" int qtt_minround_launch(const void* x, void* out, int rows, int K, vo
   return (int)cudaGetLastError();
 }
 
+// x: (rows, 128) f32; out: (rows,) uint32, each row's least key.
+extern "C" int qtt_redux_chain_launch(const void* x, void* out, int rows, int K, void* stream) {
+  if (rows > 0) {
+    const int per_block = kMinThreads / 32;
+    redux_chain_kernel<<<(rows + per_block - 1) / per_block, kMinThreads, 0,
+                         (cudaStream_t)stream>>>((const float*)x, (uint32_t*)out, rows, K);
+  }
+  return (int)cudaGetLastError();
+}
+
 // x, out: (8, N) f32; idx: (8, N) int32.
 extern "C" int qtt_gather_launch(const void* x, const void* idx, void* out, int N, int K,
                                  void* stream) {
   if (N > 0) {
     gather_kernel<<<(N + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
                     (cudaStream_t)stream>>>((const float*)x, (const int32_t*)idx, (float*)out, N, K);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, out: (8, N) f32; idx: (8, N) int32: the gather's floor.
+extern "C" int qtt_gather_floor_launch(const void* x, const void* idx, void* out, int N, int K,
+                                       void* stream) {
+  if (N > 0) {
+    gather_floor_kernel<<<(N + kGatherThreads - 1) / kGatherThreads, kGatherThreads, 0,
+                          (cudaStream_t)stream>>>((const float*)x, (const int32_t*)idx,
+                                                  (float*)out, N, K);
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ slope of the device time between two values of K (the launch cost cancels):
 - ``minround``: K rounds of packed-min selection over (rows, 128) f32, the
   selection unit.  The key is ``max(x, 0)``'s bits with the 8 low bits
   replaced by the lane; each round, every row's smallest key (unsigned
-  order) becomes 1e30;
+  order) becomes 1e30, which counts as a key in later rounds;
 - ``gather``: K gathers along the 8 rows of an (8, N) f32 table,
   ``acc[r, n] += x[(idx[r, n] + i) mod 8, n]``, the M=8 reorder unit;
 - ``matmul``: K products ``bf16(a + i) . b^T`` with f32 sums, added up in
@@ -22,11 +22,16 @@ probe runs the kernel on a CUDA tensor and the plain version on a CPU
 tensor.
 
 The matmul's stage-timed build (:func:`matmul_stages`, its own entry point
-and count) says where an iteration's time goes.
+and count) says where an iteration's time goes.  Beside the ops bounds,
+minround and gather have floors, each the slope of a floor kernel timed on
+the card (:func:`minround_floor_us`, a chain of warp-wide reductions;
+:func:`gather_floor_us`, the gather's shared loads from fixed rows, with no
+index math); :func:`minround_floor_line` also gives what a call of minround
+costs beside its rounds (its sort runs once a call).
 
-Run on the card:  python -m quantization_tpu_torch.experiments.prim_bench [--stages]
+Run on the card:  python -m quantization_tpu_torch.experiments.prim_bench [--stages | --floors]
 (``--stages``: the matmul's ``[matmul stages]`` line in place of the probes'
-times)
+times; ``--floors``: the ``[floor minround]`` and ``[floor gather]`` lines)
 """
 
 from __future__ import annotations
@@ -51,8 +56,16 @@ GATHER_ROWS = 8
 MINROUND_KERNEL = CudaKernel(
     "prim_bench", "qtt_minround_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     + [ctypes.c_void_p])
+# x, out, rows, K, stream: minround's floor, K dependent warp-wide reductions a row
+REDUX_CHAIN_KERNEL = CudaKernel(
+    "prim_bench", "qtt_redux_chain_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p])
 GATHER_KERNEL = CudaKernel(
     "prim_bench", "qtt_gather_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p])
+# x, idx, out, N, K, stream: the gather's floor, its loads from fixed rows
+GATHER_FLOOR_KERNEL = CudaKernel(
+    "prim_bench", "qtt_gather_floor_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_void_p])
 # a, b, out, part, count, M, N, D, K, stream
 MATMUL_KERNEL = CudaKernel(
@@ -78,6 +91,12 @@ MATMUL_TILE = (64, 128)
 MATMUL_SPLIT = 4
 MATMUL_MAX_D = 512  # 8 warpgroups x 4 k-steps of 16: what the tile's registers hold
 
+# the shared-memory pipe, beside the gather's measured floor: an SM serves
+# 32 four-byte loads a clock, at the clock of the f32 ops bound (33.5e12
+# adds a second = 132 SMs x 128 lanes x 1.98 GHz)
+SHARED_LOADS_PER_CLOCK = 32
+BOUND_CLOCK_HZ = 1.98e9
+
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -92,28 +111,71 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 # ---- minround: the selection unit
 
 
-def minround_plain(x: torch.Tensor, K: int) -> torch.Tensor:
-    """K rounds of packed-min selection over (rows, 128) float32.  Keys are
-    compared as unsigned 32-bit integers (held in int64 here), which is the
-    order of the packed floats for every non-negative input."""
+def _keys(x: torch.Tensor) -> torch.Tensor:
+    """The packed keys of (rows, 128) float32, as unsigned 32-bit integers
+    held in int64: ``max(x, 0)``'s bits with the low byte replaced by the
+    lane."""
     lane = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
     bits = torch.clamp_min(x, 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    key = (bits & ~MASK) | lane
+    return (bits & ~MASK) | lane
+
+
+def _as_int32(key: torch.Tensor) -> torch.Tensor:
+    return torch.where(key >= 2**31, key - 2**32, key).to(torch.int32)
+
+
+def minround_plain(x: torch.Tensor, K: int) -> torch.Tensor:
+    """K rounds of packed-min selection over (rows, 128) float32.  Keys are
+    compared as unsigned 32-bit integers, which is the order of the packed
+    floats for every non-negative input.  A taken key becomes 1e30 in place
+    and takes part in later rounds; a round whose least key is 1e30 takes
+    nothing (its low byte, 0xCA, names no lane)."""
+    lane = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    key = _keys(x)
     for _ in range(K):
         pos = key.min(dim=1, keepdim=True).values & MASK
         key = torch.where(lane == pos, INF_BITS, key)
-    return torch.where(key >= 2**31, key - 2**32, key).to(torch.int32).view(torch.float32)
+    return _as_int32(key).view(torch.float32)
+
+
+def _minround_args(name: str, x: torch.Tensor) -> torch.Tensor:
+    _check_cuda(name, x)
+    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != LANES:
+        raise ValueError(f"expected (rows, {LANES}) float32, got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
 
 
 def minround_cuda(x: torch.Tensor, K: int) -> torch.Tensor:
-    """The kernel on the same inputs as :func:`minround_plain`."""
-    _check_cuda("minround_cuda", x)
-    if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != LANES:
-        raise ValueError(f"expected (rows, {LANES}) float32, got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+    """The kernel (each lane's 4 keys sorted once, then one warp-wide
+    reduction, one compare and one select a round) on the same inputs as
+    :func:`minround_plain`."""
+    x = _minround_args("minround_cuda", x)
     out = torch.empty_like(x)
     MINROUND_KERNEL(x.data_ptr(), out.data_ptr(), x.shape[0], K, _stream(x))
     return out
+
+
+def redux_chain_cuda(x: torch.Tensor, K: int) -> torch.Tensor:
+    """Minround's floor kernel: on minround's grid, each row's warp takes its
+    least key, then runs K dependent warp-wide reductions and nothing else.
+    Returns each row's least key (bits as int32), :func:`row_least_key`'s
+    value.  CUDA tensors only."""
+    x = _minround_args("redux_chain_cuda", x)
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    REDUX_CHAIN_KERNEL(x.data_ptr(), out.data_ptr(), x.shape[0], K, _stream(x))
+    return out
+
+
+def row_least_key(x: torch.Tensor) -> torch.Tensor:
+    """Each row's least packed key (bits as int32)."""
+    return _as_int32(_keys(x).min(dim=1).values)
+
+
+def minround_floor_us(x: torch.Tensor, Ks: Tuple[int, int] = (32, 96)) -> float:
+    """Microseconds a round that no design of one warp-wide reduction a
+    round goes below: the slope of :func:`redux_chain_cuda` on ``x``
+    between the two K (a reduction's latency, as the card runs it)."""
+    return slope_us(lambda K: redux_chain_cuda(x, K), *Ks)
 
 
 def minround(x: torch.Tensor, K: int) -> torch.Tensor:
@@ -135,17 +197,59 @@ def gather_plain(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
     return acc
 
 
-def gather_cuda(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
-    """The kernel on the same inputs as :func:`gather_plain`."""
-    _check_cuda("gather_cuda", x, idx)
+def _gather_args(name: str, x: torch.Tensor, idx: torch.Tensor):
+    _check_cuda(name, x, idx)
     if (x.dtype != torch.float32 or idx.dtype != torch.int32 or x.ndim != 2
             or x.shape[0] != GATHER_ROWS or idx.shape != x.shape):
         raise ValueError(f"expected (8, N) float32 and int32, got {x.dtype} {tuple(x.shape)}, "
                          f"{idx.dtype} {tuple(idx.shape)}")
-    x, idx = x.contiguous(), idx.contiguous()
+    return x.contiguous(), idx.contiguous()
+
+
+def gather_cuda(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """The kernel (one thread a column, its 8 rows in shared memory 1 KB
+    apart; a gather is an add, a mask, a shared load and an add) on the same
+    inputs as :func:`gather_plain`."""
+    x, idx = _gather_args("gather_cuda", x, idx)
     out = torch.empty_like(x)
     GATHER_KERNEL(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[1], K, _stream(x))
     return out
+
+
+def gather_floor_cuda(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """The gather's floor kernel: the kernel's table, grid and loads with
+    each row fixed at ``idx mod 8`` (no index math), so that an iteration is
+    one shared load and one add an element.  Returns
+    :func:`gather_floor_plain`'s value.  CUDA tensors only."""
+    x, idx = _gather_args("gather_floor_cuda", x, idx)
+    out = torch.empty_like(x)
+    GATHER_FLOOR_KERNEL(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[1], K, _stream(x))
+    return out
+
+
+def gather_floor_plain(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
+    """``acc[r, n] = sum_{i<K} x[idx[r, n] mod 8, n]``, summed in order from 0."""
+    row = torch.gather(x, 0, torch.remainder(idx, GATHER_ROWS).long())
+    acc = torch.zeros_like(x)
+    for _ in range(K):
+        acc = acc + row
+    return acc
+
+
+def gather_floor_us(x: torch.Tensor, idx: torch.Tensor, Ks: Tuple[int, int] = (16, 48)
+                    ) -> float:
+    """Microseconds a gather that no design of one shared-memory load an
+    element goes below: the slope of :func:`gather_floor_cuda` on (x, idx)
+    between the two K."""
+    return slope_us(lambda K: gather_floor_cuda(x, idx, K), *Ks)
+
+
+def shared_pipe_us(N: int, device: torch.device) -> float:
+    """Microseconds for 8 N shared loads over the card's SMs at
+    :data:`SHARED_LOADS_PER_CLOCK` each a clock, at :data:`BOUND_CLOCK_HZ`
+    (computed, not measured): the rate the gather's floor is read against."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return GATHER_ROWS * N / (sms * SHARED_LOADS_PER_CLOCK) / BOUND_CLOCK_HZ * 1e6
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor, K: int) -> torch.Tensor:
@@ -389,6 +493,43 @@ def stages_line(a: torch.Tensor, b: torch.Tensor, Ks: Tuple[int, int] = (16, 48)
     return line, out
 
 
+def minround_floor_line(x: torch.Tensor, us: float, Ks: Tuple[int, int] = (32, 96)
+                        ) -> Tuple[str, dict]:
+    """The ``[floor minround]`` line for the minround kernel on ``x``, which
+    takes ``us`` a round (its slope): its reduction-chain floor (measured
+    here) and its fixed cost a call, the device time at the first K less
+    that many rounds: work done once a call (the launch, the loads, the
+    sort, the stores) lands there, where the slope does not see it.  The
+    floor kernel's output must be each row's least key (else this raises)."""
+    if not torch.equal(redux_chain_cuda(x, Ks[0]), row_least_key(x)):
+        raise RuntimeError("the reduction chain's output differs from each row's least key")
+    fixed = device_ms(lambda: minround_cuda(x, Ks[0]), 50) * 1e3 - Ks[0] * us
+    out = {"floor_us": minround_floor_us(x, Ks), "fixed_us": fixed}
+    line = (f"[floor minround] {tuple(x.shape)}: {us:.5f} us a round against a reduction-chain "
+            f"floor of {out['floor_us']:.5f} us ({us / out['floor_us']:.2f}x); fixed cost "
+            f"{out['fixed_us']:.3f} us a call at K={Ks[0]} (device time less {Ks[0]} rounds)")
+    return line, out
+
+
+def gather_floor_line(x: torch.Tensor, idx: torch.Tensor, us: float,
+                      Ks: Tuple[int, int] = (16, 48)) -> Tuple[str, dict]:
+    """The ``[floor gather]`` line for the gather kernel on (x, idx), which
+    takes ``us`` a gather: its shared-load floor (measured here; the floor
+    kernel's output must equal :func:`gather_floor_plain`'s, else this
+    raises), beside the shared-memory pipe's computed rate."""
+    if not torch.equal(gather_floor_cuda(x, idx, Ks[0]), gather_floor_plain(x, idx, Ks[0])):
+        raise RuntimeError("the gather floor kernel's output differs from its plain version")
+    N = x.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    out = {"floor_us": gather_floor_us(x, idx, Ks), "pipe_us": shared_pipe_us(N, x.device)}
+    line = (f"[floor gather] ({GATHER_ROWS}, {N}): {us:.5f} us a gather against a shared-load "
+            f"floor of {out['floor_us']:.5f} us ({us / out['floor_us']:.2f}x; the loads from "
+            f"fixed rows, measured); the shared pipe's rate, {GATHER_ROWS * N} loads over {sms} "
+            f"SMs x {SHARED_LOADS_PER_CLOCK} a clock at {BOUND_CLOCK_HZ / 1e9:.2f} GHz: "
+            f"{out['pipe_us']:.5f} us (computed)")
+    return line, out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -398,6 +539,12 @@ def main(argv=None) -> int:
     ps = probes(torch.device("cuda"))
     if "--stages" in argv:
         print(stages_line(*ps[2].inputs)[0], flush=True)
+        print(nvidia_smi_line(), flush=True)
+        return 0
+    if "--floors" in argv:
+        mr, ga = ps[0], ps[1]
+        print(minround_floor_line(mr.inputs[0], slope_us(mr.run, *mr.Ks), mr.Ks)[0], flush=True)
+        print(gather_floor_line(*ga.inputs, slope_us(ga.run, *ga.Ks), ga.Ks)[0], flush=True)
         print(nvidia_smi_line(), flush=True)
         return 0
     for p in ps:

@@ -26,6 +26,7 @@ from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops.quality_guard import against_plain
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
+from probe_inputs import above_inf
 
 Q256 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q256_4_full.npz"
 Q512 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q512_8_full.npz"
@@ -431,18 +432,53 @@ def test_cuda_minround_bit_exact_vs_plain(cuda, rows, low):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1024, 1001])
+def test_cuda_minround_above_inf_vs_plain(cuda, rows):
+    # a taken key counts as 1e30, so keys above it are taken only before
+    # any other key of their row, and a round whose least key is 1e30 takes
+    # nothing
+    x = torch.from_numpy(above_inf(rows, 8)).to(cuda)
+    for K in (1, 2, 5, 32, 96, 130):
+        got = _launched_once(tprim.MINROUND_KERNEL, lambda: tprim.minround_cuda(x, K))
+        assert torch.equal(got.view(torch.int32), tprim.minround_plain(x, K).view(torch.int32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("N", [65536, 1000])
-@pytest.mark.parametrize("kind", ["zero", "random", "negative"])
+@pytest.mark.parametrize("kind", ["zero", "random", "negative", "large"])
 def test_cuda_gather_bit_exact_vs_plain(cuda, N, kind):
     x = _uniform(cuda, 2, 8, N)
     gen = torch.Generator().manual_seed(3)
+    # large: idx + i wraps past 2**31 - 1 in int32
     idx = {"zero": torch.zeros(8, N, dtype=torch.int32),
            "random": torch.randint(0, 8, (8, N), generator=gen, dtype=torch.int32),
-           "negative": torch.randint(-1000, 0, (8, N), generator=gen, dtype=torch.int32)}[kind]
+           "negative": torch.randint(-1000, 0, (8, N), generator=gen, dtype=torch.int32),
+           "large": torch.randint(2**31 - 64, 2**31, (8, N), generator=gen,
+                                  dtype=torch.int32)}[kind]
     idx = idx.to(cuda)
-    for K in (16, 48):
+    # 1, 11 and 13 end in the unrolled loop's tail
+    for K in (1, 11, 13, 16, 48):
         got = _launched_once(tprim.GATHER_KERNEL, lambda: tprim.gather_cuda(x, idx, K))
         assert torch.equal(got, tprim.gather_plain(x, idx, K))
+
+
+@pytest.mark.gpu
+def test_cuda_minround_floor_below_the_kernel(cuda):
+    x = _uniform(cuda, 1, 1024, 128, low=1.0, high=2.0)
+    got = _launched_once(tprim.REDUX_CHAIN_KERNEL, lambda: tprim.redux_chain_cuda(x, 5))
+    assert torch.equal(got, tprim.row_least_key(x))
+    floor = tprim.minround_floor_us(x)
+    assert 0.0 < floor < tprim.slope_us(lambda K: tprim.minround_cuda(x, K), 32, 96)
+
+
+@pytest.mark.gpu
+def test_cuda_gather_floor_below_the_kernel(cuda):
+    x = _uniform(cuda, 2, 8, 65536)
+    idx = torch.zeros(8, 65536, dtype=torch.int32, device=cuda)
+    got = _launched_once(tprim.GATHER_FLOOR_KERNEL, lambda: tprim.gather_floor_cuda(x, idx, 13))
+    assert torch.equal(got, tprim.gather_floor_plain(x, idx, 13))
+    floor = tprim.gather_floor_us(x, idx)
+    assert 0.0 < floor < tprim.slope_us(lambda K: tprim.gather_cuda(x, idx, K), 16, 48)
 
 
 @pytest.mark.gpu

@@ -32,6 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from quantization_tpu_torch.experiments import int8_mxu_probe as tprobe
 from quantization_tpu_torch.experiments import prim_bench as tprim
+from probe_inputs import above_inf
 
 EXPERIMENTS = pathlib.Path(__file__).resolve().parents[1] / "experiments"
 
@@ -87,12 +88,27 @@ def test_minround_plain_bit_exact_vs_jax(K, low):
     assert ((got == np.float32(tprim.INF)).sum(1) == min(K, 128)).all()
 
 
-@pytest.mark.parametrize("kind", ["zero", "random", "negative"])
+@pytest.mark.parametrize("K", [1, 2, 5, 130])
+def test_minround_plain_bit_exact_vs_jax_above_inf(K):
+    x = above_inf(16, 11 + K)
+    want = _interpret(functools.partial(_prim_kernels()["minround_kernel"], K=K, rows=16),
+                      (x,), (16, 128))
+    got = tprim.minround(torch.from_numpy(x), K).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    taken = (got == np.float32(tprim.INF)).sum(1)
+    # a row with at most one key below 1e30 loses one key, whatever K
+    assert taken[0] == 1 and taken[1] == 1
+    assert (taken <= min(K, 128)).all()
+
+
+@pytest.mark.parametrize("kind", ["zero", "random", "negative", "large"])
 def test_gather_plain_bit_exact_vs_jax(kind):
     rng = np.random.default_rng(20)
     x = rng.random((8, 256)).astype(np.float32)
+    # large: idx + i wraps past 2**31 - 1 in int32
     idx = {"zero": np.zeros((8, 256)), "random": rng.integers(0, 8, (8, 256)),
-           "negative": rng.integers(-40, 0, (8, 256))}[kind].astype(np.int32)
+           "negative": rng.integers(-40, 0, (8, 256)),
+           "large": rng.integers(2**31 - 64, 2**31, (8, 256))}[kind].astype(np.int32)
     K = 11
     want = _interpret(functools.partial(_prim_kernels()["gather_kernel"], K=K, N=256),
                       (x, idx), (8, 256))
