@@ -100,6 +100,23 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    (measured), beside the rate the SMs serve them (computed, on that line
    only).  Each floor kernel's output is checked before it is timed.
 
+9. the CLI at full width (``python -m quantization_tpu_torch``, called in
+   process through ``cli.main``, decode as a subprocess), in a temporary
+   directory deleted at the end: a 524,288-frame d512 corpus of the key-42
+   sampler (seed 11) written as 3 raw-f16 shards of at most 200,000 frames;
+   ``ShardStream`` must run the native loader.  ``train`` (4 + 4 steps,
+   batch 600) writes a quantizer that loads, is 8 x 256 and has a finite
+   loss; ``encode`` of the whole corpus with the defaults and the committed
+   d512 quantizer must launch K2 once a batch (64), its codes on rows
+   0-32,767 and 196,608-204,799 (the first shard boundary) must equal
+   ``Quantizer.encode`` of the same batches bit for bit, pass phase 3's bars
+   against the plain seqbeam and stay within 1.012 x beam-5 on 8,192
+   frames; ``decode`` must exit 0 and give rows 65,000-66,000 and the last
+   1,000 equal to ``Quantizer.decode`` bit for bit.  ``profile_device_ops``
+   traces one CLI encode of 131,072 frames (the card's busy share, its top
+   5 rows, which must hold K2) and one phase-1 and one phase-2 training
+   step for ``train_search`` "auto" and "gramv3" (top 8 rows, busy share).
+
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
 the paths (K2, K3, B4) or their own run (K1, the probes).
@@ -158,6 +175,12 @@ SPILL_BEAMS = (("v2", "bf16", 64, 640), ("v2", "bf16", 64, 1024), ("v2", "f32", 
                ("v2", "f32", 64, 1024), ("v2", "f32", 32, 768), ("v1", "f32", 24, 1024),
                ("v1", "f32", 64, 384))
 SPILL_B = 1024
+CLI_FRAMES = 524288  # phase 9's corpus: 64 encode batches at the CLI's default
+CLI_SHARD = 200000
+CLI_BATCH = 8192  # the CLI's encode default (quantization_tpu_torch/cli.py)
+CLI_PROFILE_LIMIT = 131072  # 16 batches traced
+ENCODE_ROWS = ((0, 32768), (196608, 204800))  # whole batches; the second straddles 200,000
+DECODE_ROWS = ((65000, 66000), (CLI_FRAMES - 1000, CLI_FRAMES))  # the first crosses 65,536
 
 
 def check(ok: bool, what: str) -> None:
@@ -380,6 +403,8 @@ def main() -> int:
                  **{k: e[k] for k in CHECK_KEYS}})
     # ---- 8. the primitive probes
     probes = probe_phase(dev)
+    # ---- 9. the CLI at full width, and traces of training steps
+    cli = cli_phase(quantizers[512], samplers[512], paths[0], dev)
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -437,7 +462,8 @@ def main() -> int:
         f"{k['name']} {k['ms'] / k['library_ms']:.3f}x" for k in slower) or "none")
         + "; then launches x (ms - bound ms): " + ", ".join(
         f"{k['name']} {k['launches_x_excess_ms']:.6g}" for k in rest_k), flush=True)
-    print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"]}), flush=True)
+    print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"] + [cli]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -827,26 +853,12 @@ def int8_chain_extras(e, c) -> dict:
 
 def _chain_kernels(name: str, run, own) -> list:
     """The device kernels one call of ``run`` launches (by
-    ``torch.profiler``, after a warm-up call); it fails unless they are the
-    chain's ``own`` kernels, each at least once, and no other."""
-    run()
-    torch.cuda.synchronize()
-    # one chain traced after a warm-up step: the tracer has been seen to miss
-    # the first kernel of a window it starts cold
-    seen = set()
+    ``profile_device_ops``, which traces a call after a warm-up call); it
+    fails unless they are the chain's ``own`` kernels, each at least once,
+    and no other."""
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
 
-    def keep(prof):
-        seen.update(ev.name for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA)
-
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
-                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-                                on_trace_ready=keep) as prof:
-        for _ in range(2):
-            run()
-            torch.cuda.synchronize()
-            prof.step()
-    names = sorted(seen)
+    names = sorted(r["source"] for r in profile_device_ops(run))
     # an empty list (a profiler that saw no device activity) proves nothing
     check(all(any(k in n for n in names) for k in own)
           and all(any(k in n for k in own) for n in names),
@@ -1052,6 +1064,250 @@ def spill_phase(dev) -> dict:
               f"{entry['bound_ms']:.4f} ms; {layout['frames']} frames a block, "
               f"{layout['smem_bytes']} B shared, {layout['spill_bytes']} B a slot", flush=True)
     return out
+
+
+def cli_phase(q, sampler, main_path: dict, dev) -> dict:
+    """Phase 9: train, encode and decode through the CLI on a shard corpus
+    at d512, and ``profile_device_ops`` over a CLI encode and over training
+    steps.  ``q`` is the committed d512 quantizer, ``main_path`` phase 4's
+    d512 entry.  Returns the ``cli`` entry of the ``paths`` line."""
+    import logging
+    import re
+    import subprocess
+
+    import numpy as np
+
+    from quantization_tpu_torch import cli, load_quantizer
+    from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.data.shards import ShardStream, iter_shards_sequential, write_shards
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
+
+    t_phase = time.perf_counter()
+    stats = []
+
+    class KeepStats(logging.Handler):
+        """The numbers each CLI command logs with its last line."""
+
+        def emit(self, record):
+            if hasattr(record, "stats"):
+                stats.append(record.stats)
+
+    handler = KeepStats()
+    logging.getLogger("quantization_tpu_torch.cli").addHandler(handler)
+    out = {"path": "cli (python -m quantization_tpu_torch)", "dim": 512, "bytes_per_frame": 8,
+           "frames": CLI_FRAMES, "batch": CLI_BATCH}
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            d = pathlib.Path(d)
+            corpus = d / "corpus"
+            gen = torch.Generator().manual_seed(11)
+            t0 = time.perf_counter()
+            manifest = write_shards(corpus, (sampler(gen, 65536).cpu().numpy()
+                                             for _ in range(CLI_FRAMES // 65536)), CLI_SHARD)
+            out["corpus_write_s"] = time.perf_counter() - t0
+            sizes = [e["frames"] for e in manifest["shards"]]
+            check(sizes == [200000, 200000, 124288], f"cli: shard sizes {sizes}")
+            stream = ShardStream(corpus, TRAIN_BATCH)
+            check(stream.native, f"cli: the native shard loader did not run: {stream.native_error}")
+            stream.close()
+
+            # train
+            qpath = d / "q.npz"
+            t0 = time.perf_counter()
+            cli.main(["train", "--data", str(corpus), "--dim", "512", "--bytes-per-frame", "8",
+                      "--iters", "4", "--batch", str(TRAIN_BATCH), "--chunk", "4", "--quiet",
+                      "--out", str(qpath)])
+            out["train_s"] = time.perf_counter() - t0
+            tq = load_quantizer(qpath, device=dev)
+            check((tq.num_codebooks, tq.codebook_size) == (8, 256),
+                  f"cli train: config {tq.config}")
+            x600 = next(iter_shards_sequential(corpus, TRAIN_BATCH, dtype=np.float16))
+            losses = tq.compute_loss(torch.from_numpy(x600).to(dev).float())
+            out["train_losses"] = {k: float(v) for k, v in losses._asdict().items()}
+            check(all(np.isfinite(v) for v in out["train_losses"].values()),
+                  f"cli train: a loss term is not finite: {out['train_losses']}")
+
+            # encode, the whole corpus with the CLI's defaults
+            codes_path = d / "codes.npy"
+            K2.SEQBEAM_KERNEL.launches = 0
+            cli.main(["encode", "--quantizer", str(TRAINED[512]), "--data", str(corpus),
+                      "--out", str(codes_path)])
+            torch.cuda.synchronize()
+            n_k2 = K2.SEQBEAM_KERNEL.launches
+            enc = stats.pop()
+            check(n_k2 == CLI_FRAMES // CLI_BATCH,
+                  f"cli encode: {n_k2} seqbeam launches, not one for each of "
+                  f"{CLI_FRAMES // CLI_BATCH} batches")
+            codes = np.load(codes_path)
+            check(codes.dtype == np.uint8 and codes.shape == (CLI_FRAMES, 8),
+                  f"cli encode: codes {codes.dtype} {codes.shape}")
+            # the CLI's codes against Quantizer.encode of the same batches,
+            # read back and upcast on the card
+            keep = {i for a, b in ENCODE_ROWS for i in range(a // CLI_BATCH, b // CLI_BATCH)}
+            xs = {}
+            for i, b in enumerate(iter_shards_sequential(corpus, CLI_BATCH, dtype=np.float16)):
+                if i in keep:
+                    xs[i] = torch.from_numpy(b).to(dev).float()
+                    want = q.encode(xs[i]).cpu().numpy()
+                    check(np.array_equal(codes[i * CLI_BATCH:(i + 1) * CLI_BATCH], want),
+                          f"cli encode: batch {i} differs from Quantizer.encode")
+            x0 = torch.cat([xs[i] for i in range(ENCODE_ROWS[0][1] // CLI_BATCH)])
+            name, passes, kw = codec.auto_choice(q.config, x0, 5)
+            sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
+            problem = K2.seqbeam_problem(q.params, q.config, x0, passes=passes, **sem)
+            indexes = codec.unpack_indexes(torch.from_numpy(codes[:x0.shape[0]]).to(dev),
+                                           q.codebook_size, q.num_codebooks)
+            chk = against_plain(problem, q.get_centers().detach(), got=indexes)
+            check(chk["ok"], f"cli encode: rows 0-{x0.shape[0] - 1} vs the plain seqbeam: {chk}")
+            xb = x0[:CHECK_B]
+            sse_beam = float(((q.decode(q.encode(xb, search_method="beam")) - xb) ** 2).sum())
+            sse = float(((q.decode(torch.from_numpy(codes[:CHECK_B]).to(dev)) - xb) ** 2).sum())
+            ratio = sse / sse_beam
+            check(ratio <= BAR, f"cli encode: squared error {ratio} x beam-5 > {BAR}")
+            out.update({"config": name, "encode_launches": {"seqbeam_v2": n_k2},
+                        "encode_vec_per_s": enc["steady_vec_per_s"],
+                        "encode_steady_s": enc["steady_seconds"],
+                        "in_memory_encode_vec_per_s": main_path["encode_vec_per_s"],
+                        "seqbeam_vs_plain": {k: chk[k] for k in CHECK_KEYS},
+                        "quality_delta_pct": (ratio - 1.0) * 100.0})
+            print(f"[cli encode] {CLI_FRAMES} frames from {len(sizes)} shards, batch {CLI_BATCH}: "
+                  f"{enc['steady_vec_per_s']:,.0f} vec/s steady-state (phase 4's in-memory "
+                  f"encode {main_path['encode_vec_per_s']:,.0f}, "
+                  f"{enc['steady_vec_per_s'] / main_path['encode_vec_per_s']:.3f}x); launches "
+                  f"{n_k2}; rows {ENCODE_ROWS} equal to Quantizer.encode; agreement with plain "
+                  f"{chk['index_agreement']:.6f}; quality {(ratio - 1.0) * 100.0:+.3f}% vs beam-5",
+                  flush=True)
+
+            # the host's share: the sequential read alone, then the read with
+            # the CLI's pinned upload of every batch (no encode)
+            t0 = time.perf_counter()
+            for _ in iter_shards_sequential(corpus, CLI_BATCH, dtype=np.float16):
+                pass
+            read_s = time.perf_counter() - t0
+            upload = cli._Upload(dev)
+            t0 = time.perf_counter()
+            for b in iter_shards_sequential(corpus, CLI_BATCH, dtype=np.float16):
+                upload(b)
+            torch.cuda.synchronize()
+            read_upload_s = time.perf_counter() - t0
+            out.update({"read_s": read_s, "read_and_upload_s": read_upload_s})
+            print(f"[cli encode] host split, {CLI_FRAMES} frames: sequential read {read_s:.3f} s "
+                  f"({CLI_FRAMES / read_s:,.0f} frames/s), read and pinned upload "
+                  f"{read_upload_s:.3f} s ({CLI_FRAMES / read_upload_s:,.0f} frames/s); the "
+                  f"CLI's encode {(CLI_FRAMES - CLI_BATCH) / enc['steady_vec_per_s']:.3f} s "
+                  "from the second batch", flush=True)
+
+            # the card's busy share over one traced CLI encode
+            walls = []
+
+            def encode_16():
+                t = time.perf_counter()
+                cli.main(["encode", "--quantizer", str(TRAINED[512]), "--data", str(corpus),
+                          "--out", str(d / "codes_p.npy"), "--limit", str(CLI_PROFILE_LIMIT)])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+
+            rows = profile_device_ops(encode_16)
+            del stats[:]
+            device_ms = sum(r["ms"] for r in rows)
+            busy = device_ms / (walls[-1] * 1e3)
+            check(any("seqbeam_kernel" in r["source"] for r in rows[:5]),
+                  f"cli encode: the seqbeam kernel is not among the top 5 rows: {rows[:5]}")
+            out.update({"profile_frames": CLI_PROFILE_LIMIT, "profile_wall_ms": walls[-1] * 1e3,
+                        "profile_device_ms": device_ms, "device_busy_share": busy,
+                        "profile_top5": _short(rows[:5])})
+            print(f"[cli encode] device busy {100 * busy:.1f}%: {device_ms:.3f} ms of "
+                  f"{walls[-1] * 1e3:.1f} ms ({CLI_PROFILE_LIMIT} frames, traced); top 5: "
+                  + "; ".join(f"{r['source'][:70]} {r['ms']:.3f} ms x{r['count']}"
+                              for r in rows[:5]), flush=True)
+
+            # decode, through the module entry point
+            recon_path = d / "recon.npy"
+            run = subprocess.run(
+                [sys.executable, "-m", "quantization_tpu_torch", "decode", "--quantizer",
+                 str(TRAINED[512]), "--codes", str(codes_path), "--out", str(recon_path)],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            check(run.returncode == 0, f"cli decode exited {run.returncode}: {run.stderr[-3000:]}")
+            m = re.search(r"decoded (\d+) frames .*\((\d+) vec/s", run.stderr)
+            check(m is not None and int(m.group(1)) == CLI_FRAMES,
+                  f"cli decode: no summary line: {run.stderr[-1000:]}")
+            recon = np.load(recon_path, mmap_mode="r")
+            check(recon.dtype == np.float32 and recon.shape == (CLI_FRAMES, 512),
+                  f"cli decode: recon {recon.dtype} {recon.shape}")
+            for a, b in DECODE_ROWS:
+                want = q.decode(torch.from_numpy(codes[a:b]).to(dev)).cpu().numpy()
+                check(np.array_equal(recon[a:b], want),
+                      f"cli decode: rows {a}-{b - 1} differ from Quantizer.decode")
+            num = den = 0.0
+            for i, b in enumerate(iter_shards_sequential(corpus, 65536, dtype=np.float16)):
+                x = torch.from_numpy(b).to(dev).float()
+                r = torch.from_numpy(np.array(recon[i * 65536:i * 65536 + x.shape[0]])).to(dev)
+                num += float(((r - x) ** 2).sum())
+                den += float((x ** 2).sum())
+            out.update({"decode_vec_per_s": float(m.group(2)), "decode_rel_err": num / den})
+            print(f"[cli decode] {CLI_FRAMES} frames: {float(m.group(2)):,.0f} vec/s (upload, "
+                  f"decode, fetch); rows {DECODE_ROWS} equal to Quantizer.decode; relative "
+                  f"error {num / den:.6f} against the corpus", flush=True)
+    finally:
+        logging.getLogger("quantization_tpu_torch.cli").removeHandler(handler)
+
+    out["profile_train"] = profile_train(sampler, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[cli] phase 9 took {out['phase_s']:.1f} s (corpus write {out['corpus_write_s']:.1f} s,"
+          f" train {out['train_s']:.1f} s)", flush=True)
+    return out
+
+
+def profile_train(sampler, dev) -> list:
+    """``profile_device_ops`` over one phase-1 and one phase-2 step of
+    phase 6's trainer and batches, for train_search "auto" and "gramv3":
+    per step its top 8 rows and the card's busy share of the traced step's
+    host time (the step ends in a synchronize)."""
+    from quantization_tpu_torch import QuantizerTrainer
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
+
+    p1, p2, dim = TRAIN["phase_one_iters"], TRAIN["phase_two_iters"], TRAIN["dim"]
+    n = p1 + p2 + 1
+    xs = sampler(torch.Generator().manual_seed(11), n * TRAIN_BATCH).reshape(n, TRAIN_BATCH, dim)
+    out = []
+    for search in ("auto", "gramv3"):
+        kw = dict(TRAIN, train_search=search)
+        if search == "gramv3":
+            kw["beam_finetune_iters"] = 0  # phase 2 runs the kernel
+        t = QuantizerTrainer(device=dev, **kw)
+        for phase in (1, 2):
+            if phase == 2:
+                t.step_many(xs[t.cur_iter:p1 + 1])  # through the phase switch
+            walls = []
+
+            def step():
+                t0 = time.perf_counter()
+                t.step(xs[t.cur_iter])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+
+            rows = profile_device_ops(step)  # two steps: a warm-up and the traced one
+            check(rows, f"profile train {search} phase {phase}: no device activity")
+            if search == "gramv3" and phase == 2:
+                check(any("gramv3_kernel" in r["source"] for r in rows),
+                      f"profile train gramv3 phase 2: no gramv3 kernel in {rows[:8]}")
+            busy = sum(r["ms"] for r in rows) / (walls[-1] * 1e3)
+            entry = {"train_search": search, "phase": phase, "step_ms": walls[-1] * 1e3,
+                     "device_busy_share": busy, "kernels": len(rows),
+                     "launches": sum(r["count"] for r in rows), "top8": _short(rows[:8])}
+            out.append(entry)
+            print(f"[profile train {search} phase {phase}] step {entry['step_ms']:.3f} ms, device "
+                  f"busy {100 * busy:.1f}%, {entry['launches']} device ops of {len(rows)} kinds; "
+                  "top 8: " + "; ".join(f"{r['source'][:60]} {r['ms']:.3f} ms x{r['count']}"
+                                       for r in rows[:8]), flush=True)
+    return out
+
+
+def _short(rows: list) -> list:
+    """Profile rows with their names cut to 120 characters."""
+    return [dict(r, source=r["source"][:120]) for r in rows]
 
 
 def step_ms(trainer, batches) -> float:

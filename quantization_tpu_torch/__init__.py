@@ -6,7 +6,9 @@ it as the reference.  This package imports neither JAX nor
 ``quantization_tpu``.  Entry points run on the GPU unless the caller passes
 ``device="cpu"``; on CPU tensors the kernels' plain PyTorch versions run.
 
-Public API: Quantizer, QuantizerTrainer, load_quantizer, save_quantizer.
+Public API: Quantizer, QuantizerTrainer, read_hdf5_data, load_quantizer,
+save_quantizer; the command line is ``python -m quantization_tpu_torch``
+(``cli.py``).
 """
 
 from . import core
@@ -15,13 +17,19 @@ from .utils.serialization import load_quantizer, save_quantizer
 
 __version__ = "0.1.0"
 
-__all__ = ["Quantizer", "QuantizerTrainer", "core", "load_quantizer", "save_quantizer"]
+__all__ = ["Quantizer", "QuantizerTrainer", "read_hdf5_data", "core", "load_quantizer",
+           "save_quantizer"]
 
 
 def __getattr__(name):
-    # the trainer is imported when first used, as in the JAX package
+    # the trainer and the data path are imported when first used, as in the
+    # JAX package
     if name == "QuantizerTrainer":
         from .train.trainer import QuantizerTrainer
 
         return QuantizerTrainer
+    if name == "read_hdf5_data":
+        from .data.hdf5 import read_hdf5_data
+
+        return read_hdf5_data
     raise AttributeError(f"module 'quantization_tpu_torch' has no attribute {name!r}")

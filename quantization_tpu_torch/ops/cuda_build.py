@@ -1,11 +1,15 @@
-"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+"""Build and bind the hand-written native code under ``csrc/``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  Libraries are built at first use into ``csrc/_build/``,
-keyed on a hash of the source and the flags, and only ever from the sources
-in this package.  Nothing here runs at import time: this module imports on
-a machine with no CUDA toolkit, and only a launch on a CUDA tensor builds.
+takes seconds); the host-side shard loader, ``csrc/qtz_loader.cc``, compiles
+the same way with ``g++``.  Libraries are built at first use into
+``csrc/_build/``, keyed on a hash of the source and the flags, and only ever
+from the sources in this package.  A build writes a file named by the
+process id and moves it into place with ``os.replace``, so two processes
+building one library at once each load a whole file.  Nothing here runs at
+import time: this module imports on a machine with no CUDA toolkit, and only
+a launch on a CUDA tensor (or a native shard stream) builds.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,10 +55,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _source(name: str) -> pathlib.Path:
+    """``csrc/<name>.cu`` (CUDA, nvcc) or ``csrc/<name>.cc`` (host C++, g++)."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cc"
+
+
+def _command(src: pathlib.Path, out: pathlib.Path) -> List[str]:
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return ["g++", *GXX_FLAGS, str(src), "-o", str(out)]
+
+
 def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _own(so: pathlib.Path, suffix: str) -> pathlib.Path:
+    """This process's file beside ``so``: no other process writes it."""
+    return so.with_suffix(f".{os.getpid()}{suffix}")
 
 
 def _start(name: str) -> subprocess.Popen | None:
@@ -61,13 +84,10 @@ def _start(name: str) -> subprocess.Popen | None:
     if so.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    log = open(so.with_suffix(".log"), "w")
+    log = open(_own(so, ".log"), "w")
     try:
-        return subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT,
-        )
+        return subprocess.Popen(_command(_source(name), _own(so, ".tmp")),
+                                stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
 
@@ -76,17 +96,20 @@ def _finish(name: str, proc: subprocess.Popen | None) -> None:
     if proc is None:
         return
     so = _target(name)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    if proc.wait() != 0:
+    failed = proc.wait() != 0
+    os.replace(_own(so, ".log"), so.with_suffix(".log"))
+    if failed:
+        src = _source(name)
         raise RuntimeError(
-            f"nvcc failed on csrc/{name}.cu:\n{so.with_suffix('.log').read_text()}"
+            f"{'nvcc' if src.suffix == '.cu' else 'g++'} failed on csrc/{src.name}:\n"
+            f"{so.with_suffix('.log').read_text()}"
         )
-    os.replace(tmp, so)
+    os.replace(_own(so, ".tmp"), so)
 
 
 def build(names: Iterable[str]) -> float:
-    """Build the named kernels' libraries, one ``nvcc`` per source, all
-    started together.  Returns the wall seconds spent."""
+    """Build the named libraries, one compiler per source, all started
+    together.  Returns the wall seconds spent."""
     t0 = time.perf_counter()
     names = list(names)
     with _lock:
@@ -100,14 +123,15 @@ def build(names: Iterable[str]) -> float:
 
 
 def build_log(name: str) -> str:
-    """The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) from the build of ``csrc/<name>.cu``."""
+    """The compiler's output from the build of ``csrc/<name>`` (for a
+    ``.cu``, ``-Xptxas -v``: registers, shared memory and spills per
+    kernel)."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cc``, built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on a card, each held against its plain PyTorch
-version on the same inputs, the main path through them, and trainer steps
-on the card.
+version on the same inputs, the main path through them, trainer steps on
+the card, and the data path, CLI and profiler there.
 
 These tests need a CUDA card and skip without one.  The file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
@@ -622,3 +622,48 @@ def test_cuda_int8_chain_refuses_a_grid_the_card_cannot_hold(cuda):
         tprobe.int8_chain_cuda(e, c, 2)
     e, c = _chain_inputs(cuda, 16 * sms, 512, 256)
     assert torch.equal(tprobe.int8_chain_cuda(e, c, 2), tprobe.int8_chain_plain(e, c, 2))
+
+
+@pytest.mark.gpu
+def test_profile_device_ops_lists_the_decode_kernel_once(cuda):
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
+
+    cb = torch.randn(8, 256, 512, generator=torch.Generator().manual_seed(0))
+    cb = cb.to(torch.bfloat16).to(cuda)
+    idx = torch.randint(0, 256, (4096, 8), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    rows = profile_device_ops(lambda: tdecode.decode_cuda(idx, cb))  # on the card by default
+    kernel = [r for r in rows if "decode_kernel" in r["source"]]
+    assert len(kernel) == 1 and kernel[0]["count"] == 1 and kernel[0]["ms"] > 0, rows
+
+
+@pytest.mark.gpu
+def test_shard_stream_is_native_on_the_card_machine(cuda, tmp_path):
+    from quantization_tpu_torch.data.shards import ShardStream, write_shards
+
+    rng = np.random.default_rng(0)
+    write_shards(tmp_path, [rng.standard_normal((3000, 64)).astype(np.float16)],
+                 frames_per_shard=1000)
+    stream = ShardStream(tmp_path, batch_size=512, pool_frames=1024, repeat=False)
+    assert stream.native, stream.native_error
+    assert sum(b.shape[0] for b in stream) == 3000
+    stream.close()
+
+
+@pytest.mark.gpu
+def test_cli_encode_equals_quantizer_encode_bit_for_bit(cuda, tmp_path):
+    from quantization_tpu_torch import cli
+    from quantization_tpu_torch.data.shards import iter_shards_sequential, write_shards
+
+    x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(5), 5000)
+    write_shards(tmp_path / "corpus", [x.cpu().numpy()], frames_per_shard=3000)
+    before = tseq.SEQBEAM_KERNEL.launches
+    cli.main(["encode", "--quantizer", str(Q512), "--data", str(tmp_path / "corpus"),
+              "--out", str(tmp_path / "codes.npy"), "--batch", "2048"])
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_KERNEL.launches == before + 3  # one a batch: 2048, 2048, 904
+    codes = np.load(tmp_path / "codes.npy")
+    q = qtt.load_quantizer(Q512, device=cuda)
+    want = [q.encode(torch.from_numpy(b).to(cuda).float()).cpu().numpy()
+            for b in iter_shards_sequential(tmp_path / "corpus", 2048, dtype=np.float16)]
+    np.testing.assert_array_equal(codes, np.concatenate(want))

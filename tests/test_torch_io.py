@@ -157,3 +157,50 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "quantization_tpu", "triton"), (f, name)
+
+
+@pytest.mark.parametrize("dim", [256, 512])
+def test_shipped_double_sampler_weights_equal_jax_construction(dim):
+    # make_double_sampler(dim, PRNGKey(42)): two dim/2 MLP samplers, one from
+    # each key of split(PRNGKey(42)), three linear layers each
+    paths = tsynth.double_weights_paths(dim)
+    for path, key in zip(paths, jax.random.split(jax.random.PRNGKey(42))):
+        with np.load(path) as z:
+            for i, k in enumerate(jax.random.split(key, 3), start=1):
+                w, b = jsynth._linear_params(k, dim // 2, dim // 2)
+                np.testing.assert_array_equal(z[f"w{i}"], np.asarray(w))
+                np.testing.assert_array_equal(z[f"b{i}"], np.asarray(b))
+    assert len(paths) == 2
+
+
+def test_double_sampler_matches_jax_halves_on_same_noise(monkeypatch):
+    # the JAX sampler's two halves, each its MLP on its own noise, then
+    # concatenated (quantization_tpu/data/synthetic.py:55-68)
+    dim, half = 256, 128
+    rng = np.random.default_rng(2)
+    noise = [rng.standard_normal((8, half)).astype(np.float32) for _ in range(2)]
+    want = []
+    for key, z in zip(jax.random.split(jax.random.PRNGKey(42)), noise):
+        (w1, b1), (w2, b2), (w3, b3) = (jsynth._linear_params(k, half, half)
+                                        for k in jax.random.split(key, 3))
+        h = jax.nn.relu(z @ w1.T + b1)
+        h = jax.nn.relu(h @ w2.T + b2)
+        mu = h.mean(-1, keepdims=True)
+        h = (h - mu) * jax.lax.rsqrt(((h - mu) ** 2).mean(-1, keepdims=True) + 1e-5)
+        want.append(np.asarray(h @ w3.T + b3 + 0.05 * z))
+    sampler = tsynth.make_double_sampler(dim, device="cpu")
+    draws = iter(noise)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "randn", lambda *a, **k: torch.from_numpy(next(draws).copy()))
+        got = sampler(torch.Generator().manual_seed(0), 8).numpy()
+    np.testing.assert_allclose(got, np.concatenate(want, axis=-1), rtol=1e-4, atol=1e-5)
+    a = sampler(torch.Generator().manual_seed(3), 4)
+    assert a.shape == (4, dim) and torch.equal(a, sampler(torch.Generator().manual_seed(3), 4))
+
+
+def test_double_sampler_dims_and_device(monkeypatch):
+    with pytest.raises(ValueError, match="dim=128"):
+        tsynth.make_double_sampler(128, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsynth.make_double_sampler(512)
