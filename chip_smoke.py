@@ -98,7 +98,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    (``fixed_ms``: the device time at the first K less its rounds); P2's
    ``[floor gather]``, its shared loads from fixed rows with no index math
    (measured), beside the rate the SMs serve them (computed, on that line
-   only).  Each floor kernel's output is checked before it is timed.
+   only).  Each floor kernel's output is checked before it is timed.  P2's
+   library time is one ``torch.gather`` of its table, an iteration's work.
 
 9. the CLI at full width (``python -m quantization_tpu_torch``, called in
    process through ``cli.main``, decode as a subprocess), in a temporary
@@ -116,6 +117,26 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    traces one CLI encode of 131,072 frames (the card's busy share, its top
    5 rows, which must hold K2) and one phase-1 and one phase-2 training
    step for ``train_search`` "auto" and "gramv3" (top 8 rows, busy share).
+10. the aux models at full width.  (a) ``QuantizerTrainer(dim=512,
+   bytes_per_frame=8, init="multi_kmeans", init_data=<the guard's 8,192
+   seed-7 frames>, init_iters=300, train_search="gramv3",
+   beam_finetune_iters=0)``, 4 + 6 steps: ``to_logits_w`` equals the fitted
+   centers in its own storage, the fit's ``compute_ref_loss`` on the seed-8
+   frames ends below its start, ``step_many`` across the phase switch
+   launches K3 once in each of 3 phase-2 steps (every index equal to plain
+   on a phase-2 batch), every loss term is finite; the fit's seconds.  (b)
+   ``MultiKmeansTrainer(dim=512, codebook_size=4, num_codebooks=16,
+   num_stages=3, iters_per_stage=20)`` at batch 512: 16 x 4 -> 8 x 16 -> 4 x
+   256, finite losses, ``encode(as_bytes=True)`` of 8,192 frames (8192, 4)
+   uint8 whose decode equals the unpacked codes' bit for bit; steps/s a
+   stage.  (c) ``PredictorTrainer`` against both committed quantizers
+   (hidden 512, batch 512, 50 steps each): K2 once a step, the targets held
+   against the plain seqbeam, finite losses, the mean CE of the last 10
+   steps below the first 10's; at d512 the checkpointed predictor's
+   gradients within 1e-6 relative of the plain ones, and one traced step
+   (top 5 rows hold K2; busy share); steps/s.  (d), run in phase 9's
+   corpus: ``train --init multi_kmeans`` (4 + 4 steps, batch 600) writes an
+   8 x 256 quantizer that loads, with finite losses.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -132,6 +153,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import sys
@@ -179,6 +201,9 @@ CLI_FRAMES = 524288  # phase 9's corpus: 64 encode batches at the CLI's default
 CLI_SHARD = 200000
 CLI_BATCH = 8192  # the CLI's encode default (quantization_tpu_torch/cli.py)
 CLI_PROFILE_LIMIT = 131072  # 16 batches traced
+AUX_INIT_ITERS = 300  # the trainer's default multi-kmeans fit
+AUX_STAGE_ITERS = 20
+AUX_PRED_STEPS = 50
 ENCODE_ROWS = ((0, 32768), (196608, 204800))  # whole batches; the second straddles 200,000
 DECODE_ROWS = ((65000, 66000), (CLI_FRAMES - 1000, CLI_FRAMES))  # the first crosses 65,536
 
@@ -405,6 +430,14 @@ def main() -> int:
     probes = probe_phase(dev)
     # ---- 9. the CLI at full width, and traces of training steps
     cli = cli_phase(quantizers[512], samplers[512], paths[0], dev)
+    # ---- 10. the aux models at full width (its CLI run is in phase 9's corpus)
+    aux = aux_phase(samplers, dev)
+    for c in aux["checks"]:
+        (k3_checks if c["kernel"] == "gramv3" else k2_checks).append(c)
+        launches[c["kernel"]] = launches.get(c["kernel"], 0) + c["launches"]
+    print(f"[aux] phase 10 took {aux['phase_s'] + cli['train_multi_kmeans']['train_s']:.1f} s "
+          f"({cli['train_multi_kmeans']['train_s']:.1f} s of it the CLI's train in phase 9)",
+          flush=True)
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -446,7 +479,8 @@ def main() -> int:
             for p in paths]
     runs += [("gramv3", p["launches"]["gramv3"], p["encode_kernel_ms"], bounds[p["config"]])
              for p in gram_paths]
-    runs += [(c["kernel"], c["launches"], c["ms"], c["bound_ms"]) for c in train_checks]
+    runs += [(c["kernel"], c["launches"], c["ms"], c["bound_ms"])
+             for c in train_checks + aux["checks"]]
     runs += [(k, n, p["encode_kernel_ms"], bounds[p["config"]])
              for p in rest["paths"] for k, n in p["launches"].items()]
     kernels = [k1, k2, k3, k_v1, *probes]
@@ -462,8 +496,8 @@ def main() -> int:
         f"{k['name']} {k['ms'] / k['library_ms']:.3f}x" for k in slower) or "none")
         + "; then launches x (ms - bound ms): " + ", ".join(
         f"{k['name']} {k['launches_x_excess_ms']:.6g}" for k in rest_k), flush=True)
-    print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"] + [cli]}),
-          flush=True)
+    print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"] + [cli]
+                      + aux["paths"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -738,7 +772,7 @@ def probe_phase(dev) -> list:
             # an iteration moves no bytes off chip: the slope cancels the
             # call's one read of the inputs and write of the output
             **_bound(0, _probe_ops(p.name, p.inputs)),
-            "library_ms": _matmul_library_ms(*p.inputs) if p.name == "matmul" else None,
+            "library_ms": PROBE_LIBRARY[p.name](*p.inputs) if p.name in PROBE_LIBRARY else None,
         }
         entries.append(entry)
         floor_line = None
@@ -756,8 +790,9 @@ def probe_phase(dev) -> list:
               + (f", floor {entry['floor_ms'] * 1e3:.5f}" if "floor_ms" in entry else "")
               + (f", fixed {entry['fixed_ms'] * 1e3:.3f} us a call" if "fixed_ms" in entry
                  else "")
-              + (f", torch.matmul bf16 {entry['library_ms'] * 1e3:.5f}" if entry["library_ms"]
-                 else "") + f"); launches {n}; max_abs_err {max(errs):.3g}", flush=True)
+              + (f", {PROBE_LIBRARY_CALL[p.name]} {entry['library_ms'] * 1e3:.5f}"
+                 if entry["library_ms"] else "")
+              + f"); launches {n}; max_abs_err {max(errs):.3g}", flush=True)
         if floor_line:
             print(floor_line, flush=True)
         if p.name == "matmul":
@@ -872,6 +907,20 @@ def _matmul_library_ms(a, b) -> float:
 
     a16, bt = a.to(torch.bfloat16), b.T
     return device_ms(lambda: a16 @ bt, 50)
+
+
+def _gather_library_ms(table, idx) -> float:
+    """One ``torch.gather(table, 0, idx)`` of P2's table: an iteration's
+    gather (the index widened to int64 outside the timing)."""
+    from quantization_tpu_torch.utils.device import device_ms
+
+    idx64 = idx.long()
+    return device_ms(lambda: torch.gather(table, 0, idx64), 50)
+
+
+# the one PyTorch call that computes a probe's iteration, where there is one
+PROBE_LIBRARY = {"matmul": _matmul_library_ms, "gather": _gather_library_ms}
+PROBE_LIBRARY_CALL = {"matmul": "torch.matmul bf16", "gather": "torch.gather"}
 
 
 def _mm(m: int, k: int, n: int, dtype, dev):
@@ -1128,6 +1177,8 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
             out["train_losses"] = {k: float(v) for k, v in losses._asdict().items()}
             check(all(np.isfinite(v) for v in out["train_losses"].values()),
                   f"cli train: a loss term is not finite: {out['train_losses']}")
+            out["train_multi_kmeans"] = cli_train_multi_kmeans(corpus, d, torch.from_numpy(
+                x600).to(dev).float(), dev)
 
             # encode, the whole corpus with the CLI's defaults
             codes_path = d / "codes.npy"
@@ -1258,6 +1309,231 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
     print(f"[cli] phase 9 took {out['phase_s']:.1f} s (corpus write {out['corpus_write_s']:.1f} s,"
           f" train {out['train_s']:.1f} s)", flush=True)
     return out
+
+
+def cli_train_multi_kmeans(corpus, d, x600, dev) -> dict:
+    """Phase 10 (d): ``train --init multi_kmeans`` on phase 9's corpus (4 + 4
+    steps, batch 600; the first batch fits the phase-1 codebooks).  The
+    quantizer it writes must load, be 8 x 256 and give finite losses on
+    ``x600``."""
+    from quantization_tpu_torch import cli, load_quantizer
+
+    qpath = d / "q_multi_kmeans.npz"
+    t0 = time.perf_counter()
+    cli.main(["train", "--data", str(corpus), "--dim", "512", "--bytes-per-frame", "8",
+              "--iters", "4", "--batch", str(TRAIN_BATCH), "--chunk", "4", "--quiet",
+              "--init", "multi_kmeans", "--out", str(qpath)])
+    torch.cuda.synchronize()
+    out = {"path": "cli train --init multi_kmeans", "train_s": time.perf_counter() - t0}
+    tq = load_quantizer(qpath, device=dev)
+    check((tq.num_codebooks, tq.codebook_size) == (8, 256),
+          f"cli train --init multi_kmeans: config {tq.config}")
+    out["train_losses"] = {k: float(v) for k, v in tq.compute_loss(x600)._asdict().items()}
+    check(all(math.isfinite(v) for v in out["train_losses"].values()),
+          f"cli train --init multi_kmeans: a loss term is not finite: {out['train_losses']}")
+    print(f"[aux cli] train --init multi_kmeans (4 + 4 steps, batch {TRAIN_BATCH}): "
+          f"{out['train_s']:.2f} s; wrote an 8 x 256 quantizer that loads; losses on a batch "
+          f"{out['train_losses']}", flush=True)
+    return out
+
+
+def aux_phase(samplers: dict, dev) -> dict:
+    """Phase 10: the aux models at full width.  (a) ``QuantizerTrainer(...,
+    init="multi_kmeans", train_search="gramv3")`` at d512 / 8 B; (b) the
+    staged ``MultiKmeansTrainer`` 16 x 4 -> 8 x 16 -> 4 x 256 at d512; (c)
+    ``PredictorTrainer`` against both committed quantizers (K2 once a step),
+    with the checkpointed predictor's gradients against the plain ones and a
+    traced step.  Returns the ``paths`` entries and, per kernel launched, a
+    check entry (launches in the counted window, held against its plain
+    version, times and bound at the path's shape)."""
+    import numpy as np
+
+    from quantization_tpu_torch import JointCodebookLoss, QuantizerTrainer, load_quantizer
+    from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.core.types import scaled_centers
+    from quantization_tpu_torch.models import multi_kmeans as mk
+    from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain, eval_frames
+    from quantization_tpu_torch.train import MultiKmeansTrainer, PredictorTrainer
+    from quantization_tpu_torch.utils.device import device_ms
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
+
+    t_phase = time.perf_counter()
+    paths, checks = [], []
+    guard = eval_frames(512, dev)  # the guard's key-42 frames, seeds 7, 8, 9
+    fit_data, held_out = guard[7], guard[8]
+
+    # (a) the multi-kmeans init, then training across the phase switch
+    p1 = TRAIN["phase_one_iters"]
+    kw = dict(TRAIN, train_search="gramv3", beam_finetune_iters=0, init="multi_kmeans",
+              init_data=fit_data, init_iters=AUX_INIT_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = QuantizerTrainer(device=dev, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    w, c = t.params.to_logits_w, t.params.centers
+    check(bool(torch.equal(w, c.reshape(w.shape))) and w.data_ptr() != c.data_ptr(),
+          "aux init: to_logits_w is not a separate copy of the fitted centers")
+    # the fit's start: its trainer, seeded as the QuantizerTrainer seeds it
+    rng = np.random.default_rng(TRAIN["seed"])
+    rng.integers(0, 2**31)  # the parameters' seed
+    start = MultiKmeansTrainer(512, 16, 2 * TRAIN["bytes_per_frame"], num_stages=1,
+                               iters_per_stage=AUX_INIT_ITERS, seed=int(rng.integers(0, 2**31)),
+                               device=dev).get_quantizer()
+    fitted = mk.MultiKmeansQuantizer(512, 16, 2 * TRAIN["bytes_per_frame"], device=dev,
+                                     params=mk.MultiKmeansParams(c.detach(), torch.zeros(())))
+    err0, err1 = float(start.compute_ref_loss(held_out)), float(fitted.compute_ref_loss(held_out))
+    check(err1 < err0, f"aux init: the fit's ref loss went {err0} -> {err1}")
+    xs = samplers[512](torch.Generator().manual_seed(11), (p1 + 4) * TRAIN_BATCH).reshape(
+        p1 + 4, TRAIN_BATCH, 512)
+    K3.GRAMV3_KERNEL.launches = 0
+    losses = t.step_many(xs)
+    torch.cuda.synchronize()
+    n_k3 = K3.GRAMV3_KERNEL.launches
+    check(n_k3 == 3, f"aux init: {n_k3} gramv3 launches, not one in each of 3 phase-2 steps")
+    check((t.config.num_codebooks, t.config.codebook_size) == (8, 256),
+          f"aux init: phase-2 config {t.config}")
+    check(all(bool(torch.isfinite(v).all()) for step in losses for v in step),
+          "aux init: a loss term is not finite")
+    params, cfg = t.params.detach(), t.config
+    problem = K3.gramv3_problem(params, cfg, xs[-1], passes=1, g_dtype="bf16")
+    chk = against_plain(problem, scaled_centers(params, cfg.scale_speed))
+    check(chk["ok"] and chk["index_agreement"] == 1.0,
+          f"aux init: gramv3 vs plain on a phase-2 batch: {chk}")
+    checks.append({"where": "training gramv3 from the multi-kmeans init", "kernel": "gramv3",
+                   "shape": f"B={TRAIN_BATCH} D=512 nc=8 passes=1 M=8 R=4", "launches": n_k3,
+                   **{k: chk[k] for k in CHECK_KEYS},
+                   "ms": device_ms(lambda: K3.gramv3_cuda(problem), 20),
+                   "plain_ms": device_ms(lambda: K3.gramv3_plain(problem), 3),
+                   **_gramv3_bound(TRAIN_BATCH, 8, 1, 8, "bf16")})
+    paths.append({"path": "QuantizerTrainer(init='multi_kmeans').step_many", "train_search":
+                  "gramv3", "batch": TRAIN_BATCH, **{k: v for k, v in kw.items()
+                                                     if k != "init_data"},
+                  "init_frames": fit_data.shape[0], "fit_s": fit_s, "fit_ref_loss": [err0, err1],
+                  "launches": {"gramv3": n_k3},
+                  "final_losses": {k: float(v) for k, v in losses[-1]._asdict().items()}})
+    print(f"[aux init] multi_kmeans fit ({AUX_INIT_ITERS} steps, batch 512, 16 x 16 at d512) and "
+          f"construction {fit_s:.2f} s; ref loss on 8,192 held-out frames {err0:.4f} -> "
+          f"{err1:.4f} ({(err1 / err0 - 1) * 100:+.1f}%); to_logits_w a separate copy; gramv3 "
+          f"launches {n_k3} in 3 phase-2 steps, every index equal to plain", flush=True)
+
+    # (b) the staged multi-kmeans trainer, the growth of the reference's script
+    mt = MultiKmeansTrainer(dim=512, codebook_size=4, num_codebooks=16, num_stages=3,
+                            iters_per_stage=AUX_STAGE_ITERS, seed=0, device=dev)
+    xb = samplers[512](torch.Generator().manual_seed(12), 3 * AUX_STAGE_ITERS * 512).reshape(
+        3 * AUX_STAGE_ITERS, 512, 512)
+    stages = []
+    for stage, shape in enumerate(((16, 4), (8, 16), (4, 256))):
+        check(tuple(mt.params.centers.shape) == (*shape, 512),
+              f"aux staged: stage {stage} centers {tuple(mt.params.centers.shape)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [mt.step(x) for x in xb[stage * AUX_STAGE_ITERS:(stage + 1) * AUX_STAGE_ITERS]]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        check(bool(torch.isfinite(torch.stack([torch.stack(o[1:]) for o in outs])).all()),
+              f"aux staged: a loss of stage {stage} is not finite")
+        stages.append({"num_codebooks": shape[0], "codebook_size": shape[1],
+                       "steps_per_s": AUX_STAGE_ITERS / s})
+    check(mt.done(), "aux staged: not done after 3 stages")
+    mq = mt.get_quantizer()
+    codes = mq.encode(held_out, as_bytes=True)
+    check(codes.dtype == torch.uint8 and tuple(codes.shape) == (8192, 4),
+          f"aux staged: codes {codes.dtype} {tuple(codes.shape)}")
+    check(bool(torch.equal(mq.decode(codes), mq.decode(mq.encode(held_out)))),
+          "aux staged: the decode of the packed codes differs from the unpacked one's")
+    ref = float(mq.compute_ref_loss(held_out))
+    paths.append({"path": "MultiKmeansTrainer.step", "dim": 512, "batch": 512,
+                  "iters_per_stage": AUX_STAGE_ITERS, "stages": stages, "ref_loss": ref})
+    print("[aux staged] d512 batch 512, " + ", ".join(
+        f"{e['num_codebooks']} x {e['codebook_size']} {e['steps_per_s']:.1f} steps/s"
+        for e in stages) + f"; codes (8192, 4) uint8, decode bit-equal; ref loss {ref:.4f}",
+        flush=True)
+
+    # (c) the predictor against each committed quantizer
+    for dim, qpath in TRAINED.items():
+        q = load_quantizer(qpath, device=dev)
+        tr = PredictorTrainer(q, predictor_channels=dim, seed=0)
+        xp = samplers[dim](torch.Generator().manual_seed(13), AUX_PRED_STEPS * 512).reshape(
+            AUX_PRED_STEPS, 512, dim)
+        K2.SEQBEAM_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ce = [tr.step(x) for x in xp]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n_k2 = K2.SEQBEAM_KERNEL.launches
+        check(n_k2 == AUX_PRED_STEPS,
+              f"aux predictor d{dim}: {n_k2} seqbeam launches in {AUX_PRED_STEPS} steps")
+        check(all(math.isfinite(v) for v in ce),
+              f"aux predictor d{dim}: a loss is not finite")
+        first, last = statistics.mean(ce[:10]), statistics.mean(ce[-10:])
+        check(last < first, f"aux predictor d{dim}: mean CE {first} -> {last}")
+        # the targets' kernel against its plain version on the path's batch
+        x = xp[-1]
+        name, passes, kw2 = codec.auto_choice(q.config, x, tr.encode_refine_iters)
+        sem = {k: v for k, v in kw2.items() if k in SEMANTIC_KEYS}
+        problem = K2.seqbeam_problem(q.params, q.config, x, passes=passes, **sem)
+        chk = against_plain(problem, q.get_centers().detach(),
+                            got=q.encode(x, refine_indexes_iters=tr.encode_refine_iters,
+                                         as_bytes=False))
+        check(chk["ok"], f"aux predictor d{dim}: the targets vs the plain seqbeam: {chk}")
+        checks.append({"where": f"predictor targets d{dim}", "kernel": "seqbeam_v2",
+                       "config": name, "shape": f"B=512 D={dim} nc={q.num_codebooks} "
+                       f"passes={passes}", "launches": n_k2, **{k: chk[k] for k in CHECK_KEYS},
+                       "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 20),
+                       "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 3),
+                       **_seqbeam_bound(512, dim, q.num_codebooks, passes, sem["M"],
+                                        sem["e_dtype"])})
+        entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": qpath.name,
+                 "batch": 512, "hidden_channels": 512, "steps": AUX_PRED_STEPS,
+                 "launches": {"seqbeam_v2": n_k2}, "steps_per_s": AUX_PRED_STEPS / s,
+                 "mean_ce_first10": first, "mean_ce_last10": last}
+        line = (f"[aux predictor d{dim}] {q.num_codebooks} x 256, batch 512, hidden 512: "
+                f"{entry['steps_per_s']:.1f} steps/s; seqbeam launches {n_k2} in "
+                f"{AUX_PRED_STEPS} steps; mean CE a frame {first:.3f} -> {last:.3f}; targets "
+                f"vs plain agreement {chk['index_agreement']:.6f}")
+        if dim == 512:
+            # the checkpointed predictor's gradients against the plain ones
+            idx = q.encode(x, as_bytes=False)
+            grads = []
+            for ckpt in (True, False):
+                mod = JointCodebookLoss(dim, q.num_codebooks, 512, 256, checkpoint=ckpt,
+                                        params=tr.params, device=dev)
+                with torch.enable_grad():
+                    mod(x, idx).backward()
+                grads.append({f: p.grad for f, p in mod.named_parameters()})
+            rel = {f: float((grads[0][f] - grads[1][f]).abs().max()
+                            / grads[1][f].abs().max().clamp(min=1e-30)) for f in grads[1]}
+            check(all(v <= 1e-6 for v in rel.values()) and all(
+                float(g.abs().max()) > 0 for g in grads[0].values()),
+                f"aux predictor d{dim}: checkpointed vs plain gradients: {rel}")
+            entry["checkpoint_grad_rel_diff"] = max(rel.values())
+            # one traced step
+            walls = []
+
+            def step():
+                t1 = time.perf_counter()
+                tr.step(xp[0])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+
+            rows = profile_device_ops(step)
+            check(any("seqbeam_kernel" in r["source"] for r in rows[:5]),
+                  f"aux predictor d{dim}: the seqbeam kernel is not among the top 5 rows: "
+                  f"{rows[:5]}")
+            busy = sum(r["ms"] for r in rows) / (walls[-1] * 1e3)
+            entry.update({"profile_step_ms": walls[-1] * 1e3, "device_busy_share": busy,
+                          "profile_top5": _short(rows[:5])})
+            line += (f"; checkpointed vs plain gradients within {max(rel.values()):.2e}; a "
+                     f"traced step {walls[-1] * 1e3:.3f} ms, device busy {100 * busy:.1f}%, "
+                     "top 5: " + "; ".join(f"{r['source'][:50]} {r['ms']:.3f} ms x{r['count']}"
+                                           for r in rows[:5]))
+        paths.append(entry)
+        print(line, flush=True)
+    return {"paths": paths, "checks": checks, "phase_s": time.perf_counter() - t_phase}
 
 
 def profile_train(sampler, dev) -> list:

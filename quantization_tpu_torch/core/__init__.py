@@ -17,7 +17,7 @@ from .codec import (
 )
 from .diagnostics import codebook_correlations
 from .growth import product_params
-from .init import init_quantizer_params, random_id
+from .init import init_quantizer_params, init_quantizer_params_from_centers, random_id
 from .losses import compute_loss
 from .search import (
     compute_indexes,
@@ -50,6 +50,7 @@ __all__ = [
     "decode_onehot",
     "encode",
     "init_quantizer_params",
+    "init_quantizer_params_from_centers",
     "k_cutoff_schedule",
     "pack_indexes",
     "product_params",

@@ -24,8 +24,14 @@ num_codebooks = bytes_per_frame) and train ``phase_two_iters`` more.
   ``(params, opt_state)`` (five parameters, the Adam count, its first and
   second moments) and the same ``meta`` keys, so :meth:`load_checkpoint`
   resumes a run that the JAX package saved, and the other way round.
+* ``init="multi_kmeans"`` fits the phase-1 codebooks with a short
+  :class:`~quantization_tpu_torch.train.multi_kmeans_trainer.MultiKmeansTrainer`
+  run on ``init_data`` (``init_iters`` steps at batch min(512, N), the
+  batches drawn from the trainer's own host RNG after the parameters' seed,
+  as the JAX trainer draws them), then starts ``to_logits`` as a copy of
+  the fitted centers (``core.init_quantizer_params_from_centers``).
 
-Not ported yet: ``mesh=`` (ROADMAP A7) and ``init="multi_kmeans"`` (A8).
+Not ported yet: ``mesh=`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -66,6 +72,25 @@ def total_loss(losses: QuantizerLosses, entropy_scale: float = 0.01) -> torch.Te
             + entropy_scale * losses.logits_entropy_loss)
 
 
+def _fit_multi_kmeans_centers(config: QuantizerConfig, data: torch.Tensor, iters: int,
+                              rng: np.random.Generator) -> torch.Tensor:
+    """The phase-1 codebooks fitted by ``iters`` steps of a one-stage
+    multi-kmeans run on ``data`` (on the trainer's device), its seed and
+    batches drawn from ``rng`` as the JAX trainer draws them."""
+    from .multi_kmeans_trainer import MultiKmeansTrainer
+
+    data = data.reshape(-1, config.dim)
+    t = MultiKmeansTrainer(config.dim, codebook_size=config.codebook_size,
+                           num_codebooks=config.num_codebooks, num_stages=1,
+                           iters_per_stage=iters, seed=int(rng.integers(0, 2**31)),
+                           device=data.device)
+    batch = min(512, data.shape[0])
+    for _ in range(iters):
+        sel = rng.integers(0, data.shape[0], batch)
+        t.step(data[torch.from_numpy(sel).to(data.device)])
+    return t.params.centers.detach()
+
+
 class QuantizerTrainer:
     """Usage (the lifecycle of `quantization/quantization.py:604-611`)::
 
@@ -102,12 +127,10 @@ class QuantizerTrainer:
             raise ValueError(f"bytes_per_frame must be a power of 2 up to 32, got {bytes_per_frame}")
         if mesh is not None:
             raise NotImplementedError("QuantizerTrainer(mesh=...) is not ported yet (ROADMAP A7)")
-        if init == "multi_kmeans":
-            raise NotImplementedError(
-                "QuantizerTrainer(init='multi_kmeans') is not ported yet (ROADMAP A8)")
-        if init != "default":
+        if init not in ("default", "multi_kmeans"):
             raise ValueError(f"unknown init {init!r}")
-        del init_data, init_iters  # used by init="multi_kmeans" only
+        if init == "multi_kmeans" and init_data is None:
+            raise ValueError("init='multi_kmeans' needs init_data")
         self.device = resolve_device(device)
         self.phase_one_iters = phase_one_iters
         self.phase_two_iters = phase_two_iters
@@ -136,7 +159,14 @@ class QuantizerTrainer:
         # (`quantization/quantization.py:627-628`)
         self.config = QuantizerConfig(dim=dim, codebook_size=16, num_codebooks=bytes_per_frame * 2)
         generator = torch.Generator().manual_seed(int(self._rng.integers(0, 2**31)))
-        self._set_params(core.init_quantizer_params(generator, self.config, device=self.device))
+        if init == "multi_kmeans":
+            centers = _fit_multi_kmeans_centers(self.config, self._put(init_data), init_iters,
+                                                self._rng)
+            params = core.init_quantizer_params_from_centers(generator, self.config, centers,
+                                                             device=self.device)
+        else:
+            params = core.init_quantizer_params(generator, self.config, device=self.device)
+        self._set_params(params)
         self.start_time = time.time()
         self._done_logged = False
 

@@ -1,6 +1,7 @@
+from .checkpoint import checkpoint, remat
 from .serialization import load_quantizer, save_quantizer
 
-__all__ = ["load_quantizer", "save_quantizer", "profile_device_ops"]
+__all__ = ["checkpoint", "remat", "load_quantizer", "save_quantizer", "profile_device_ops"]
 
 
 def __getattr__(name):

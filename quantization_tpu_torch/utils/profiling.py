@@ -15,6 +15,7 @@ Usage::
 from __future__ import annotations
 
 import collections
+import logging
 import os
 from typing import Callable, Dict, List
 
@@ -22,6 +23,16 @@ import torch
 from torch.profiler import ProfilerActivity
 
 from ..core.types import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+# traced windows tried on the card before a call is taken to have launched
+# nothing: the tracer (torch.profiler on CUPTI) now and then returns a window
+# without any device activity, even for a call that launched hundreds of
+# kernels (about one window in 40 on an H100), and the next window of the
+# same call holds them
+TRACE_ATTEMPTS = 3
 
 
 def profile_device_ops(run: Callable[[], object], trace_dir: str | None = None,
@@ -32,7 +43,10 @@ def profile_device_ops(run: Callable[[], object], trace_dir: str | None = None,
 
     ``run`` is called twice: once to warm up, untraced, and once traced (a
     tracer started cold has been seen to miss the first kernel of its
-    window).  Each call ends in a synchronize of the card.
+    window).  Each call ends in a synchronize of the card.  On the card, a
+    traced call that shows no device activity is traced again (a warm-up
+    and a traced call each time), up to ``TRACE_ATTEMPTS`` times, with a
+    warning each time; after the last, the empty table is returned.
 
     On ``device`` (default: the GPU) a row is one CUDA device activity (a
     kernel, copy or fill), keyed by its name, with its device time; the
@@ -42,6 +56,21 @@ def profile_device_ops(run: Callable[[], object], trace_dir: str | None = None,
     ``trace_dir``, the traced call's Chrome trace is written there as
     ``trace.json``."""
     device = resolve_device(device)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        agg, cnt = _trace(run, device, trace_dir)
+        if agg or device.type != "cuda" or attempt == TRACE_ATTEMPTS:
+            break
+        logger.warning("the traced call showed no device activity; tracing it again "
+                       "(attempt %d of %d)", attempt + 1, TRACE_ATTEMPTS)
+    return [
+        {"source": k, "ms": round(v / 1000.0, 3), "count": cnt[k]}
+        for k, v in agg.most_common()
+    ]
+
+
+def _trace(run: Callable[[], object], device: torch.device, trace_dir: str | None):
+    """One warm-up call and one traced call of ``run``: the traced call's
+    microseconds and counts by name."""
     cuda = device.type == "cuda"
     agg: collections.Counter = collections.Counter()
     cnt: collections.Counter = collections.Counter()
@@ -72,7 +101,4 @@ def profile_device_ops(run: Callable[[], object], trace_dir: str | None = None,
             if cuda:
                 torch.cuda.synchronize(device)
             prof.step()
-    return [
-        {"source": k, "ms": round(v / 1000.0, 3), "count": cnt[k]}
-        for k, v in agg.most_common()
-    ]
+    return agg, cnt

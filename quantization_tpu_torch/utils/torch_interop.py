@@ -3,9 +3,11 @@
 ``params_from_numpy`` takes the JAX package's ``QuantizerParams`` fields as
 numpy arrays (``centers``, ``to_logits_w``, ``to_logits_b``,
 ``logits_scale``, ``centers_scale``) and returns the port's
-:class:`QuantizerParams`; ``params_to_numpy`` is its inverse.  The ``.npz``
-loader goes through them, and the tests use them to give both packages
-identical parameters.
+:class:`QuantizerParams`; ``params_to_numpy`` is its inverse.
+The ``.npz`` loader goes through them.  ``multi_kmeans_params_from_numpy``
+and ``joint_codebook_params_from_numpy`` take the auxiliary models' fields
+the same way.  The tests use all of them to give both packages identical
+parameters.
 
 The reference persists quantizers as ``torch.save(quantizer.state_dict())``
 (`quantization/test_train_hdf5.py:47-54`) with the keys
@@ -44,6 +46,38 @@ def params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> QuantizerPa
 def params_to_numpy(params: QuantizerParams) -> Dict[str, np.ndarray]:
     """Inverse of :func:`params_from_numpy`: float32 numpy arrays."""
     return {k: getattr(params, k).detach().cpu().float().numpy() for k in PARAM_FIELDS}
+
+
+def multi_kmeans_params_from_numpy(arrays: Dict[str, np.ndarray], device=None):
+    """Port :class:`~quantization_tpu_torch.models.multi_kmeans.MultiKmeansParams`
+    (float32 on ``device``, default CPU) from the JAX package's fields as
+    numpy arrays (``centers``, ``frame_entropy_scale``)."""
+    from ..models.multi_kmeans import MultiKmeansParams
+
+    centers = torch.from_numpy(np.array(arrays["centers"], dtype=np.float32)).to(device)
+    if centers.ndim != 3:
+        raise ValueError(f"centers must be (nc, cs, dim), got {tuple(centers.shape)}")
+    scale = torch.from_numpy(np.array(arrays["frame_entropy_scale"], dtype=np.float32))
+    return MultiKmeansParams(centers=centers, frame_entropy_scale=scale.reshape(()).to(device))
+
+
+def joint_codebook_params_from_numpy(arrays: Dict[str, np.ndarray], device=None):
+    """Port :class:`~quantization_tpu_torch.models.prediction.JointCodebookParams`
+    (float32 on ``device``, default CPU) from the JAX package's fields as
+    numpy arrays."""
+    from ..models.prediction import JOINT_CODEBOOK_FIELDS, JointCodebookParams
+
+    t = {k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(device)
+         for k in JOINT_CODEBOOK_FIELDS}
+    nc, cs, hidden = t["linear2_w"].shape
+    predictor_channels = t["linear1_w"].shape[1]
+    want = {"linear1_w": (hidden, predictor_channels), "linear1_b": (hidden,),
+            "embedding": ((nc - 1) * cs, hidden), "linear2b_w": (nc, cs, predictor_channels),
+            "linear2_b": (nc, cs)}
+    bad = {k: tuple(t[k].shape) for k, shape in want.items() if tuple(t[k].shape) != shape}
+    if bad:
+        raise ValueError(f"inconsistent parameter shapes {bad}, expected {want}")
+    return JointCodebookParams(**t)
 
 
 def quantizer_from_state_dict(state_dict: dict, device=None) -> Quantizer:

@@ -134,12 +134,20 @@ def test_jax_hdf5_trained_file_loads_in_port(corpus, tmp_path, monkeypatch):
     assert qtt.load_quantizer(tmp_path / "t.npz", device="cpu").codebook_size == 256
 
 
-def test_multi_kmeans_init_is_not_ported_yet(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.main(["train", "--data", str(corpus / "corpus.hdf5"), "--dim", str(DIM),
-                  "--bytes-per-frame", "1", "--out", str(tmp_path / "q.npz"), "--iters", "2",
-                  "--init", "multi_kmeans", "--quiet", "--device", "cpu"])
-    assert not (tmp_path / "q.npz").exists()
+def test_train_with_kmeans_init(corpus, tmp_path):
+    """``train --init multi_kmeans`` (tests/test_cli.py:70-77): the first
+    batch fits the phase-1 codebooks; the quantizer loads in both packages."""
+    q = tmp_path / "qk.npz"
+    cli.main(["train", "--data", str(corpus / "shards"), "--dim", str(DIM),
+              "--bytes-per-frame", "1", "--out", str(q), "--iters", "5", "--batch", "64",
+              "--init", "multi_kmeans", "--quiet", "--device", "cpu"])
+    tq = qtt.load_quantizer(q, device="cpu")
+    jq = jser.load_quantizer(q)
+    assert (tq.num_codebooks, tq.codebook_size) == (1, 256)
+    assert tq.get_id() == jq.get_id()
+    np.testing.assert_array_equal(tq.centers.detach().numpy(), np.asarray(jq.params.centers))
+    x = torch.from_numpy(_sequential_frames(corpus / "shards", 64).astype(np.float32))
+    assert all(bool(torch.isfinite(v)) for v in tq.compute_loss(x))
 
 
 def test_scheduling_knobs_are_accepted_and_change_nothing(corpus, trained, tmp_path):

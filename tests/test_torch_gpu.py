@@ -667,3 +667,99 @@ def test_cli_encode_equals_quantizer_encode_bit_for_bit(cuda, tmp_path):
     want = [q.encode(torch.from_numpy(b).to(cuda).float()).cpu().numpy()
             for b in iter_shards_sequential(tmp_path / "corpus", 2048, dtype=np.float16)]
     np.testing.assert_array_equal(codes, np.concatenate(want))
+
+
+@pytest.mark.gpu
+def test_cuda_multi_kmeans_refine_indexes_vs_cpu(cuda):
+    """d512, cs 16, nc 16, B 512 on the key-42 frames: at least 99.9% of the
+    indexes equal to the CPU's, and the reconstruction's squared error within
+    1e-5 relative (the f32 sums run in other orders)."""
+    from quantization_tpu_torch.models import multi_kmeans as tmk
+
+    gen = torch.Generator().manual_seed(0)
+    params = tmk.init_multi_kmeans_params(gen, 512, 16, 16)
+    x = make_mlp_sampler(512, device="cpu")(torch.Generator().manual_seed(1), 512)
+    idx = torch.randint(0, 16, (512, 16), generator=gen, dtype=torch.int32)
+    want = tmk.refine_indexes(params, x, idx)
+    on_card = tmk.MultiKmeansParams(params.centers.to(cuda), params.frame_entropy_scale.to(cuda))
+    got = tmk.refine_indexes(on_card, x.to(cuda), idx.to(cuda)).cpu()
+    assert float((got == want).float().mean()) >= 0.999
+    sse = [float(((tmk.decode(params, i) - x) ** 2).sum()) for i in (got, want)]
+    assert abs(sse[0] - sse[1]) <= 1e-5 * sse[1]
+
+
+@pytest.mark.gpu
+def test_cuda_multi_kmeans_sampler_follows_softmax(cuda):
+    """20,000 draws on a CUDA generator: each entry's frequency within 5
+    standard errors of softmax; no index reaches cs."""
+    from quantization_tpu_torch.models import multi_kmeans as tmk
+
+    n, cs = 20000, 8
+    table = torch.tensor([[0.0, 1.0, 2.0, -1.0, 0.5, -3.0, 1.5, -20.0],
+                          [3.0, 3.0, 0.0, 0.0, -1.0, 2.5, 1.0, 0.2]])
+    logprobs = torch.log_softmax(table, dim=-1)
+    draws = tmk.sample_categorical(logprobs.expand(n, 2, cs).contiguous().to(cuda),
+                                   torch.Generator(device=cuda).manual_seed(0)).cpu()
+    assert draws.dtype == torch.int32 and int(draws.min()) >= 0 and int(draws.max()) < cs
+    p = logprobs.exp().numpy()
+    for row in range(2):
+        freq = np.bincount(draws[:, row].numpy(), minlength=cs) / n
+        assert np.all(np.abs(freq - p[row]) <= 5 * np.sqrt(p[row] * (1 - p[row]) / n) + 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("checkpoint", [True, False])
+def test_cuda_joint_codebook_loss_vs_cpu(cuda, checkpoint):
+    """The predictor's loss and gradients on the card within 1e-4 relative
+    of the CPU's (nc 8, cs 256, hidden 512, features 512, B 256)."""
+    from quantization_tpu_torch.models import prediction as tpred
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(256, 512, generator=gen)
+    idx = torch.randint(0, 256, (256, 8), generator=gen, dtype=torch.int32)
+    idx[-16:] = -100
+    mods = {d: tpred.JointCodebookLoss(512, 8, checkpoint=checkpoint, device=d,
+                                       generator=torch.Generator().manual_seed(1))
+            for d in ("cpu", cuda)}
+    losses = {d: m(x.to(d), idx.to(d)) for d, m in mods.items()}
+    for loss in losses.values():
+        loss.backward()
+    want = float(losses["cpu"])
+    assert abs(float(losses[cuda]) - want) <= 1e-4 * abs(want)
+    for f in tpred.JOINT_CODEBOOK_FIELDS:
+        g_cpu, g_card = getattr(mods["cpu"], f).grad, getattr(mods[cuda], f).grad.cpu()
+        assert float((g_card - g_cpu).abs().max()) <= 1e-4 * float(g_cpu.abs().max()), f
+
+
+@pytest.mark.gpu
+def test_cuda_predictor_trainer_step_launches_k2_once(cuda):
+    from quantization_tpu_torch.train import PredictorTrainer
+
+    q = qtt.load_quantizer(Q512, device=cuda)
+    trainer = PredictorTrainer(q, predictor_channels=512, seed=0)
+    x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(2), 512)
+    before = tseq.SEQBEAM_KERNEL.launches
+    loss = trainer.step(x)
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_KERNEL.launches == before + 1
+    assert np.isfinite(loss) and trainer.params.linear1_w.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_profile_device_ops_holds_the_kernel_in_every_table(cuda, caplog):
+    """Forty traces of one decode launch: every table holds the kernel once
+    (an empty traced window is traced again); the retries are printed."""
+    import logging
+
+    from quantization_tpu_torch.utils.profiling import profile_device_ops
+
+    cb = torch.randn(8, 256, 512, generator=torch.Generator().manual_seed(0))
+    cb = cb.to(torch.bfloat16).to(cuda)
+    idx = torch.randint(0, 256, (4096, 8), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    with caplog.at_level(logging.WARNING, logger="quantization_tpu_torch.utils.profiling"):
+        for _ in range(40):
+            rows = profile_device_ops(lambda: tdecode.decode_cuda(idx, cb))
+            kernel = [r for r in rows if "decode_kernel" in r["source"]]
+            assert len(kernel) == 1 and kernel[0]["count"] == 1, rows
+    print(f"profile_device_ops: {len(caplog.records)} empty windows traced again in 40 traces")

@@ -64,3 +64,46 @@ def test_without_device_it_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         profile_device_ops(lambda: calls.append(1))
     assert calls == []  # nothing ran
+
+
+@pytest.mark.parametrize("windows,attempts,want", [
+    # an empty window on the card is traced again, with a warning each time
+    ([{}, {}, {"kern": (1500.0, 2)}], 3, [{"source": "kern", "ms": 1.5, "count": 2}]),
+    ([{"kern": (250.0, 1)}], 1, [{"source": "kern", "ms": 0.25, "count": 1}]),
+    # after the last attempt the empty table is returned
+    ([{}, {}, {}], 3, []),
+])
+def test_an_empty_window_on_the_card_is_traced_again(monkeypatch, caplog, windows, attempts,
+                                                     want):
+    import collections
+    import logging
+
+    from quantization_tpu_torch.utils import profiling
+
+    assert profiling.TRACE_ATTEMPTS == 3
+    seen = []
+
+    def one_window(run, device, trace_dir):  # in place of torch.profiler on a card
+        w = windows[len(seen)]
+        seen.append(device.type)
+        return (collections.Counter({k: us for k, (us, _) in w.items()}),
+                collections.Counter({k: n for k, (_, n) in w.items()}))
+
+    monkeypatch.setattr(profiling, "_trace", one_window)
+    with caplog.at_level(logging.WARNING, logger=profiling.__name__):
+        rows = profile_device_ops(lambda: None, device="cuda")
+    assert rows == want
+    assert seen == ["cuda"] * attempts
+    assert len(caplog.records) == attempts - 1
+
+
+def test_an_empty_cpu_window_is_not_traced_again(monkeypatch):
+    import collections
+
+    from quantization_tpu_torch.utils import profiling
+
+    seen = []
+    monkeypatch.setattr(profiling, "_trace", lambda run, device, trace_dir: (
+        seen.append(device.type) or (collections.Counter(), collections.Counter())))
+    assert profile_device_ops(lambda: None, device="cpu") == []
+    assert seen == ["cpu"]

@@ -150,8 +150,6 @@ def test_get_quantizer_asserts_before_done_and_unported_options_raise(monkeypatc
     assert qtt.QuantizerTrainer is QuantizerTrainer  # exported lazily
     with pytest.raises(NotImplementedError, match="A7"):
         QuantizerTrainer(16, 1, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        QuantizerTrainer(16, 1, device="cpu", init="multi_kmeans", init_data=np.zeros((4, 16)))
     with pytest.raises(ValueError):
         QuantizerTrainer(16, 3, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
