@@ -137,6 +137,31 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    (top 5 rows hold K2; busy share); steps/s.  (d), run in phase 9's
    corpus: ``train --init multi_kmeans`` (4 + 4 steps, batch 600) writes an
    8 x 256 quantizer that loads, with finite losses.
+11. multi-device runs (``quantization_tpu_torch.parallel``) at full width,
+   each against one process.  (a) One rank over NCCL in this process
+   (world 1, so every collective goes through NCCL): ``encode_sharded``
+   (auto: K2) and ``decode_sharded(use_kernel=True)`` (K1) on phase 4's
+   32,768 frames equal ``Quantizer.encode`` and ``decode`` bit for bit, and
+   ``QuantizerTrainer(mesh=...)`` at d512 / 8 B, 4 + 4 steps, batch 600,
+   ``train_search="gramv3"`` (K3 once in each of the 4 phase-2 steps) ends
+   with parameters equal to the same run without a mesh.  (b) Two ranks,
+   two processes on the one card, over gloo (NCCL refuses two ranks on one
+   device), a 2 x 1 mesh: each rank encodes 16,384 of the frames (K2), the
+   codes equal phase 4's, the decode (K1) equals it, and the data-parallel
+   trainer runs (300 + 300 frames a step, gramv3, K3 once a phase-2 step).
+   (c) The same two ranks as a 1 x 2 model mesh: the trainer with the
+   beam.  Each trainer is held to one process step by step from the same
+   state (``_lockstep``): every step's training indexes must agree at
+   least at phase 3's 99.5%, at least half the steps on every index, and
+   on those steps the loss terms and the summed gradients must be within
+   ``rtol=2e-4, atol=2e-5`` (the CPU tests') of one process's.  Whole free
+   runs are not held to that tolerance at this width: Adam turns the sign
+   of a gradient near 0 into a step of lr, so a one-process run on the same
+   rows reordered is as far off (PERF.md, phase 11); their distance is
+   printed.  Both ranks' parameters must be equal, each rank runs under a
+   timeout and must exit 0.  ``[parallel ...]`` lines give the wall
+   seconds of the encodes and the training runs (each rank warmed first);
+   two ranks on one card measure no scaling.
 
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
@@ -204,6 +229,8 @@ CLI_PROFILE_LIMIT = 131072  # 16 batches traced
 AUX_INIT_ITERS = 300  # the trainer's default multi-kmeans fit
 AUX_STAGE_ITERS = 20
 AUX_PRED_STEPS = 50
+PARALLEL_TRAIN = dict(TRAIN, phase_two_iters=4)  # phase 11's runs: 4 + 4 steps
+PARALLEL_TIMEOUT_S = 300  # phase 11's two ranks, from their start
 ENCODE_ROWS = ((0, 32768), (196608, 204800))  # whole batches; the second straddles 200,000
 DECODE_ROWS = ((65000, 66000), (CLI_FRAMES - 1000, CLI_FRAMES))  # the first crosses 65,536
 
@@ -438,6 +465,10 @@ def main() -> int:
     print(f"[aux] phase 10 took {aux['phase_s'] + cli['train_multi_kmeans']['train_s']:.1f} s "
           f"({cli['train_multi_kmeans']['train_s']:.1f} s of it the CLI's train in phase 9)",
           flush=True)
+    # ---- 11. multi-device runs: one rank over NCCL, two ranks over gloo
+    par = parallel_phase(quantizers[512], main_frames[512][0], samplers[512], dev)
+    for kernel, n in par["launches"].items():
+        launches[kernel] += n
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -497,7 +528,7 @@ def main() -> int:
         + "; then launches x (ms - bound ms): " + ", ".join(
         f"{k['name']} {k['launches_x_excess_ms']:.6g}" for k in rest_k), flush=True)
     print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"] + [cli]
-                      + aux["paths"]}), flush=True)
+                      + aux["paths"] + par["paths"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1534,6 +1565,323 @@ def aux_phase(samplers: dict, dev) -> dict:
         paths.append(entry)
         print(line, flush=True)
     return {"paths": paths, "checks": checks, "phase_s": time.perf_counter() - t_phase}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_trainer(t, xs, rows=slice(None)) -> float:
+    """``t.step_many`` over this rank's ``rows`` of the global batches
+    ``xs``; returns the wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.step_many(xs[:, rows])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _max_param_diff(a: dict, b) -> dict:
+    from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
+
+    return {f: float((a[f].to(getattr(b, f).device) - getattr(b, f).detach()).abs().max())
+            for f in PARAM_FIELDS}
+
+
+def _lockstep(t, ref, xs, rows) -> list:
+    """Step the mesh trainer ``t`` on this rank's ``rows`` of each global
+    batch in ``xs`` and the one-process trainer ``ref`` on the whole batch,
+    from the same state at every step (``ref`` takes ``t``'s parameters,
+    Adam moments and count after each step, so that no step inherits
+    another's rounding).  Per step: the agreement of the training indexes
+    on this rank's rows, both found from the same parameters; and where
+    every index agrees, whether the four loss terms and the summed
+    gradients (not at the phase switch, which replaces the parameters) are
+    within the CPU tests' ``rtol=2e-4, atol=2e-5`` of ``ref``'s."""
+    import numpy as np
+
+    from quantization_tpu_torch.core.losses import _train_indexes
+    from quantization_tpu_torch.core.types import LOCAL, QuantizerParams
+    from quantization_tpu_torch.parallel import gather_params
+    from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
+
+    tol = dict(rtol=2e-4, atol=2e-5)
+    steps = []
+    for x in xs:
+        peek = np.random.default_rng()
+        peek.bit_generator.state = t._rng.bit_generator.state
+        iters = 2 if peek.random() < t.two_iter_prob else 1
+        search = t._search_for_config(t.cur_iter)
+        switch = t.cur_iter == t.phase_one_iters
+        mine = _train_indexes(t.params, t.config, t._cols(x[rows]), iters, search, t._reducer)
+        want = _train_indexes(ref.params, ref.config, x, iters, search, LOCAL)[rows]
+        agreement = float((mine == want).float().mean())
+        got, exp = t.step(x[rows]), ref.step(x)
+        step = {"iter": t.cur_iter - 1, "search": search, "index_agreement": agreement}
+        if agreement == 1.0:
+            step["losses_close"] = all(torch.allclose(a, b, **tol) for a, b in zip(got, exp))
+            if not switch:
+                grads = gather_params(QuantizerParams(**{
+                    f: getattr(t.params, f).grad for f in PARAM_FIELDS}), t.mesh)
+                step["grads_close"] = all(torch.allclose(getattr(grads, f),
+                                                         getattr(ref.params, f).grad, **tol)
+                                          for f in PARAM_FIELDS)
+        ref._load_state_leaves(t._state_leaves())
+        steps.append(step)
+    return steps
+
+
+def parallel_phase(q, x, sampler, dev) -> dict:
+    """Phase 11: multi-device runs at full width, held against one process.
+    (a) One rank over NCCL in this process: ``encode_sharded`` (auto, K2)
+    and ``decode_sharded(use_kernel=True)`` (K1) on phase 4's frames equal
+    ``Quantizer.encode`` and ``decode`` bit for bit, and the trainer under
+    the mesh (gramv3, K3 once a phase-2 step) ends equal to the run without
+    a mesh.  (b), (c) Two ranks, two processes on the one card over gloo
+    (NCCL refuses two ranks on one device): the 2 x 1 mesh's encode (16,384
+    frames a rank) and decode, its data-parallel trainer (300 + 300 frames a
+    step), then the 1 x 2 model mesh's trainer (beam), each held to one
+    process (the trainers step by step, :func:`_lockstep`).  Returns the
+    ``paths`` entry and the launches."""
+    import multiprocessing
+    import queue
+
+    import torch.distributed as dist
+
+    from quantization_tpu_torch import QuantizerTrainer
+    from quantization_tpu_torch.ops import decode as K1
+    from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.parallel import (decode_sharded, encode_sharded,
+                                                 init_distributed, make_mesh)
+    from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
+
+    t_phase = time.perf_counter()
+    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
+                "gramv3": K3.GRAMV3_KERNEL}
+    n = PARALLEL_TRAIN["phase_one_iters"] + PARALLEL_TRAIN["phase_two_iters"] + 1
+    xs = sampler(torch.Generator().manual_seed(11), n * TRAIN_BATCH).reshape(
+        n, TRAIN_BATCH, PARALLEL_TRAIN["dim"])
+    searches = {"gramv3": dict(train_search="gramv3", beam_finetune_iters=0),
+                "auto": dict(train_search="auto")}
+    # the one-process references
+    codes_ref = q.encode(x)
+    recon_ref = q.decode(codes_ref, use_kernel=True)
+    ref = {}
+    for name, kw in searches.items():
+        ref[name] = QuantizerTrainer(device=dev, **PARALLEL_TRAIN, **kw)
+        _run_trainer(ref[name], xs)
+    out = {"path": "parallel", "frames": x.shape[0], "batch": TRAIN_BATCH, **PARALLEL_TRAIN,
+           "scaling": "not measured: the ranks of (b) and (c) share one card"}
+    launches = dict.fromkeys(counters, 0)
+
+    # (a) one rank over NCCL
+    init_distributed("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                     world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", f"phase 11 (a): backend {dist.get_backend()}")
+        mesh = make_mesh(device=dev)
+        for c in counters.values():
+            c.launches = 0
+        codes = encode_sharded(q.params, q.config, x, mesh)
+        recon = decode_sharded(q.params, q.config, codes, mesh, use_kernel=True)
+        t = QuantizerTrainer(mesh=mesh, **PARALLEL_TRAIN, **searches["gramv3"])
+        train_s = _run_trainer(t, xs)
+        got = {k: c.launches for k, c in counters.items()}
+        check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1
+              and got["gramv3"] == PARALLEL_TRAIN["phase_two_iters"],
+              f"phase 11 (a): launches {got}: K2 and K1, and K3 once a phase-2 step")
+        check(bool(torch.equal(codes, codes_ref)), "phase 11 (a): encode_sharded codes differ")
+        check(bool(torch.equal(recon, recon_ref)), "phase 11 (a): decode_sharded differs")
+        diffs = {f: float((getattr(t.params, f) - getattr(ref["gramv3"].params, f)).detach().abs().max())
+                 for f in PARAM_FIELDS}
+        check(all(torch.equal(getattr(t.params, f), getattr(ref["gramv3"].params, f))
+                  for f in PARAM_FIELDS), f"phase 11 (a): trainer differs from one process {diffs}")
+        enc_s = host_s(lambda: encode_sharded(q.params, q.config, x, mesh), 3)
+    finally:
+        dist.destroy_process_group()
+    for k, v in got.items():
+        launches[k] += v
+    out["nccl_1_rank"] = {"launches": got, "codes_equal": True, "decode_equal": True,
+                          "trainer_params_equal": True, "encode_s": enc_s,
+                          "train_steps_s": train_s}
+    print(f"[parallel nccl 1 rank] launches {got}; encode_sharded codes and decode_sharded "
+          f"equal to Quantizer.encode/decode bit for bit; trainer (gramv3, {n} steps) "
+          f"equal to one process; encode {enc_s:.4f} s for {x.shape[0]} frames, "
+          f"training {train_s:.3f} s", flush=True)
+
+    # (b), (c) two ranks over gloo, one process each
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        inputs = pathlib.Path(d) / "inputs.pt"
+        torch.save({"x": x.cpu(), "xs": xs.cpu(), "codes": codes_ref.cpu(),
+                    "recon": recon_ref.cpu(), "quantizer": str(TRAINED[512])}, inputs)
+        port = _free_port()
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, 2, port, str(inputs), str(dev), results))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        ranks = {}
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        try:
+            while len(ranks) < 2:
+                try:
+                    r, value, error = results.get(
+                        timeout=max(deadline - time.monotonic(), 0.1))
+                except queue.Empty:
+                    raise RuntimeError(f"phase 11: ranks {sorted({0, 1} - set(ranks))} did "
+                                       f"not finish in {PARALLEL_TIMEOUT_S} s") from None
+                check(error is None, f"phase 11: rank {r} failed:\n{error}")
+                value["codes"] = torch.from_numpy(value["codes"])
+                for key in ("data", "model"):
+                    value[key] = {k: torch.from_numpy(v) for k, v in value[key].items()}
+                ranks[r] = value
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes_ok = [bool(torch.equal(v["codes"], codes_ref.cpu())) for v in ranks.values()]
+    check([p.exitcode for p in procs] == [0, 0],
+          f"phase 11: the ranks exited {[p.exitcode for p in procs]}")
+    r0, r1 = ranks[0], ranks[1]
+    for r, v in ranks.items():
+        got = v["launches"]
+        check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1
+              and got["gramv3"] == PARALLEL_TRAIN["phase_two_iters"],
+              f"phase 11 rank {r}: launches {got}")
+        for k, c in got.items():
+            launches[k] += c
+        check(v["rows"] == x.shape[0] // 2, f"phase 11 rank {r}: encoded {v['rows']} rows")
+        check(v["decode_equal"], f"phase 11 rank {r}: decode_sharded differs")
+    agreement = float((r0["codes"] == codes_ref.cpu()).all(dim=1).float().mean())
+    check(all(codes_ok), f"phase 11 (b): encode_sharded codes differ from phase 4's "
+                         f"(frames agreeing on every byte: {agreement:.6f})")
+    for name, key in (("gramv3", "data"), ("auto", "model")):
+        check(all(torch.equal(r0[key][f], r1[key][f]) for f in PARAM_FIELDS),
+              f"phase 11 ({key} mesh): the two ranks' parameters differ")
+        # one process and the mesh sum in other orders; Adam turns the
+        # sign of a gradient near 0 into a whole step of lr, and a frame
+        # near a tie may take another index, so whole runs are compared
+        # step by step from the same state (_lockstep), and their final
+        # parameters' distance is printed, not held (a one-process run on
+        # the same rows reordered is as far off: PERF.md, phase 11)
+        steps = r0[f"{key}_lockstep"] + r1[f"{key}_lockstep"]
+        full = [s for s in steps if s["index_agreement"] == 1.0]
+        check(all(s["index_agreement"] >= 0.995 for s in steps),
+              f"phase 11 ({key} mesh): index agreement below phase 3's 99.5%: {steps}")
+        check(len(full) * 2 >= len(steps) and all(
+            s["losses_close"] and s.get("grads_close", True) for s in full),
+              f"phase 11 ({key} mesh): a step off one process's: {steps}")
+        diffs = _max_param_diff(r0[key], ref[name].params)
+        out[f"gloo_2_ranks_{key}"] = {
+            "train_search": name, "lockstep": steps, "final_max_abs_diff_free_run": diffs,
+            "train_steps_s": r0[f"{key}_train_s"]}
+        print(f"[parallel {key} mesh lockstep] {len(full)} of {len(steps)} rank-steps with "
+              f"every index equal to one process's, their losses and gradients within rtol "
+              f"2e-4 atol 2e-5; lowest agreement "
+              f"{min(s['index_agreement'] for s in steps):.6f}; a free run's final "
+              f"parameters off one process's by at most {max(diffs.values()):.3g}",
+              flush=True)
+    out["gloo_2_ranks_data"].update(codes_equal=True, encode_s=r0["encode_s"],
+                                    launches=[r0["launches"], r1["launches"]])
+    print(f"[parallel gloo 2 ranks, one card] 2 x 1: encode_sharded {r0['rows']} frames a "
+          f"rank, codes equal to phase 4's, decode equal; launches "
+          f"{[r0['launches'], r1['launches']]}; encode {r0['encode_s']:.4f} s, data-parallel "
+          f"training (gramv3, {TRAIN_BATCH // 2} + {TRAIN_BATCH // 2} frames a step) "
+          f"{r0['data_train_s']:.3f} s; 1 x 2: model-parallel training (beam) "
+          f"{r0['model_train_s']:.3f} s; two ranks on one card measure no scaling", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[parallel] phase 11 took {out['phase_s']:.1f} s", flush=True)
+    return {"paths": [out], "launches": launches}
+
+
+def _parallel_rank(rank: int, world: int, port: int, inputs: str, device: str,
+                   results) -> None:
+    """One rank of phase 11's gloo runs, in a process of its own on the card:
+    the 2 x 1 mesh's encode, decode and data-parallel trainer, then the
+    1 x 2 mesh's trainer.  Puts ``(rank, result, error)`` on ``results``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from quantization_tpu_torch import QuantizerTrainer, load_quantizer
+        from quantization_tpu_torch.core import codec
+        from quantization_tpu_torch.ops import decode as K1
+        from quantization_tpu_torch.ops import gramv3 as K3
+        from quantization_tpu_torch.ops import seqbeam as K2
+        from quantization_tpu_torch.parallel import (decode_sharded, encode_sharded,
+                                                     gather_params, init_distributed,
+                                                     make_mesh)
+        from quantization_tpu_torch.utils.torch_interop import params_to_numpy
+
+        dev = torch.device(device)
+        init_distributed("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                         world_size=world, timeout=datetime.timedelta(seconds=120))
+        data = torch.load(inputs)
+        q = load_quantizer(data["quantizer"], device=dev)
+        x, xs = data["x"].to(dev), data["xs"].to(dev)
+        counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
+                    "gramv3": K3.GRAMV3_KERNEL}
+        out = {}
+        mesh = make_mesh(num_data=world, device=dev)
+        b = xs.shape[1] // world
+        mine = slice(rank * b, (rank + 1) * b)
+        kw = dict(PARALLEL_TRAIN, train_search="gramv3", beam_finetune_iters=0)
+        # untimed and uncounted: a first encode (the kernels' libraries, the
+        # gate's tables), then the step-by-step comparison, which warms the
+        # trainer's path
+        encode_sharded(q.params, q.config, x, mesh)
+        out["data_lockstep"] = _lockstep(QuantizerTrainer(mesh=mesh, **kw),
+                                         QuantizerTrainer(device=dev, **kw), xs, mine)
+        for c in counters.values():
+            c.launches = 0
+        rows, encode = [], codec.encode
+
+        def counting(p, c, xl, *args, **kwargs):  # the rows this rank encodes
+            rows.append(xl.shape[0])
+            return encode(p, c, xl, *args, **kwargs)
+
+        codec.encode = counting
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            codes = encode_sharded(q.params, q.config, x, mesh)
+            torch.cuda.synchronize()
+            out["encode_s"] = time.perf_counter() - t0
+        finally:
+            codec.encode = encode
+        out["rows"] = rows[0]
+        out["codes"] = codes.cpu().numpy()  # numpy: a torch tensor would be sent by a
+        # file descriptor that dies with this process
+        recon = decode_sharded(q.params, q.config, codes, mesh, use_kernel=True)
+        out["decode_equal"] = bool(torch.equal(recon.cpu(), data["recon"]))
+        t = QuantizerTrainer(mesh=mesh, **kw)
+        out["data_train_s"] = _run_trainer(t, xs, mine)
+        out["launches"] = {k: c.launches for k, c in counters.items()}
+        out["data"] = params_to_numpy(gather_params(t.params.detach(), mesh))
+        mesh = make_mesh(num_data=1, num_model=world, device=dev)
+        kw = dict(PARALLEL_TRAIN, train_search="auto")
+        out["model_lockstep"] = _lockstep(QuantizerTrainer(mesh=mesh, **kw),
+                                          QuantizerTrainer(device=dev, **kw), xs, slice(None))
+        t = QuantizerTrainer(mesh=mesh, **kw)
+        out["model_train_s"] = _run_trainer(t, xs)
+        out["model"] = params_to_numpy(gather_params(t.params.detach(), mesh))
+        results.put((rank, out, None))
+    except Exception:  # the parent fails the phase with this traceback
+        results.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def profile_train(sampler, dev) -> list:

@@ -8,7 +8,9 @@ it as the reference.  This package imports neither JAX nor
 
 Public API: Quantizer, QuantizerTrainer, read_hdf5_data, JointCodebookLoss,
 checkpoint, remat, load_quantizer, save_quantizer; the command line is
-``python -m quantization_tpu_torch`` (``cli.py``).
+``python -m quantization_tpu_torch`` (``cli.py``).  Multi-device runs are in
+``quantization_tpu_torch.parallel``: a process-group mesh, bulk encode and
+decode split over it, and the trainer's ``mesh=``.
 """
 
 from . import core

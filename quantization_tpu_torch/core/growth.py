@@ -30,7 +30,9 @@ def _pairwise_sum(a: torch.Tensor) -> torch.Tensor:
 def product_params(params: QuantizerParams, config: QuantizerConfig) -> QuantizerParams:
     """Parameters of the product quantizer of ``config.product_config()``,
     as new tensors (detached from ``params``)."""
-    nc, cs, dim = config.num_codebooks, config.codebook_size, config.dim
+    nc, cs = config.num_codebooks, config.codebook_size
+    # elementwise over dim, so a device of a model axis forms its own slice
+    dim = params.to_logits_w.shape[-1]
     with torch.no_grad():
         w3 = params.to_logits_w.reshape(nc, cs, dim)
         b2 = params.to_logits_b.reshape(nc, cs)

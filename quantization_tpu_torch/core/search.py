@@ -20,7 +20,7 @@ from typing import List, Tuple
 
 import torch
 
-from .types import QuantizerConfig, QuantizerParams, scaled_centers
+from .types import LOCAL, QuantizerConfig, QuantizerParams, Reducer, scaled_centers
 
 
 def k_cutoff_schedule(codebook_size: int, L: int) -> int:
@@ -54,13 +54,15 @@ def search_plan(num_codebooks: int, codebook_size: int) -> List[Tuple[str, int, 
 
 
 def compute_logits(
-    params: QuantizerParams, config: QuantizerConfig, x: torch.Tensor
+    params: QuantizerParams, config: QuantizerConfig, x: torch.Tensor,
+    reducer: Reducer = LOCAL,
 ) -> torch.Tensor:
     """Index-prediction logits ``to_logits(exp(logits_scale*speed) * x)``
     (`quantization/quantization.py:277-279`), in full f32.  Returns
-    (B, nc, cs)."""
+    (B, nc, cs).  ``reducer`` sums the product over dim slices (see
+    :class:`~quantization_tpu_torch.core.types.Reducer`)."""
     scale = torch.exp(params.logits_scale * config.scale_speed)
-    logits = torch.matmul(scale * x, params.to_logits_w.t()) + params.to_logits_b
+    logits = reducer.dims(torch.matmul(scale * x, params.to_logits_w.t())) + params.to_logits_b
     return logits.reshape(x.shape[0], config.num_codebooks, config.codebook_size)
 
 
@@ -70,7 +72,7 @@ def _take(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 
 def refine_indexes(
-    centers: torch.Tensor, x: torch.Tensor, indexes: torch.Tensor
+    centers: torch.Tensor, x: torch.Tensor, indexes: torch.Tensor, reducer: Reducer = LOCAL
 ) -> torch.Tensor:
     """One refinement pass of the pair-tree beam search.
 
@@ -78,6 +80,8 @@ def refine_indexes(
       centers: (nc, cs, dim) *scaled* codebook centers.
       x: (B, dim) frames being quantized.
       indexes: (B, nc) current integer choices in [0, cs).
+      reducer: sums each inner product over dim slices; every device of the
+        model axis then takes the same choices.
 
     Returns (B, nc) int32 improved choices.  Matches the JAX package's
     ``refine_indexes`` except in tie-breaking among equal-error options.
@@ -95,8 +99,8 @@ def refine_indexes(
     x_remaining_sumsq = (x_remaining * x_remaining).sum(dim=-1)  # (B, nc)
     centers_sumsq = (centers * centers).sum(dim=-1)  # (nc, cs)
     cross = torch.einsum("bnd,nkd->bnk", x_remaining, centers)
-    cur_sumsq = x_remaining_sumsq[:, :, None] + centers_sumsq[None] + 2.0 * cross
-    x_err_sumsq = (x_err * x_err).sum(dim=-1)[:, None, None]  # (B, 1, 1)
+    cur_sumsq = reducer.dims(x_remaining_sumsq[:, :, None] + centers_sumsq[None] + 2.0 * cross)
+    x_err_sumsq = reducer.dims((x_err * x_err).sum(dim=-1))[:, None, None]  # (B, 1, 1)
 
     N, K, L = nc, cs, 1
     # delta states, mirroring the reference's lazy `gather_deltas`
@@ -149,7 +153,7 @@ def refine_indexes(
             even_s, odd_s = cur_sumsq[:, 0::2], cur_sumsq[:, 1::2]
             nN, nK, nL = N // 2, K * K, L * 2
             # recombination identity (`quantization/quantization.py:523-535`)
-            bc = torch.einsum("bnkd,bnjd->bnkj", even_d, odd_d)
+            bc = reducer.dims(torch.einsum("bnkd,bnjd->bnkj", even_d, odd_d))
             cur_sumsq = (
                 even_s[:, :, :, None] + odd_s[:, :, None, :] + 2.0 * bc
             ).reshape(B, nN, nK) - x_err_sumsq
@@ -170,7 +174,8 @@ def refine_indexes(
 
 
 def refine_indexes_cd(
-    centers: torch.Tensor, x: torch.Tensor, indexes: torch.Tensor, sweeps: int = 1
+    centers: torch.Tensor, x: torch.Tensor, indexes: torch.Tensor, sweeps: int = 1,
+    reducer: Reducer = LOCAL,
 ) -> torch.Tensor:
     """Exact Gauss-Seidel coordinate descent over codebooks: for each
     codebook in turn, pick the codeword minimizing the reconstruction error
@@ -184,9 +189,9 @@ def refine_indexes_cd(
         for n in range(nc):
             err_n = err - centers[n][idx[:, n]]
             # ||err_n + c_n(k)||^2 = ||err_n||^2 + ||c_n(k)||^2 + 2 err_n.c_n(k)
-            scores = (centers[n] * centers[n]).sum(dim=-1)[None, :] + 2.0 * (
+            scores = reducer.dims((centers[n] * centers[n]).sum(dim=-1)[None, :] + 2.0 * (
                 err_n @ centers[n].t()
-            )
+            ))
             idx_n = torch.argmin(scores, dim=-1)
             err = err_n + centers[n][idx_n]
             new.append(idx_n)
@@ -200,22 +205,26 @@ def compute_indexes(
     x: torch.Tensor,
     refine_indexes_iters: int = 3,
     search: str = "beam",
+    reducer: Reducer = LOCAL,
 ) -> torch.Tensor:
     """Deterministic encoding of (B, dim) ``x`` to (B, nc) int32 indexes:
     argmax of the prediction logits followed by ``refine_indexes_iters``
     refinement passes (`quantization/quantization.py:281-305`).  ``search``
     is "beam" (the pair-tree beam) or "cd" (one coordinate-descent sweep per
-    iteration)."""
-    if x.ndim != 2 or x.shape[1] != config.dim:
-        raise ValueError(f"expected (B, {config.dim}) frames, got {tuple(x.shape)}")
-    logits = compute_logits(params, config, x)
+    iteration).  Under a model axis ``x`` and the codebooks hold this
+    device's ``config.dim // reducer.dim_parts`` columns."""
+    dim = config.dim // reducer.dim_parts
+    if x.ndim != 2 or x.shape[1] != dim:
+        raise ValueError(f"expected (B, {dim}) frames, got {tuple(x.shape)}")
+    logits = compute_logits(params, config, x, reducer)
     indexes = torch.argmax(logits, dim=-1).to(torch.int32)
     centers = scaled_centers(params, config.scale_speed)
     if search == "beam":
         for _ in range(refine_indexes_iters):
-            indexes = refine_indexes(centers, x, indexes)
+            indexes = refine_indexes(centers, x, indexes, reducer)
     elif search == "cd":
-        indexes = refine_indexes_cd(centers, x, indexes, sweeps=refine_indexes_iters)
+        indexes = refine_indexes_cd(centers, x, indexes, sweeps=refine_indexes_iters,
+                                    reducer=reducer)
     else:
         raise ValueError(f"unknown search method {search!r}")
     return indexes

@@ -92,6 +92,42 @@ class QuantizerLosses(NamedTuple):
     index_entropy_loss: torch.Tensor
 
 
+class Reducer:
+    """How the partial results of one device combine into the whole batch's.
+
+    On one device every method is the identity, which is this base class.
+    Under a mesh (``parallel.mesh.MeshReducer``) a device holds some rows of
+    the batch and, with a model axis, ``1 / dim_parts`` of the dim columns
+    of the frames and codebooks:
+
+    * :meth:`dims` sums a contraction over dim across the model axis;
+    * :meth:`rows` sums over batch rows across the data axis;
+    * :meth:`mean` is the mean over the whole batch of a tensor whose axis 0
+      is rows (over every axis with ``dim=None``);
+    * :meth:`gather_dims` concatenates the dim slices of the last axis.
+
+    The sums are differentiable with an identity backward, so each device's
+    gradient is its own share; the trainer sums the gradients afterwards.
+    """
+
+    dim_parts = 1
+
+    def dims(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def mean(self, t: torch.Tensor, dim=None) -> torch.Tensor:
+        return t.mean() if dim is None else t.mean(dim=dim)
+
+    def gather_dims(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+LOCAL = Reducer()
+
+
 def scaled_centers(params: QuantizerParams, scale_speed: float) -> torch.Tensor:
     """Effective codebook centers ``exp(centers_scale * scale_speed) * centers``
     (`quantization/quantization.py:77-79`)."""

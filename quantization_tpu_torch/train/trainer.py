@@ -31,7 +31,24 @@ num_codebooks = bytes_per_frame) and train ``phase_two_iters`` more.
   as the JAX trainer draws them), then starts ``to_logits`` as a copy of
   the fitted centers (``core.init_quantizer_params_from_centers``).
 
-Not ported yet: ``mesh=`` (ROADMAP A7).
+* ``mesh=`` (a :class:`~quantization_tpu_torch.parallel.mesh.Mesh`; one
+  process a device) trains on the mesh.  Each rank's :meth:`step` and
+  :meth:`step_many` take that rank's own rows of the global batch (full
+  dim); the global batch is their concatenation over the 'data' axis in
+  rank order, every rank passes the same number of rows, and every rank
+  makes the same calls.  Each step is the step of the whole global batch,
+  as the JAX trainer's GSPMD step is: the loss's partial sums are
+  all-reduced before each nonlinear function, and every gradient is summed
+  once after ``backward()``, as one flat bucket, before Adam.  With a
+  'model' axis each rank keeps its slice of ``centers`` and
+  ``to_logits_w`` over dim and its dim columns of the frames; every
+  contraction over dim is summed over the model group, so every rank takes
+  the same indexes, and a kernel search runs at full width on the gathered
+  codebooks and frames.  Every rank starts from rank 0's parameters and
+  host RNG state.  :meth:`get_quantizer`, :meth:`save_checkpoint` (rank 0
+  writes) and :meth:`load_checkpoint` (``mesh=``) gather and re-slice, so a
+  checkpoint is the JAX format whatever the mesh; each is a collective that
+  every rank calls.  Rank 0 logs.
 """
 
 from __future__ import annotations
@@ -48,8 +65,10 @@ import numpy as np
 import torch
 
 from .. import core
-from ..core.types import QuantizerConfig, QuantizerLosses, QuantizerParams, resolve_device
+from ..core.types import LOCAL, QuantizerConfig, QuantizerLosses, QuantizerParams, \
+    resolve_device
 from ..models.quantizer import Quantizer
+from ..parallel.mesh import MeshReducer, Sharding, quantizer_param_sharding
 from ..utils.torch_interop import PARAM_FIELDS, params_from_numpy
 
 logger = logging.getLogger(__name__)
@@ -125,13 +144,16 @@ class QuantizerTrainer:
     ):
         if bytes_per_frame not in (1, 2, 4, 8, 16, 32):
             raise ValueError(f"bytes_per_frame must be a power of 2 up to 32, got {bytes_per_frame}")
-        if mesh is not None:
-            raise NotImplementedError("QuantizerTrainer(mesh=...) is not ported yet (ROADMAP A7)")
         if init not in ("default", "multi_kmeans"):
             raise ValueError(f"unknown init {init!r}")
         if init == "multi_kmeans" and init_data is None:
             raise ValueError("init='multi_kmeans' needs init_data")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._reducer = LOCAL if mesh is None else MeshReducer(mesh)
+        self._shardings = None if mesh is None else quantizer_param_sharding(mesh)
+        self._lead = mesh is None or mesh.rank == 0  # the rank that logs
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
         self.phase_one_iters = phase_one_iters
         self.phase_two_iters = phase_two_iters
         self.cur_iter = 0
@@ -166,7 +188,13 @@ class QuantizerTrainer:
                                                              device=self.device)
         else:
             params = core.init_quantizer_params(generator, self.config, device=self.device)
-        self._set_params(params)
+        if mesh is not None:
+            # the ranks' seeds (when drawn here) and multi-kmeans init_data may
+            # differ; the JAX trainer has one copy of each
+            self._rng.bit_generator.state = mesh.broadcast_object(self._rng.bit_generator.state)
+            for f in PARAM_FIELDS:
+                mesh.broadcast_(getattr(params, f))
+        self._set_params(self._shard(params))
         self.start_time = time.time()
         self._done_logged = False
 
@@ -174,7 +202,7 @@ class QuantizerTrainer:
 
     def done(self) -> bool:
         ans = self.cur_iter > self.phase_one_iters + self.phase_two_iters
-        if ans and not self._done_logged:
+        if ans and not self._done_logged and self._lead:
             logger.info(
                 "Elapsed time, training model of dim=%d, num_codebooks=%d, "
                 "codebook_size=%d, is: %.2f seconds.", self.config.dim,
@@ -184,17 +212,19 @@ class QuantizerTrainer:
         return ans
 
     def get_quantizer(self) -> Quantizer:
+        """The trained quantizer (whole, on every rank of a mesh)."""
         if self.cur_iter < self.phase_one_iters + self.phase_two_iters:
             raise AssertionError(
                 f"training is not done: iteration {self.cur_iter} of "
                 f"{self.phase_one_iters + self.phase_two_iters}")
         return Quantizer(self.config.dim, self.config.codebook_size, self.config.num_codebooks,
-                         params=self.params.detach(), device=self.device)
+                         params=self._whole_params(), device=self.device)
 
     def step(self, x) -> QuantizerLosses:
-        """One optimisation step on a (*, dim) minibatch; returns the step's
-        loss terms (detached)."""
-        x = self._put(x).reshape(-1, self.config.dim)
+        """One optimisation step on a (*, dim) minibatch (under a mesh, this
+        rank's rows of it); returns the step's loss terms (detached), those
+        of the whole batch."""
+        x = self._cols(self._put(x).reshape(-1, self.config.dim))
         num_iters = 2 if self._rng.random() < self.two_iter_prob else 1
         losses = self._train_step(x, num_iters, self._lr_for_iter(self.cur_iter),
                                   self._search_for_config(self.cur_iter))
@@ -216,6 +246,7 @@ class QuantizerTrainer:
         if xs.ndim != 3 or xs.shape[-1] != self.config.dim:
             raise ValueError(f"expected (K, B, {self.config.dim}) minibatches, got "
                              f"{tuple(xs.shape)}")
+        xs = self._cols(xs)
         out = []
         pos, K = 0, xs.shape[0]
         while pos < K:
@@ -251,6 +282,28 @@ class QuantizerTrainer:
             x = np.ascontiguousarray(x)
         return torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
 
+    def _cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's dim columns of ``x`` (all of them without a model
+        axis)."""
+        if self.mesh is None:
+            return x
+        return Sharding(self.mesh, (None,) * (x.ndim - 1) + ("model",)).take(x)
+
+    def _part(self, field: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole leaf ``t`` of parameter ``field``."""
+        return t if self.mesh is None else getattr(self._shardings, field).take(t)
+
+    def _whole(self, field: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's part ``t`` (a collective)."""
+        return t if self.mesh is None else getattr(self._shardings, field).gather(t)
+
+    def _shard(self, params: QuantizerParams) -> QuantizerParams:
+        return QuantizerParams(**{f: self._part(f, getattr(params, f)) for f in PARAM_FIELDS})
+
+    def _whole_params(self) -> QuantizerParams:
+        return QuantizerParams(**{f: self._whole(f, getattr(self.params, f).detach())
+                                  for f in PARAM_FIELDS})
+
     def _set_params(self, params: QuantizerParams) -> None:
         """Own fresh leaf copies of ``params`` and a fresh optimiser."""
         self.params = QuantizerParams(**{
@@ -265,10 +318,33 @@ class QuantizerTrainer:
         self.opt.zero_grad(set_to_none=True)
         with torch.enable_grad():  # a step differentiates even under a caller's no_grad
             losses = core.compute_loss(self.params, self.config, x, refine_iters,
-                                       search_method=search)
+                                       search_method=search, reducer=self._reducer)
             total_loss(losses, self.entropy_scale).backward()
+        if self.mesh is not None:
+            self._sum_grads(x.shape[0])
         self.opt.step()
         return QuantizerLosses(*(v.detach() for v in losses))
+
+    def _sum_grads(self, rows: int) -> None:
+        """Sum each rank's share of the gradients.  The dim-split leaves and
+        ``to_logits_b`` (whose gradient is whole on every rank of a model
+        group: the logits are summed before it) sum over the data group; the
+        two scales, which every dim slice feeds, over the model group too.
+        One flat bucket, which also carries the row count to check that
+        every rank passed the same number of rows."""
+        mesh = self.mesh
+        params = [getattr(self.params, f) for f in PARAM_FIELDS]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        if mesh.shape["model"] > 1:
+            i, j = PARAM_FIELDS.index("logits_scale"), PARAM_FIELDS.index("centers_scale")
+            grads[i], grads[j] = mesh.all_reduce(torch.stack([grads[i], grads[j]]), "model")
+        count = torch.full((1,), float(rows), device=self.device)
+        flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads] + [count]), "data")
+        if float(flat[-1]) != rows * mesh.shape["data"]:
+            raise ValueError(f"every rank of the data axis must pass the same number of rows; "
+                             f"this rank passed {rows} of {float(flat[-1]):.0f}")
+        for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
     def _finetune_start(self) -> int:
         """First iteration of the exact-beam finetune tail (see
@@ -313,8 +389,11 @@ class QuantizerTrainer:
 
     @torch.no_grad()
     def _log_diagnostics(self, x: torch.Tensor, losses: QuantizerLosses) -> None:
-        det = [float(core.compute_loss(self.params, self.config, x, j).rel_reconstruction_loss)
+        det = [float(core.compute_loss(self.params, self.config, x, j,
+                                       reducer=self._reducer).rel_reconstruction_loss)
                for j in range(6)]
+        if not self._lead:
+            return
         phase = 1 if self.cur_iter <= self.phase_one_iters else 2
         i = self.cur_iter - self.phase_one_iters if phase > 1 else self.cur_iter
         logger.info(
@@ -325,44 +404,50 @@ class QuantizerTrainer:
             float(losses.logits_entropy_loss), float(losses.index_entropy_loss))
 
     def _log_correlations(self) -> None:
-        corr = core.codebook_correlations(self.params, self.config)
-        logger.info("correlations = %s", corr.cpu().numpy())
+        corr = core.codebook_correlations(self._whole_params(), self.config)
+        if self._lead:
+            logger.info("correlations = %s", corr.cpu().numpy())
 
     # ----------------------------------------------------------- checkpoint
 
     def _state_leaves(self) -> List[np.ndarray]:
         """The JAX trainer's ``tree_flatten((params, opt_state))`` leaves:
         the five parameters, the Adam count (int32), then its first and
-        second moments in parameter order."""
+        second moments in parameter order, whole under a mesh (a
+        collective)."""
         tensors = [getattr(self.params, f) for f in PARAM_FIELDS]
-        leaves = [t.detach().cpu().numpy() for t in tensors]
+        leaves = [self._whole(f, t.detach()).cpu().numpy() for f, t in zip(PARAM_FIELDS, tensors)]
         states = [self.opt.state.get(t, {}) for t in tensors]
         count = int(states[0]["step"]) if states[0] else 0
         leaves.append(np.asarray(count, np.int32))
         for key in ("exp_avg", "exp_avg_sq"):
-            leaves += [s[key].detach().cpu().numpy() if s else np.zeros(t.shape, np.float32)
-                       for s, t in zip(states, tensors)]
+            leaves += [self._whole(f, s[key] if s else torch.zeros_like(t)).cpu().numpy()
+                       for f, s, t in zip(PARAM_FIELDS, states, tensors)]
         return leaves
 
     def _load_state_leaves(self, leaves: List[np.ndarray]) -> None:
         if len(leaves) != N_LEAVES:
             raise ValueError(f"expected {N_LEAVES} checkpoint leaves, got {len(leaves)}")
         n = len(PARAM_FIELDS)
-        self._set_params(params_from_numpy(dict(zip(PARAM_FIELDS, leaves[:n])), self.device))
+        params = params_from_numpy(dict(zip(PARAM_FIELDS, leaves[:n])), self.device)
+        self._set_params(self._shard(params))
         count = int(leaves[n])
+
+        def moment(leaf, f):
+            m = torch.from_numpy(np.array(leaf, np.float32)).reshape(getattr(params, f).shape)
+            return self._part(f, m.to(self.device))
+
         for i, f in enumerate(PARAM_FIELDS):
-            p = getattr(self.params, f)
-            self.opt.state[p] = {
+            self.opt.state[getattr(self.params, f)] = {
                 "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(np.array(leaves[n + 1 + i], np.float32)).reshape(
-                    p.shape).to(self.device),
-                "exp_avg_sq": torch.from_numpy(np.array(leaves[2 * n + 1 + i], np.float32)).reshape(
-                    p.shape).to(self.device),
+                "exp_avg": moment(leaves[n + 1 + i], f),
+                "exp_avg_sq": moment(leaves[2 * n + 1 + i], f),
             }
 
     def save_checkpoint(self, path) -> None:
         """Full mid-phase resume state (parameters, Adam moments, counters,
-        host RNG) in the JAX trainer's format."""
+        host RNG) in the JAX trainer's format.  Under a mesh every rank
+        calls it, the state is gathered whole, and rank 0 writes."""
         state = self._rng.bit_generator.state["state"]
         meta = dict(
             dim=self.config.dim,
@@ -379,11 +464,15 @@ class QuantizerTrainer:
             rng_state=state["state"],
             rng_inc=state["inc"],
         )
-        buf = io.BytesIO()
-        np.savez(buf, meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-                 **{f"leaf_{i}": v for i, v in enumerate(self._state_leaves())})
-        with open(path, "wb") as f:
-            f.write(buf.getvalue())
+        leaves = self._state_leaves()
+        if self._lead:
+            buf = io.BytesIO()
+            np.savez(buf, meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+                     **{f"leaf_{i}": v for i, v in enumerate(leaves)})
+            with open(path, "wb") as f:
+                f.write(buf.getvalue())
+        if self.mesh is not None:
+            self.mesh.barrier()  # the file is whole before any rank reads it
 
     @classmethod
     def load_checkpoint(cls, path, **kwargs) -> "QuantizerTrainer":
@@ -391,7 +480,8 @@ class QuantizerTrainer:
         :meth:`save_checkpoint` or by the JAX package's
         ``QuantizerTrainer.save_checkpoint``.  The search routing is restored
         from the checkpoint unless ``kwargs`` override it; pass ``device``
-        as for the constructor."""
+        or ``mesh`` as for the constructor (under a mesh every rank calls
+        it, and each takes its slices)."""
         with np.load(path) as z:
             meta = json.loads(bytes(z["meta"]).decode())
             n = sum(1 for k in z.files if k.startswith("leaf_"))

@@ -148,13 +148,19 @@ def test_get_quantizer_asserts_before_done_and_unported_options_raise(monkeypatc
     with pytest.raises(AssertionError):
         t.get_quantizer()
     assert qtt.QuantizerTrainer is QuantizerTrainer  # exported lazily
-    with pytest.raises(NotImplementedError, match="A7"):
-        QuantizerTrainer(16, 1, device="cpu", mesh=object())
+    # mesh= is ported: a 1 x 1 mesh trains; a larger one needs a process group
+    from quantization_tpu_torch.parallel import make_mesh
+
+    assert QuantizerTrainer(16, 1, seed=0, mesh=make_mesh(device="cpu")).device.type == "cpu"
+    with pytest.raises(ValueError, match="init_distributed"):
+        make_mesh(num_data=2, device="cpu")
     with pytest.raises(ValueError):
         QuantizerTrainer(16, 3, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantizerTrainer(16, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
 
 
 def test_beam_schedule_tracks_jax():
