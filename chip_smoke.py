@@ -163,6 +163,16 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    seconds of the encodes and the training runs (each rank warmed first);
    two ranks on one card measure no scaling.
 
+12. the quality-parity run (``quantization_tpu_torch.experiments.head_to_head``,
+   the function its entry point calls): d512 / 8 B, 1000 + 1000 steps,
+   batch 300 (the batch of the JAX package's record), the exact beam, seed
+   0, one process, then the eval on 2,048 frames, with the launch counts set
+   to 0 just before and read just after (K2 by the eval's ``encode(auto)``,
+   K1 by its kernel decode).  Held to bars (i)-(iii): the final relative
+   error within 1.01 x the reference's recorded 0.58556, within 1% of the
+   JAX package's 0.58486, and the auto encode with the kernel decode within
+   +1.2% of the beam; a ``[parity ...]`` line.
+
 ``[rule 2]`` ranks every kernel: first those slower than their library
 call, by how many times, then the rest by launches x (ms - bound ms), over
 the paths (K2, K3, B4) or their own run (K1, the probes).
@@ -231,6 +241,7 @@ AUX_STAGE_ITERS = 20
 AUX_PRED_STEPS = 50
 PARALLEL_TRAIN = dict(TRAIN, phase_two_iters=4)  # phase 11's runs: 4 + 4 steps
 PARALLEL_TIMEOUT_S = 300  # phase 11's two ranks, from their start
+PARITY = (512, 8, 1000, 1000, 300)  # phase 12: dim, bytes, P1, P2, batch (the JAX record's)
 ENCODE_ROWS = ((0, 32768), (196608, 204800))  # whole batches; the second straddles 200,000
 DECODE_ROWS = ((65000, 66000), (CLI_FRAMES - 1000, CLI_FRAMES))  # the first crosses 65,536
 
@@ -469,6 +480,10 @@ def main() -> int:
     par = parallel_phase(quantizers[512], main_frames[512][0], samplers[512], dev)
     for kernel, n in par["launches"].items():
         launches[kernel] += n
+    # ---- 12. the quality-parity run
+    parity = parity_phase(smi)
+    for kernel, n in parity["launches"].items():
+        launches[kernel] += n
 
     # times are those of the d512 main path's config; max_abs_err is the
     # largest over the main path's own checks, each listed with its shape
@@ -528,7 +543,7 @@ def main() -> int:
         + "; then launches x (ms - bound ms): " + ", ".join(
         f"{k['name']} {k['launches_x_excess_ms']:.6g}" for k in rest_k), flush=True)
     print(json.dumps({"paths": paths + gram_paths + train_paths + rest["paths"] + [cli]
-                      + aux["paths"] + par["paths"]}), flush=True)
+                      + aux["paths"] + par["paths"] + parity["paths"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1882,6 +1897,34 @@ def _parallel_rank(rank: int, world: int, port: int, inputs: str, device: str,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def parity_phase(smi: str) -> dict:
+    """Phase 12: the quality-parity run at ``PARITY``, through the function
+    the entry point calls, held to bars (i)-(iii) against the JAX package's
+    and the reference's recorded runs (both must exist).  Returns the
+    ``paths`` entry and the launches of the run and its eval."""
+    from quantization_tpu_torch.experiments import head_to_head as h2h
+    from quantization_tpu_torch.ops import decode as K1
+    from quantization_tpu_torch.ops import seqbeam as K2
+
+    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL}
+    for c in counters.values():
+        c.launches = 0
+    result, _ = h2h.run(*PARITY, device="cuda")
+    got = {k: c.launches for k, c in counters.items()}
+    check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1,
+          f"phase 12: the eval's encode(auto) and kernel decode launched {got}")
+    out = h2h.hold(result)
+    name = h2h.stem(*PARITY[:4])[len("head_to_head_"):]
+    print(f"[parity {name} batch {PARITY[4]}] rel_err={out['rel_err']:.6f} "
+          f"jax={out['jax_rel_err']} ref={out['ref_rel_err']} ratio_ref={out['ratio_ref']} "
+          f"ratio_jax={out['ratio_jax']} auto_delta_pct={out['auto_delta_pct']:+.4f} "
+          f"wall_s={out['wall_s']:.1f} steps_per_s={out['steps_per_s']:.1f} | {smi}", flush=True)
+    check(all(isinstance(b, dict) for b in out["bars"].values()),
+          f"phase 12: a record is missing: {out['bars']}")
+    check(out["ok"], f"phase 12: a bar failed: {out['bars']}")
+    return {"paths": [{"path": "parity", **out, "launches": got}], "launches": got}
 
 
 def profile_train(sampler, dev) -> list:

@@ -20,6 +20,7 @@ from typing import List, Tuple
 
 import torch
 
+from . import precision
 from .types import LOCAL, QuantizerConfig, QuantizerParams, Reducer, scaled_centers
 
 
@@ -66,9 +67,83 @@ def compute_logits(
     return logits.reshape(x.shape[0], config.num_codebooks, config.codebook_size)
 
 
+def refine_indexes_reference(
+    centers: torch.Tensor, x: torch.Tensor, indexes: torch.Tensor
+) -> torch.Tensor:
+    """Readable one-pass oracle of :func:`refine_indexes`: the same
+    schedule and recombination identity, carrying every option's
+    per-codebook indexes (B, N, K, L) and deltas (B, N, K, dim) instead of
+    a reverse walk, as the JAX package's ``refine_indexes_reference`` does.
+
+    Args:
+      centers: (nc, cs, dim) *scaled* codebook centers.
+      x: (B, dim) frames being quantized.
+      indexes: (B, nc) current integer choices in [0, cs).
+
+    Returns (B, nc) int32 improved choices.
+    """
+    nc, cs, dim = centers.shape
+    B = x.shape[0]
+    idx = indexes.long()
+
+    old_centers = centers[torch.arange(nc, device=x.device)[None, :], idx]  # (B, nc, dim)
+    x_err = old_centers.sum(dim=1) - x  # (B, dim)
+    x_remaining = x_err[:, None, :] - old_centers  # (B, nc, dim)
+    cur_sumsq = ((x_remaining * x_remaining).sum(dim=-1)[:, :, None]
+                 + (centers * centers).sum(dim=-1)[None]
+                 + 2.0 * torch.einsum("bnd,nkd->bnk", x_remaining, centers))
+    x_err_sumsq = (x_err * x_err).sum(dim=-1)[:, None, None]  # (B, 1, 1)
+
+    N, K, L = nc, cs, 1
+    # cur_indexes[b, n, k, :]: the codebook indexes of option k of choice n
+    cur_indexes = torch.arange(K, device=x.device)[None, None, :, None].expand(B, N, K, 1)
+    # deltas of every option: centers[n, k] - old_centers[b, n] at first
+    cur_deltas = centers[None] - old_centers[:, :, None, :]  # (B, N, K, dim)
+    while True:
+        kc = k_cutoff_schedule(cs, L)
+        if N == 1 and K == 1:
+            return cur_indexes[:, 0, 0, :].to(torch.int32)  # (B, nc)
+        if K > kc or N == 1:
+            new_k = 1 if N == 1 else kc
+            cur_sumsq, sel = torch.topk(cur_sumsq, new_k, dim=-1, largest=False)
+            cur_indexes = torch.gather(
+                cur_indexes, 2, sel[..., None].expand(B, N, new_k, L))
+            cur_deltas = _take(cur_deltas, sel)
+            K = new_k
+        else:
+            # combined option k = k_even * K + k_odd
+            # (`quantization/quantization.py:504-547`)
+            nN, nK, nL = N // 2, K * K, L * 2
+            even_i, odd_i = cur_indexes[:, 0::2], cur_indexes[:, 1::2]
+            cur_indexes = torch.cat([
+                even_i[:, :, :, None].expand(B, nN, K, K, L).reshape(B, nN, nK, L),
+                odd_i[:, :, None].expand(B, nN, K, K, L).reshape(B, nN, nK, L)], dim=3)
+            even_d, odd_d = cur_deltas[:, 0::2], cur_deltas[:, 1::2]
+            # (a+b+c)^2 = (a+b)^2 + (a+c)^2 - a^2 + 2bc, a = x_err
+            # (`quantization/quantization.py:523-535`)
+            bc = torch.einsum("bnkd,bnjd->bnkj", even_d, odd_d)
+            cur_sumsq = (cur_sumsq[:, 0::2, :, None] + cur_sumsq[:, 1::2, None, :]
+                         + 2.0 * bc).reshape(B, nN, nK) - x_err_sumsq
+            cur_deltas = (even_d[:, :, :, None] + odd_d[:, :, None]).reshape(B, nN, nK, dim)
+            N, K, L = nN, nK, nL
+
+
 def _take(t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """t[b, n, sel[b, n, k], :] for t (B, N, K, dim) and sel (B, N, k)."""
     return torch.gather(t, 2, sel[..., None].expand(*sel.shape, t.shape[-1]))
+
+
+def _combine_product(even_d: torch.Tensor, odd_d: torch.Tensor) -> torch.Tensor:
+    """The beam's inner contraction <even_delta, odd_delta>, (B, N, K, K),
+    at the search's inner precision (``precision.SEARCH_INNER_ALLOW_TF32``,
+    the JAX package's ``SEARCH_INNER_PRECISION``), set for this product
+    alone."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision.SEARCH_INNER_ALLOW_TF32
+    try:
+        return torch.einsum("bnkd,bnjd->bnkj", even_d, odd_d)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def refine_indexes(
@@ -153,7 +228,7 @@ def refine_indexes(
             even_s, odd_s = cur_sumsq[:, 0::2], cur_sumsq[:, 1::2]
             nN, nK, nL = N // 2, K * K, L * 2
             # recombination identity (`quantization/quantization.py:523-535`)
-            bc = reducer.dims(torch.einsum("bnkd,bnjd->bnkj", even_d, odd_d))
+            bc = reducer.dims(_combine_product(even_d, odd_d))
             cur_sumsq = (
                 even_s[:, :, :, None] + odd_s[:, :, None, :] + 2.0 * bc
             ).reshape(B, nN, nK) - x_err_sumsq

@@ -133,6 +133,11 @@ class Loader {
 
   // Fill out[batch * dim] float32.  Returns frames written (0 = exhausted).
   //
+  // The stream's first draw waits until the pool is full or the readers are
+  // done, as the NumPy stream does (data/shards.py): drawing as soon as one
+  // reader has pushed its first chunk would fill the first batches from
+  // that reader's shards alone.
+  //
   // The lock covers only the index draws and the f16 row moves into a
   // staging buffer; the f16->f32 conversion runs outside it as one linear
   // pass (F16C hardware conversion where available), while readers refill
@@ -144,8 +149,10 @@ class Loader {
       std::unique_lock<std::mutex> lk(mu_);
       for (; produced < batch_; ++produced) {
         cv_data_.wait(lk, [&] {
-          return pool_size_ > 0 || (done_reading_ && pool_size_ == 0) || stop_;
+          return stop_ || done_reading_ || pool_size_ == pool_capacity_ ||
+                 (primed_ && pool_size_ > 0);
         });
+        primed_ = true;
         if (stop_) break;
         if (pool_size_ == 0) break;  // exhausted (non-repeat end of corpus)
         // Draw a uniformly random pooled frame; backfill the hole with the
@@ -232,6 +239,7 @@ class Loader {
   std::vector<uint16_t> staging_;  // f16 rows drawn this batch (next() only)
   int64_t pool_size_ = 0;
   bool stop_ = false, done_reading_ = false;
+  bool primed_ = false;  // the pool has been full once (or reading ended)
   int finished_readers_ = 0;
   std::mutex mu_;
   std::condition_variable cv_space_, cv_data_;

@@ -14,7 +14,8 @@ The reference persists quantizers as ``torch.save(quantizer.state_dict())``
 ``to_logits.weight``, ``to_logits.bias``, ``centers``, ``logits_scale``,
 ``centers_scale`` and ``id_buf`` (`quantization/quantization.py:38-59`);
 :class:`Quantizer` has exactly these, so ``.pt`` files go through
-``state_dict()`` / ``load_state_dict()``.
+``state_dict()`` / ``load_state_dict()`` (``to_torch_state_dict`` gives
+the dict that ``save_torch_quantizer`` writes).
 """
 
 from __future__ import annotations
@@ -101,6 +102,13 @@ def load_torch_quantizer(path, device=None) -> Quantizer:
     return quantizer_from_state_dict(sd, device=device)
 
 
+def to_torch_state_dict(q: Quantizer) -> dict:
+    """The reference-format state dict of ``q``: its ``state_dict()`` as
+    CPU tensors, loadable by the reference's
+    ``Quantizer(...).load_state_dict``."""
+    return {k: v.detach().cpu() for k, v in q.state_dict().items()}
+
+
 def save_torch_quantizer(path, q: Quantizer) -> None:
     """``torch.save`` a :class:`Quantizer` in the reference's format."""
-    torch.save({k: v.detach().cpu() for k, v in q.state_dict().items()}, path)
+    torch.save(to_torch_state_dict(q), path)

@@ -186,3 +186,90 @@ def test_decode_indexes_and_onehot_match_jax(cs, nc, dim):
     np.testing.assert_allclose(
         tcore.decode(tp, tc, torch.from_numpy(packed)).numpy(),
         np.asarray(jcore.decode(jp, jc, jnp.asarray(packed))), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("cs,nc,dim", [(16, 8, 64), (256, 4, 64), (4, 2, 8)])
+def test_refine_indexes_reference_matches_jax_and_refine_indexes(cs, nc, dim):
+    from quantization_tpu_torch.core import search as tsearch
+
+    arrays = _params(dim, cs, nc, seed=13)
+    rng = np.random.default_rng(cs + nc + dim)
+    c = arrays["centers"]
+    pick = rng.integers(0, cs, size=(48, nc))
+    x = (c[np.arange(nc)[None], pick].sum(1)
+         + 0.3 * rng.standard_normal((48, dim)) * np.abs(c).mean()).astype(np.float32)
+    idx0 = rng.integers(0, cs, size=(48, nc)).astype(np.int32)
+    args = (torch.from_numpy(c.copy()), torch.from_numpy(x), torch.from_numpy(idx0))
+    got = tsearch.refine_indexes_reference(*args)
+    assert got.dtype == torch.int32 and got.shape == (48, nc)
+    want = np.asarray(jax.jit(jsearch.refine_indexes_reference)(
+        jnp.asarray(c), jnp.asarray(x), jnp.asarray(idx0)))
+    # equal indexes (a row may differ only where two options tie; observed:
+    # every row equal), and the oracle of the port's own beam
+    assert _agree_or_tie(c, x, got.numpy(), want) == 1.0
+    assert _agree_or_tie(c, x, got.numpy(), tsearch.refine_indexes(*args).numpy()) == 1.0
+
+
+@pytest.fixture
+def default_precisions():
+    from quantization_tpu.core import precision as jprec
+    from quantization_tpu_torch.core import precision as tprec
+
+    yield jprec, tprec
+    jprec.set_matmul_precision("highest")
+    jprec.set_search_inner_precision("default")
+    tprec.set_matmul_precision("highest")
+    tprec.set_search_inner_precision("highest")
+
+
+@pytest.mark.parametrize("p", ["highest", "high", "default", "float32", "bfloat16_3x",
+                               "tensorfloat32", "bfloat16", "fastest", 0, 1, 2,
+                               jax.lax.Precision.HIGH, jax.lax.Precision.HIGHEST,
+                               "HIGHEST", "bogus", 3])
+def test_precision_setters_match_jax(default_precisions, p):
+    # TF32 is allowed exactly where the JAX package's level is not HIGHEST;
+    # a name JAX refuses, the port refuses
+    jprec, tprec = default_precisions
+    assert not tprec.MATMUL_ALLOW_TF32 and not tprec.SEARCH_INNER_ALLOW_TF32  # the defaults
+    try:
+        jprec.set_matmul_precision(p)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tprec.set_matmul_precision(p)
+        with pytest.raises(ValueError):
+            tprec.set_search_inner_precision(p)
+        return
+    jprec.set_search_inner_precision(p)
+    tprec.set_matmul_precision(p)
+    tprec.set_search_inner_precision(p)
+    tf32 = jprec.MATMUL_PRECISION != jax.lax.Precision.HIGHEST
+    assert jprec.SEARCH_INNER_PRECISION == jprec.MATMUL_PRECISION
+    assert tprec.MATMUL_ALLOW_TF32 == tprec.CUDNN_ALLOW_TF32 == tf32
+    assert torch.backends.cuda.matmul.allow_tf32 == torch.backends.cudnn.allow_tf32 == tf32
+    assert tprec.SEARCH_INNER_ALLOW_TF32 == tf32
+
+
+@pytest.mark.parametrize("inner", ["highest", "default"])
+def test_search_inner_precision_reaches_the_beams_combine_product(default_precisions,
+                                                                  monkeypatch, inner):
+    # the combine product runs with TF32 set as the search's inner
+    # precision says and nothing else does; the setting is restored after
+    from quantization_tpu_torch.core import search as tsearch
+
+    _, tprec = default_precisions
+    tprec.set_search_inner_precision(inner)
+    seen, einsum = [], torch.einsum
+
+    def recording(spec, *ops):
+        seen.append((spec, torch.backends.cuda.matmul.allow_tf32))
+        return einsum(spec, *ops)
+
+    monkeypatch.setattr(tsearch.torch, "einsum", recording)
+    arrays = _params(32, 16, 4, seed=17)
+    x = np.random.default_rng(0).standard_normal((8, 32)).astype(np.float32)
+    c = torch.from_numpy(arrays["centers"].copy())
+    tsearch.refine_indexes(c, torch.from_numpy(x), torch.zeros(8, 4, dtype=torch.int32))
+    combines = [tf32 for spec, tf32 in seen if spec == "bnkd,bnjd->bnkj"]
+    assert len(combines) == 2 and set(combines) == {inner == "default"}
+    assert all(not tf32 for spec, tf32 in seen if spec != "bnkd,bnjd->bnkj")
+    assert not torch.backends.cuda.matmul.allow_tf32

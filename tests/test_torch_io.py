@@ -15,8 +15,9 @@ import torch
 import quantization_tpu_torch as qtt
 from quantization_tpu.core.types import QuantizerParams as JParams
 from quantization_tpu.data import synthetic as jsynth
+from quantization_tpu.models.quantizer import Quantizer as JQuantizer
 from quantization_tpu.utils import serialization as jser
-from quantization_tpu.utils.torch_interop import to_torch_state_dict
+from quantization_tpu.utils import torch_interop as jinterop
 from quantization_tpu_torch.data import synthetic as tsynth
 from quantization_tpu_torch.utils import torch_interop as tinterop
 
@@ -48,13 +49,37 @@ def test_trained_npz_round_trips(tmp_path):
 
 def test_jax_state_dict_loads_strict():
     jq = jser.load_quantizer(Q512)
-    sd = to_torch_state_dict(jq)
+    sd = jinterop.to_torch_state_dict(jq)
     tq = qtt.Quantizer(512, 256, 8, device="cpu")
     assert set(tq.state_dict()) == REFERENCE_KEYS
     tq.load_state_dict(sd, strict=True)
     for k, v in tq.state_dict().items():
         assert torch.equal(v, sd[k]), k
     assert tq.get_id() == jq.get_id()
+
+
+@pytest.mark.parametrize("dim,cs,nc", [(32, 16, 4), (64, 256, 2)])
+def test_to_torch_state_dict_equals_jax(dim, cs, nc, tmp_path):
+    # one quantizer's parameters carried across by params_from_numpy: the
+    # same keys, dtypes, shapes and values as the JAX package's dict
+    rng = np.random.default_rng(dim + cs)
+    arrays = {"centers": rng.standard_normal((nc, cs, dim)).astype(np.float32),
+              "to_logits_w": rng.standard_normal((nc * cs, dim)).astype(np.float32),
+              "to_logits_b": rng.standard_normal(nc * cs).astype(np.float32),
+              "logits_scale": np.float32(0.125), "centers_scale": np.float32(-0.25)}
+    jq = JQuantizer(dim, cs, nc, params=JParams(**{k: jnp.asarray(v) for k, v in arrays.items()}),
+                    id_str="0123abcd")
+    tq = qtt.Quantizer(dim, cs, nc, params=tinterop.params_from_numpy(arrays),
+                       id_str="0123abcd", device="cpu")
+    want, got = jinterop.to_torch_state_dict(jq), tinterop.to_torch_state_dict(tq)
+    assert set(got) == set(want) == REFERENCE_KEYS
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape and got[k].device.type == "cpu"
+        assert torch.equal(got[k], v), k
+    # save_torch_quantizer writes that dict
+    tinterop.save_torch_quantizer(tmp_path / "q.pt", tq)
+    saved = torch.load(tmp_path / "q.pt", weights_only=True)
+    assert all(torch.equal(saved[k], v) for k, v in want.items())
 
 
 def test_pt_round_trip(tmp_path):

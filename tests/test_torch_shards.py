@@ -121,6 +121,20 @@ def test_native_stream_repeat_mixes_shards(corpus):
     assert len(np.unique(sources)) >= 3
 
 
+@pytest.mark.parametrize("pool_frames", [5000, 8192])
+def test_native_stream_first_batch_waits_for_a_full_pool(corpus, pool_frames):
+    # the pool holds the whole corpus (full at 5,000, reading done at
+    # 8,192): the first batch is drawn from all 5 sources, whichever reader
+    # pushed first
+    d, _, _ = corpus
+    stream = tsh.ShardStream(d, batch_size=256, seed=1, pool_frames=pool_frames, repeat=False)
+    assert stream.native, stream.native_error
+    first = next(iter(stream))
+    stream.close()
+    sources = np.round(first.mean(axis=1) / 10).astype(int)
+    assert set(np.unique(sources)) == {0, 1, 2, 3, 4}
+
+
 def test_native_stream_reads_only_its_hosts_shards(corpus):
     d, manifest, _ = corpus
     want = np.concatenate(list(tsh.iter_shards_sequential(d, 4096, host_index=1, num_hosts=2)))
