@@ -10,6 +10,7 @@ import re
 
 import torch
 
+from ..utils.spans import span
 from . import search
 from .types import QuantizerConfig, QuantizerParams, scaled_centers
 
@@ -122,16 +123,9 @@ def encode(
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, config.dim).float()
-    if search_method == "gramv3":
-        from ..ops.gramv3 import gramv3_encode_indexes
-
-        indexes = gramv3_encode_indexes(
-            params, config, x2, passes=refine_indexes_iters, **search_kwargs)
-        if as_bytes:
-            indexes = pack_indexes(indexes, config.codebook_size)
-        return indexes.reshape(*lead, -1)
     if search_method == "auto":
-        chosen = auto_choice(config, x2, refine_indexes_iters)
+        with span("codec.choose"):
+            chosen = auto_choice(config, x2, refine_indexes_iters)
         if chosen is not None:
             _, refine_indexes_iters, tuned = chosen
             search_method = "seqbeam"
@@ -144,6 +138,25 @@ def encode(
             )
         else:
             search_method = "beam"
+    with span("codec.search"):
+        indexes = _search_indexes(params, config, x2, refine_indexes_iters, search_method,
+                                  search_kwargs)
+    if as_bytes:
+        with span("codec.pack"):
+            indexes = pack_indexes(indexes, config.codebook_size)
+    return indexes.reshape(*lead, -1)
+
+
+def _search_indexes(params: QuantizerParams, config: QuantizerConfig, x2: torch.Tensor,
+                    refine_indexes_iters: int, search_method: str,
+                    search_kwargs: dict) -> torch.Tensor:
+    """(B, nc) int32 indexes of (B, dim) f32 frames by ``search_method``
+    (any of :func:`encode`'s but "auto")."""
+    if search_method == "gramv3":
+        from ..ops.gramv3 import gramv3_encode_indexes
+
+        return gramv3_encode_indexes(
+            params, config, x2, passes=refine_indexes_iters, **search_kwargs)
     warm = re.fullmatch(r"cd(\d+)\+seqbeam", search_method)
     if search_method == "seqbeam" or warm:
         from ..ops.seqbeam import seqbeam_encode_indexes
@@ -157,19 +170,15 @@ def encode(
                 torch.argmax(logits, dim=-1).to(torch.int32),
                 sweeps=int(warm.group(1)),
             )
-        indexes = seqbeam_encode_indexes(
+        return seqbeam_encode_indexes(
             params, config, x2, passes=refine_indexes_iters, init_indexes=init,
             **search_kwargs,
         )
-    else:
-        if search_kwargs:
-            raise ValueError(f"search kwargs {sorted(search_kwargs)} need the seqbeam kernel")
-        indexes = search.compute_indexes(
-            params, config, x2, refine_indexes_iters, search=search_method
-        )
-    if as_bytes:
-        indexes = pack_indexes(indexes, config.codebook_size)
-    return indexes.reshape(*lead, -1)
+    if search_kwargs:
+        raise ValueError(f"search kwargs {sorted(search_kwargs)} need the seqbeam kernel")
+    return search.compute_indexes(
+        params, config, x2, refine_indexes_iters, search=search_method
+    )
 
 
 def decode_indexes(centers: torch.Tensor, indexes: torch.Tensor) -> torch.Tensor:

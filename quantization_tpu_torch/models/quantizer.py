@@ -18,6 +18,7 @@ from torch import nn
 
 from .. import core
 from ..core.types import QuantizerConfig, QuantizerLosses, QuantizerParams, resolve_device
+from ..utils.spans import span
 
 
 class Quantizer(nn.Module):
@@ -140,10 +141,11 @@ class Quantizer(nn.Module):
 
         Extra ``search_kwargs`` (e.g. ``M=16``, ``R=4``) go to the kernel."""
         x = torch.as_tensor(x, device=self.device)
-        return core.encode(
-            self.params, self.config, x, refine_indexes_iters, as_bytes,
-            search_method=search_method, **search_kwargs,
-        )
+        with span("quantizer.encode", frames=x.numel() // self.config.dim):
+            return core.encode(
+                self.params, self.config, x, refine_indexes_iters, as_bytes,
+                search_method=search_method, **search_kwargs,
+            )
 
     @torch.no_grad()
     def decode(self, indexes: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:

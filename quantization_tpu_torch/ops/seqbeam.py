@@ -62,6 +62,7 @@ import torch
 from ..core import search as _search
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
 from ..utils.device import dispatch
+from ..utils.spans import span
 from . import cuda_build
 from .cuda_build import CudaKernel
 
@@ -518,57 +519,58 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     """Check the problem's tensors and launch ``kernel`` (v1's entry point
     or one of v2's, by ``problem.impl``) on them with ``extra`` arguments
     before the stream; returns the (B, nc) indexes."""
-    x, idx0, tables = problem.x, problem.idx0, problem.tables
-    M, R, passes, masks, e_dtype = (
-        problem.M, problem.R, problem.passes, problem.masks, problem.e_dtype)
-    nc, cs, D = tables.centers_bf16.shape
-    B = x.shape[0]
-    if not x.is_cuda:
-        raise ValueError("seqbeam_cuda needs CUDA tensors")
-    if x.dtype != torch.float32 or x.shape != (B, D):
-        raise ValueError(f"expected (B, {D}) float32 frames, got {x.dtype} {tuple(x.shape)}")
-    if idx0.shape != (B, nc) or len(masks) != passes:
-        raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
-                         f"got {tuple(idx0.shape)} and {len(masks)}")
-    spill, slots, nslots = _spill_scratch(seqbeam_layout(problem), x.device)
-    x = x.contiguous()
-    idx0 = idx0.to(torch.int32).contiguous()
-    centers = tables.centers_bf16.contiguous()
-    if centers.dtype != torch.bfloat16:
-        raise TypeError("seqbeam tables must hold bf16 centers")
-    out = torch.empty(B, nc, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    # the kernels stream the codebooks through their rings of chunks
-    cpb = tables.chunks_bf16
-    if cpb is None or (e_dtype == "int8" and tables.chunks_i8 is None):
-        raise TypeError("seqbeam tables must hold the ring chunks")
-    if problem.impl == "v1":
-        qg = tables.q_gram.float().contiguous()
-        csq = tables.cs_sumsq.float().contiguous()
-        _on_device(x, idx0, centers, qg, csq, cpb)
-        kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
-               cpb.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots),
-               nslots, *extra, stream)
+    with span("seqbeam.launch"):
+        x, idx0, tables = problem.x, problem.idx0, problem.tables
+        M, R, passes, masks, e_dtype = (
+            problem.M, problem.R, problem.passes, problem.masks, problem.e_dtype)
+        nc, cs, D = tables.centers_bf16.shape
+        B = x.shape[0]
+        if not x.is_cuda:
+            raise ValueError("seqbeam_cuda needs CUDA tensors")
+        if x.dtype != torch.float32 or x.shape != (B, D):
+            raise ValueError(f"expected (B, {D}) float32 frames, got {x.dtype} {tuple(x.shape)}")
+        if idx0.shape != (B, nc) or len(masks) != passes:
+            raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
+                             f"got {tuple(idx0.shape)} and {len(masks)}")
+        spill, slots, nslots = _spill_scratch(seqbeam_layout(problem), x.device)
+        x = x.contiguous()
+        idx0 = idx0.to(torch.int32).contiguous()
+        centers = tables.centers_bf16.contiguous()
+        if centers.dtype != torch.bfloat16:
+            raise TypeError("seqbeam tables must hold bf16 centers")
+        out = torch.empty(B, nc, dtype=torch.int32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # the kernels stream the codebooks through their rings of chunks
+        cpb = tables.chunks_bf16
+        if cpb is None or (e_dtype == "int8" and tables.chunks_i8 is None):
+            raise TypeError("seqbeam tables must hold the ring chunks")
+        if problem.impl == "v1":
+            qg = tables.q_gram.float().contiguous()
+            csq = tables.cs_sumsq.float().contiguous()
+            _on_device(x, idx0, centers, qg, csq, cpb)
+            kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
+                   cpb.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots),
+                   nslots, *extra, stream)
+            return out
+        int8 = e_dtype == "int8"
+        gmod = tables.gmod_bf16.contiguous()
+        ci8 = tables.centers_i8.contiguous() if int8 else None
+        csc = tables.csc.float().contiguous() if int8 else None
+        cmax = tables.cmax.float().contiguous() if problem.requant == "bound" else None
+        gx = tables.gx_bf16.contiguous() if problem.lazy_r1 else None
+        if gmod.dtype != torch.bfloat16 or (int8 and ci8.dtype != torch.int8) or (
+                gx is not None and gx.dtype != torch.bfloat16):
+            raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
+        cpi = tables.chunks_i8 if int8 else None
+        _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
+        words = (ctypes.c_uint32 * max(passes, 1))(*masks)
+        kernel(
+            x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), _ptr(ci8),
+            _ptr(csc), _ptr(cmax), _ptr(gx), _ptr(cpb), _ptr(cpi), out.data_ptr(), B, D, nc, M,
+            R, passes, ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
+            int(problem.lazy_r1), _ptr(spill), _ptr(slots), nslots, *extra, stream,
+        )
         return out
-    int8 = e_dtype == "int8"
-    gmod = tables.gmod_bf16.contiguous()
-    ci8 = tables.centers_i8.contiguous() if int8 else None
-    csc = tables.csc.float().contiguous() if int8 else None
-    cmax = tables.cmax.float().contiguous() if problem.requant == "bound" else None
-    gx = tables.gx_bf16.contiguous() if problem.lazy_r1 else None
-    if gmod.dtype != torch.bfloat16 or (int8 and ci8.dtype != torch.int8) or (
-            gx is not None and gx.dtype != torch.bfloat16):
-        raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
-    cpi = tables.chunks_i8 if int8 else None
-    _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
-    words = (ctypes.c_uint32 * max(passes, 1))(*masks)
-    kernel(
-        x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), _ptr(ci8), _ptr(csc),
-        _ptr(cmax), _ptr(gx), _ptr(cpb), _ptr(cpi), out.data_ptr(), B, D, nc, M, R, passes,
-        ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
-        int(problem.lazy_r1), _ptr(spill), _ptr(slots), nslots, *extra, stream,
-    )
-    return out
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -732,15 +734,18 @@ def seqbeam_problem(
     _check_variant(M, R, config.num_codebooks, passes, pool_mask, e_dtype, impl, requant,
                    lazy_r1)
     x = x.float().contiguous()
-    if init_indexes is None:
-        idx0 = init_indexes_from_logits(params, config, x, init_precision)
-    else:
-        idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
-        if idx0.shape != (x.shape[0], config.num_codebooks) or bool(
-                ((idx0 < 0) | (idx0 >= config.codebook_size)).any()):
-            raise ValueError("init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
-    tables = seqbeam_tables(scaled_centers(params, config.scale_speed), e_dtype, impl, requant,
-                            lazy_r1)
+    with span("seqbeam.init"):
+        if init_indexes is None:
+            idx0 = init_indexes_from_logits(params, config, x, init_precision)
+        else:
+            idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
+            if idx0.shape != (x.shape[0], config.num_codebooks) or bool(
+                    ((idx0 < 0) | (idx0 >= config.codebook_size)).any()):
+                raise ValueError(
+                    "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
+    with span("seqbeam.tables"):
+        tables = seqbeam_tables(scaled_centers(params, config.scale_speed), e_dtype, impl,
+                                requant, lazy_r1)
     masks = pool_bits(pool_mask, config.num_codebooks, passes)
     return SeqbeamProblem(x, idx0.contiguous(), tables, M, R, passes, masks, e_dtype, impl,
                           requant, bool(lazy_r1))

@@ -25,6 +25,7 @@ from quantization_tpu_torch.ops import decode as tdecode
 from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops.quality_guard import against_plain
+from quantization_tpu_torch.utils import spans
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
 from probe_inputs import above_inf
 
@@ -301,6 +302,34 @@ def test_main_path_on_card_launches_both_kernels(cuda):
     assert tdecode.DECODE_KERNEL.launches == k1 + 1
     beam5 = float(((q.decode(q.encode(x, search_method="beam")) - x) ** 2).sum())
     assert float(((recon - x) ** 2).sum()) <= beam5 * BAR
+
+
+@pytest.mark.gpu
+def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda):
+    q = qtt.load_quantizer(Q512, device=cuda)
+    x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(7), 512)
+    q.encode(x)  # the kernel's build, outside the recording
+    k2 = tseq.SEQBEAM_KERNEL.launches
+    spans.start()
+    for _ in range(3):
+        q.encode(x)
+    records = spans.stop()
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_KERNEL.launches == k2 + 3
+    by_id = {r.span_id: r for r in records}
+    calls = [r for r in records if r.name == "quantizer.encode"]
+    assert len(calls) == 3 and all(r.attrs == {"frames": 512} for r in calls)
+    parent = {"codec.choose": "quantizer.encode", "codec.search": "quantizer.encode",
+              "seqbeam.init": "codec.search", "seqbeam.tables": "codec.search",
+              "seqbeam.launch": "codec.search", "codec.pack": "quantizer.encode"}
+    for call in calls:
+        inner = sorted((r for r in records if r.call_id == call.span_id and r is not call),
+                       key=lambda r: r.start_ns)
+        assert [r.name for r in inner] == ["codec.choose", "codec.search", "seqbeam.init",
+                                           "seqbeam.tables", "seqbeam.launch", "codec.pack"]
+        for r in inner:
+            assert by_id[r.parent_id].name == parent[r.name]
+            assert call.start_ns <= r.start_ns <= r.end_ns <= call.end_ns
 
 
 
