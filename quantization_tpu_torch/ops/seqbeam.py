@@ -53,8 +53,12 @@ except that a combination the TPU wrapper asserts against raises ValueError
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
+import threading
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -209,6 +213,83 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
         gx = torch.bmm(centers[:-1], centers[1:].transpose(1, 2))  # (nc-1, cs, cs)
         tables.gx_bf16 = torch.cat([torch.zeros_like(gx[:1]), gx]).to(torch.bfloat16)
     return tables
+
+
+class TablesCache:
+    """The seqbeam tables of the last ``size`` parameter versions and
+    variants, so that an encode with frozen parameters builds them once.
+
+    An entry is keyed by the centers and their log-scale (the tensor
+    objects, held weakly: an entry keeps no parameter alive and goes when
+    either is freed), the scale speed and the variant ``(e_dtype, impl,
+    requant, lazy_r1)``.  It stands while both tensors keep the version
+    counters, storage, device and dtype they had at its build.  In-place
+    writes bump the counters (an optimiser's step, ``copy_``,
+    ``load_state_dict``); a write through ``.data`` or through another
+    library's view of the same memory bumps nothing and is not seen.
+    Inference tensors keep no counter, so under ``torch.inference_mode``
+    the tables are built each call.  Every hit shares the entry's tables:
+    no consumer writes into them.  A build, and only a build, is the
+    ``seqbeam.tables`` span; ``hits`` and ``misses`` count the lookups."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.hits = self.misses = 0
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        # reentrant: a weakref callback can run inside a locked block
+        self._lock = threading.RLock()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def get(self, params: QuantizerParams, scale_speed: float, e_dtype: str, impl: str,
+            requant: str, lazy_r1: bool) -> SeqbeamTables:
+        """The tables of ``params`` for the variant, from the cache or
+        built and stored."""
+        variant = (e_dtype, impl, requant, bool(lazy_r1))
+        c, s = params.centers, params.centers_scale
+        if torch.is_inference_mode_enabled() or c.is_inference() or s.is_inference():
+            return _build_tables(params, scale_speed, variant)
+        key = (id(c), id(s), float(scale_speed), variant)
+        state = (c._version, s._version, c.data_ptr(), s.data_ptr(), c.device, c.dtype, s.dtype)
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and entry[0]() is c and entry[1]() is s and entry[2] == state:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return entry[3]
+            self.misses += 1
+        tables = _build_tables(params, scale_speed, variant)
+        drop = functools.partial(self._drop, key)
+        with self._lock:
+            self._entries[key] = (weakref.ref(c, drop), weakref.ref(s, drop), state, tables)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.size:
+                self._entries.popitem(last=False)
+        return tables
+
+    def _drop(self, key, ref) -> None:
+        """A weakref's callback: remove ``key``'s entry if ``ref`` is one of
+        its references (a newer entry under the key has its own)."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and (entry[0] is ref or entry[1] is ref):
+                del self._entries[key]
+
+
+@torch.no_grad()  # tables with a graph would keep the parameters alive
+def _build_tables(params: QuantizerParams, scale_speed: float, variant) -> SeqbeamTables:
+    with span("seqbeam.tables"):
+        return seqbeam_tables(scaled_centers(params, scale_speed), *variant)
+
+
+# 8 entries hold the four d512 variants ops/quality_guard.py runs on one
+# quantizer, with room to spare; an int8 E entry at d512 is about 7 MB
+TABLES_CACHE = TablesCache(8)
 
 
 @dataclasses.dataclass
@@ -725,8 +806,9 @@ def seqbeam_problem(
 ) -> SeqbeamProblem:
     """The kernel's inputs for (B, dim) frames ``x``, on ``x``'s device:
     the initial indexes (the logits argmax unless ``init_indexes`` is
-    given), the codebook tables and the per-pass pool schedule.  Raises
-    ValueError for a config, beam shape or variant the kernels do not take."""
+    given), the codebook tables (:data:`TABLES_CACHE`'s) and the per-pass
+    pool schedule.  Raises ValueError for a config, beam shape or variant
+    the kernels do not take."""
     if not SEQBEAM_SUPPORTED(config):
         raise ValueError(f"seqbeam does not support {config}")
     if not 1 <= passes <= MAX_PASSES:
@@ -743,9 +825,7 @@ def seqbeam_problem(
                     ((idx0 < 0) | (idx0 >= config.codebook_size)).any()):
                 raise ValueError(
                     "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
-    with span("seqbeam.tables"):
-        tables = seqbeam_tables(scaled_centers(params, config.scale_speed), e_dtype, impl,
-                                requant, lazy_r1)
+    tables = TABLES_CACHE.get(params, config.scale_speed, e_dtype, impl, requant, lazy_r1)
     masks = pool_bits(pool_mask, config.num_codebooks, passes)
     return SeqbeamProblem(x, idx0.contiguous(), tables, M, R, passes, masks, e_dtype, impl,
                           requant, bool(lazy_r1))

@@ -26,6 +26,7 @@ from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops.quality_guard import against_plain
 from quantization_tpu_torch.utils import spans
+from quantization_tpu_torch.utils.profiling import profile_device_ops
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
 from probe_inputs import above_inf
 
@@ -306,9 +307,9 @@ def test_main_path_on_card_launches_both_kernels(cuda):
 
 @pytest.mark.gpu
 def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda):
-    q = qtt.load_quantizer(Q512, device=cuda)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(7), 512)
-    q.encode(x)  # the kernel's build, outside the recording
+    qtt.load_quantizer(Q512, device=cuda).encode(x)  # the kernel's build, outside the recording
+    q = qtt.load_quantizer(Q512, device=cuda)  # its tables are not cached yet
     k2 = tseq.SEQBEAM_KERNEL.launches
     spans.start()
     for _ in range(3):
@@ -317,19 +318,64 @@ def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda):
     torch.cuda.synchronize()
     assert tseq.SEQBEAM_KERNEL.launches == k2 + 3
     by_id = {r.span_id: r for r in records}
-    calls = [r for r in records if r.name == "quantizer.encode"]
+    calls = sorted((r for r in records if r.name == "quantizer.encode"), key=lambda r: r.start_ns)
     assert len(calls) == 3 and all(r.attrs == {"frames": 512} for r in calls)
     parent = {"codec.choose": "quantizer.encode", "codec.search": "quantizer.encode",
               "seqbeam.init": "codec.search", "seqbeam.tables": "codec.search",
               "seqbeam.launch": "codec.search", "codec.pack": "quantizer.encode"}
-    for call in calls:
+    for i, call in enumerate(calls):
         inner = sorted((r for r in records if r.call_id == call.span_id and r is not call),
                        key=lambda r: r.start_ns)
+        # the first call builds the tables; the later ones find them cached
+        tables = ["seqbeam.tables"] if i == 0 else []
         assert [r.name for r in inner] == ["codec.choose", "codec.search", "seqbeam.init",
-                                           "seqbeam.tables", "seqbeam.launch", "codec.pack"]
+                                           *tables, "seqbeam.launch", "codec.pack"]
         for r in inner:
             assert by_id[r.parent_id].name == parent[r.name]
             assert call.start_ns <= r.start_ns <= r.end_ns <= call.end_ns
+
+
+@pytest.mark.gpu
+def test_auto_encode_on_card_reuses_its_tables_with_fewer_device_ops(cuda):
+    q = qtt.load_quantizer(Q512, device=cuda)
+    x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(8), 512)
+    cache = tseq.TABLES_CACHE
+
+    def build_and_encode():
+        cache.clear()
+        return q.encode(x)
+
+    first = build_and_encode()
+    hits = cache.hits
+    assert torch.equal(q.encode(x), first)  # identical codes from the cached tables
+    assert cache.hits == hits + 1
+    ops = {name: sum(row["count"] for row in profile_device_ops(run))
+           for name, run in (("build", build_and_encode), ("cached", lambda: q.encode(x)))}
+    # the int8 E tables are about 20 device ops
+    assert ops["cached"] + 10 <= ops["build"], ops
+
+
+@pytest.mark.gpu
+def test_auto_encode_on_card_after_an_adam_step_equals_a_fresh_build(cuda):
+    t = qtt.QuantizerTrainer(512, 8, device=cuda, phase_one_iters=1, phase_two_iters=4, seed=0,
+                             diagnostics=False)
+    xs = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(9), 600)
+    for _ in range(2):  # phase one, then the product quantizer (256 x 8)
+        t.step(xs)
+    cache = tseq.TABLES_CACHE
+
+    def encode():
+        with torch.no_grad():
+            return qtt.core.encode(t.params, t.config, xs, search_method="auto")
+
+    before = encode()
+    hits, misses = cache.hits, cache.misses
+    assert torch.equal(encode(), before) and cache.hits == hits + 1
+    t.step(xs)  # Adam writes the same tensors in place
+    after = encode()
+    assert cache.misses == misses + 1
+    cache.clear()
+    assert torch.equal(encode(), after)  # as a build without the cache
 
 
 

@@ -5,8 +5,10 @@ On a CPU tensor the encode path reaches neither the kernel's launch
 (``seqbeam.launch``: the plain version runs) nor, for an explicit search
 method, the auto choice (``codec.choose``); both are recorded where they
 are reached: ``_launch`` on a CPU problem records its span and raises, and
-``"auto"`` records its choice (the beam, off the card).  The card's full
-path is held by ``tests/test_torch_gpu.py``."""
+``"auto"`` records its choice (the beam, off the card).  ``seqbeam.tables``
+is recorded where the tables are built: on a miss of their cache
+(``ops/seqbeam.py::TABLES_CACHE``).  The card's full path is held by
+``tests/test_torch_gpu.py``."""
 
 import threading
 
@@ -64,8 +66,10 @@ def test_off_span_is_the_shared_noop_and_keeps_nothing():
     assert spans.stop() == []
 
 
-def test_seqbeam_encode_records_each_stage_nested(quantizer):
-    records = _encode_spans(quantizer, search_method="seqbeam")
+def test_seqbeam_encode_records_each_stage_nested():
+    # a quantizer of its own: its first encode builds the tables
+    q = qtt.Quantizer(DIM, 256, NC, generator=torch.Generator().manual_seed(0), device="cpu")
+    records = _encode_spans(q, search_method="seqbeam")
     assert [r.name for r in records] == ["quantizer.encode", "codec.search", "seqbeam.init",
                                          "seqbeam.tables", "codec.pack"]
     by_id = _held_in_one_call(records)
@@ -106,6 +110,7 @@ def test_launch_span_covers_the_checks(quantizer):
 
 
 def test_each_call_has_its_own_call_id(quantizer):
+    tseq.TABLES_CACHE.clear()
     spans.start()
     for seed in range(3):
         quantizer.encode(_frames(seed=seed), search_method="seqbeam", refine_indexes_iters=3)
@@ -113,7 +118,24 @@ def test_each_call_has_its_own_call_id(quantizer):
     calls = [r for r in records if r.name == "quantizer.encode"]
     assert len(calls) == 3
     assert sorted({r.call_id for r in records}) == sorted(r.span_id for r in calls)
-    assert sum(r.name == "seqbeam.tables" for r in records) == 3
+    # the first call builds the tables, the later ones find them cached
+    assert sum(r.name == "seqbeam.tables" for r in records) == 1
+
+
+def test_tables_span_counts_the_builds_only():
+    q = qtt.Quantizer(DIM, 256, NC, generator=torch.Generator().manual_seed(2), device="cpu")
+    spans.start()
+    for seed in range(3):
+        q.encode(_frames(seed=seed), search_method="seqbeam", refine_indexes_iters=3)
+    first = spans.stop()
+    with torch.no_grad():
+        q.centers.add_(0.01)
+    spans.start()
+    q.encode(_frames(), search_method="seqbeam", refine_indexes_iters=3)
+    second = spans.stop()
+    assert [r.name for r in first].count("quantizer.encode") == 3
+    assert [r.name for r in first].count("seqbeam.tables") == 1
+    assert [r.name for r in second].count("seqbeam.tables") == 1
 
 
 def test_threads_keep_separate_stacks():
