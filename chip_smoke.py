@@ -8,14 +8,15 @@ Phases, each of which raises (and exits nonzero) when its check fails:
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
 3. seqbeam v2 encode (K2) at the auto configs (d512 int8 E, d512 bf16 E,
-   d256 bf16 E), each on 32,768 in-distribution frames: at least 99.5% of
-   indexes equal to the plain version and summed squared error within 0.1%
-   (``ops.quality_guard.against_plain``); kernel and plain times on the
-   same inputs.  At auto's two rungs (d512 int8 E, d256 bf16 E) the
-   stage-timed build (``ops.seqbeam.seqbeam_stages``) gives the same
-   indexes and prints the ``[seqbeam stages]`` line: each stage's share of
-   the warps' cycles and its microseconds a block-step;
-4. the main path, for the two committed trained quantizers:
+   d256 bf16 E, and d1280's int8 E and bf16 E in the kernel's wide
+   instantiations), each on 32,768 in-distribution frames: at least 99.5%
+   of indexes equal to the plain version and summed squared error within
+   0.1% (``ops.quality_guard.against_plain``); kernel and plain times on
+   the same inputs.  At auto's rungs (d512 int8 E, d256 bf16 E, d1280 int8
+   E) the stage-timed build (``ops.seqbeam.seqbeam_stages``) gives the
+   same indexes and prints the ``[seqbeam stages]`` line: each stage's
+   share of the warps' cycles and its microseconds a block-step;
+4. the main path, for the three committed trained quantizers:
    ``load_quantizer`` -> ``Quantizer.encode(x)`` (``search_method="auto"``)
    -> ``decode(codes, use_kernel=True)`` on 32,768 frames, with the launch
    counts set to 0 just before and read just after.  The path's own outputs
@@ -129,7 +130,7 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    num_stages=3, iters_per_stage=20)`` at batch 512: 16 x 4 -> 8 x 16 -> 4 x
    256, finite losses, ``encode(as_bytes=True)`` of 8,192 frames (8192, 4)
    uint8 whose decode equals the unpacked codes' bit for bit; steps/s a
-   stage.  (c) ``PredictorTrainer`` against both committed quantizers
+   stage.  (c) ``PredictorTrainer`` against the d512 and d256 quantizers
    (hidden 512, batch 512, 50 steps each): K2 once a step, the targets held
    against the plain seqbeam, finite losses, the mean CE of the last 10
    steps below the first 10's; at d512 the checkpointed predictor's
@@ -203,14 +204,19 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # FMA as two operations, so one add a cycle is half of it
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 33.5e12}
 ROOT = pathlib.Path(__file__).resolve().parent
-TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz"}
+TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz",
+           1280: ROOT / "quantization_tpu_torch/experiments/q1280_8_full.npz"}
 ENC_CONFIGS = (  # (guard name, dim): every config on the auto ladder
     ("seqbeam_int8e_d512", 512),
     ("seqbeam_hl_d512", 512),
     ("seqbeam_m16_d512", 512),
     ("seqbeam_hl_d256", 256),
+    ("seqbeam_int8e_d1280", 1280),
+    ("seqbeam_hl_d1280", 1280),
 )
-STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256")  # auto's rungs: the timed build
+# auto's rungs: the timed build
+STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256", "seqbeam_int8e_d1280")
+PRED_DIMS = (512, 256)  # the predictor's quantizers (phase 10)
 DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
@@ -1387,7 +1393,7 @@ def aux_phase(samplers: dict, dev) -> dict:
     """Phase 10: the aux models at full width.  (a) ``QuantizerTrainer(...,
     init="multi_kmeans", train_search="gramv3")`` at d512 / 8 B; (b) the
     staged ``MultiKmeansTrainer`` 16 x 4 -> 8 x 16 -> 4 x 256 at d512; (c)
-    ``PredictorTrainer`` against both committed quantizers (K2 once a step),
+    ``PredictorTrainer`` against the d512 and d256 quantizers (K2 once a step),
     with the checkpointed predictor's gradients against the plain ones and a
     traced step.  Returns the ``paths`` entries and, per kernel launched, a
     check entry (launches in the counted window, held against its plain
@@ -1498,9 +1504,9 @@ def aux_phase(samplers: dict, dev) -> dict:
         for e in stages) + f"; codes (8192, 4) uint8, decode bit-equal; ref loss {ref:.4f}",
         flush=True)
 
-    # (c) the predictor against each committed quantizer
-    for dim, qpath in TRAINED.items():
-        q = load_quantizer(qpath, device=dev)
+    # (c) the predictor against the d512 and d256 quantizers
+    for dim in PRED_DIMS:
+        q = load_quantizer(TRAINED[dim], device=dev)
         tr = PredictorTrainer(q, predictor_channels=dim, seed=0)
         xp = samplers[dim](torch.Generator().manual_seed(13), AUX_PRED_STEPS * 512).reshape(
             AUX_PRED_STEPS, 512, dim)
@@ -1533,7 +1539,7 @@ def aux_phase(samplers: dict, dev) -> dict:
                        "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 3),
                        **_seqbeam_bound(512, dim, q.num_codebooks, passes, sem["M"],
                                         sem["e_dtype"])})
-        entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": qpath.name,
+        entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": TRAINED[dim].name,
                  "batch": 512, "hidden_channels": 512, "steps": AUX_PRED_STEPS,
                  "launches": {"seqbeam_v2": n_k2}, "steps_per_s": AUX_PRED_STEPS / s,
                  "mean_ce_first10": first, "mean_ce_last10": last}

@@ -48,14 +48,30 @@ def unpack_indexes(
 def _auto_candidates(config: QuantizerConfig):
     """The auto search's candidates in throughput order, each tied to its
     smoke-gate / quality-guard name (a trailing "!" marks candidates that
-    also REQUIRE a measured quality entry); the same ladder as the JAX
-    package (``quantization_tpu/core/codec.py:118-145``)."""
+    also REQUIRE a measured quality entry); the JAX package's ladder
+    (``quantization_tpu/core/codec.py:118-145``) up to dim 1024, and d1280 /
+    8 B's rungs of its own, measured on its own quantizer.  No other
+    configuration above dim 1024 has a measured rung: it runs the exact
+    beam."""
     if config.dim == 256 and config.num_codebooks == 4:
         return [
             ("seqbeam_hl_d256", 2,
              dict(M=8, R=4, pool_mask="altparity", block_b=256,
                   interleave=2, reorder="select", e_dtype="bf16")),
         ]
+    if config.dim == 1280 and config.num_codebooks == 8:
+        return [
+            ("seqbeam_int8e_d1280!", 3,
+             dict(M=8, R=4, pool_mask="altparity", block_b=512,
+                  interleave=2, reorder="select", e_dtype="int8", zip_skew=1)),
+            ("seqbeam_hl_d1280", 3,
+             dict(M=8, R=4, pool_mask="altparity", block_b=256,
+                  interleave=2, reorder="select", e_dtype="bf16")),
+        ]
+    from ..ops.seqbeam import NARROW_DIM
+
+    if config.dim > NARROW_DIM:
+        return []
     return [
         ("seqbeam_int8e_d512!", 3,
          dict(M=8, R=4, pool_mask="altparity", block_b=512,

@@ -63,6 +63,11 @@
 // copy; f32 E keeps both buffers in the slot and reads them through L2.  A
 // block claims a slot by an atomic when it starts and frees it when it
 // ends, so the wrapper sizes the scratch by the SMs, not by the grid.
+// Above D = 1024 only auto's two M=8 rungs run, in instantiations of their
+// own whose extension holds 10 chunks a lane (the others keep 8, and their
+// registers): their full layout reads the fan-out's rows from L2 and
+// stages the later steps' only, which keeps 4 frames a block for int8 E at
+// D = 1280 (2 for bf16 E).
 // The int8 extension turns bytes into floats and back with byte permutes
 // and exact float adds, not on the conversion pipe, which issues at a
 // quarter of the rate.
@@ -109,7 +114,14 @@ constexpr int kCS = 256;          // codebook size (SEQBEAM_SUPPORTED)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPasses = 64;
-constexpr int kMaxChunks = 8;     // D <= 1024: D / 128 chunks of 4 per lane
+// The extension holds a row's D / 128 chunks of 4 values a lane in
+// registers, sized by the instantiation: every beam up to D = 1024 compiles
+// with room for 8, and the wide instantiations (auto's two M=8 rungs, up to
+// D = 1280) with room for 10, so that the narrow ones keep their registers.
+constexpr int kNarrowChunks = 8;
+constexpr int kWideChunks = 10;
+constexpr int kNarrowDim = kNarrowChunks * 128;
+constexpr int kWideDim = kWideChunks * 128;
 constexpr int kMaxNc = 16;
 constexpr int kChunk = 32768;     // a ring chunk: 256 codewords x 128 bytes of K
 constexpr int kKF = kChunk / (kCS * 2);  // f32 E: bf16 elements of K a ring chunk
@@ -165,6 +177,7 @@ struct Layout {
                      // rescore ahead
   bool stage;        // full layout (not spill): the extensions' codeword rows are staged in
                      // X's space
+  bool fan;          // stage: the fan-out's bf16 rows too (not in the wide instantiations)
   size_t e0, e1, er, xs, srow, sc0, sc1, rsc, ss, ss0, ch0, ch1, sol, selj, selp, jdef, rkeys,
       ring, bars, slot;  // f32 E: ring holds slot 0, xs slot 1
   size_t total;
@@ -204,15 +217,19 @@ __host__ __device__ inline size_t max_sz(size_t a, size_t b) { return a > b ? a 
 // slot 0 past them, slot 1 on them (kFull), or one slot (kCompact).  kSpill,
 // where neither fits: wgmma as kCompact, but E[1] holds only the root's
 // bf16 rows; f32 E wholly in the global slot, single f32 score rows and no
-// ring; a 16-byte cell holds the slot's number.
+// ring; a 16-byte cell holds the slot's number.  `wide` (D > 1024, auto's
+// M=8 rungs): the fan-out's extension reads its bf16 rows from L2, so that
+// X's space need not hold them and int8 E keeps 4 frames a block at D =
+// 1280 in the full layout; the later steps' rows are staged as before.
 __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int nc, int R,
-                                              bool lazy, int kind) {
+                                              bool lazy, int kind, bool wide) {
   Layout L;
   const bool wg = et != kF32;
   const bool spill = kind == kSpill;
   const bool rg = !wg && !spill;  // f32 E on the ring
   L.ahead = wg && kind == kFull;
   L.stage = kind == kFull;
+  L.fan = L.stage && !wide;
   const int esize = et == kF32 ? 4 : (et == kBF16 ? 2 : 1);
   L.rows = F * M;
   L.xrows = (L.rows + 15) / 16 * 16;
@@ -243,7 +260,7 @@ __host__ __device__ inline Layout make_layout(int et, int M, int F, int D, int n
   // rows and slot 1, which lies on them; compact: at its start, no slot 1)
   const size_t lo = L.stage ? max_sz((rows + F) * 2 * D, (size_t)kChunk) : 0;
   L.slots = !rg ? 0 : L.stage ? 2 : 1;
-  if (L.ahead) xbytes = max_sz(xbytes, max_sz((rows + F) * D * esize, rows * 2 * D));
+  if (L.ahead) xbytes = max_sz(xbytes, max_sz((rows + F) * D * esize, L.fan ? rows * 2 * D : 0));
   else if (wg) xbytes = max_sz(xbytes, 2 * (size_t)kChunk);
   else if (rg) xbytes = max_sz(xbytes, lo + (size_t)kChunk);
   L.xs = take(&off, xbytes);
@@ -834,7 +851,7 @@ __device__ __forceinline__ void i8_delta4(const int8_t* cj, const int8_t* ci, in
 // stored; kPass adds round((c8[j] - c8[i]) * (csc / s)) to q and keeps s.
 // first: int8 quantizes the absolute f32 sum (scale from the extended row, or
 // from the root for kPass).
-template <int ET, bool FIRST, int REQ, bool LAZY, bool WG>
+template <int ET, bool FIRST, int REQ, bool LAZY, bool WG, int MAXC>
 __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const void* cj, const void* ci,
                            const void* pj, const void* pi, const unsigned char* src, int src_row,
                            unsigned char* dst, int dst_row, int stride, float src_scale,
@@ -843,7 +860,7 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
   constexpr int ES = ET == kF32 ? 4 : (ET == kBF16 ? 2 : 1);
   const bool prev = LAZY && pj != nullptr;
   const int nchunk = D / 128;
-  float ef[kMaxChunks][4];
+  float ef[MAXC][4];
   float sadj = 0.0f, rprev = 0.0f, col = 0.0f, vmax = 0.0f;
   if (I8) {
     const float inv_csc = 1.0f / csc_t;
@@ -852,7 +869,7 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
     if (REQ == kPass) col = csc_t * (1.0f / src_scale);
   }
 #pragma unroll
-  for (int k = 0; k < kMaxChunks; ++k) {
+  for (int k = 0; k < MAXC; ++k) {
     if (k < nchunk) {
       const int d = 4 * (lane + 32 * k);
       float v[4], dv[4];
@@ -904,7 +921,7 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
     float amax = vmax;  // kPass, first: the root error's
     if (!(FIRST && REQ == kPass)) {
 #pragma unroll
-      for (int k = 0; k < kMaxChunks; ++k)
+      for (int k = 0; k < MAXC; ++k)
         if (k < nchunk)
 #pragma unroll
           for (int u = 0; u < 4; ++u) amax = fmaxf(amax, fabsf(ef[k][u]));
@@ -916,7 +933,7 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
   // round half to even, clipped but for step requant, which never leaves
   // [-127, 127]: its scale is the row's max
 #pragma unroll
-  for (int k = 0; k < kMaxChunks; ++k) {
+  for (int k = 0; k < MAXC; ++k) {
     if (k < nchunk) {
       const int d = 4 * (lane + 32 * k);
       // clipping at the integers +-127 commutes with the rounding
@@ -937,9 +954,11 @@ __device__ __forceinline__ void extend_row(const Args& a, int D, int t, const vo
 // packing); it reads qg/csq in place of gmod.  REQ: the int8 requant rule
 // (kStep otherwise).  LAZY: lazy_r1 (v2, kStep).  TIMED: the stage-timed
 // build, which adds its clock64() sums to a.stages.  SPILL: the spill
-// layout (spills(ET, M) only).  bf16 and int8 E take the wgmma design (WG),
+// layout (spills(ET, M) only).  MAXC: the extension's chunks of 128 (D <=
+// 128 MAXC; kWideChunks for the wide instantiations, whose layouts do not
+// stage the fan-out's rows).  bf16 and int8 E take the wgmma design (WG),
 // f32 E the mma.sync one (see the top of the file).
-template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL>
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL, int MAXC>
 __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   constexpr bool WG = ET != kF32;
   constexpr bool RG = !WG && !SPILL;  // f32 E on its ring
@@ -952,7 +971,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   // only the beams of compacts() ever take the compact layout, so the
   // others compile to the full one alone
   const int kind = SPILL ? kSpill : (compacts(ET, M) ? a.kind : kFull);
-  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, kind);
+  const Layout L = make_layout(ET, M, F, D, nc, R, LAZY, kind, MAXC > kNarrowChunks);
   const bool stg = L.stage;  // the extensions' codeword rows are staged
   const int RW = L.rows, mtiles = L.xrows / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1201,7 +1220,7 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
     // X's space) in E[1], where the root's A rows are spent; f32 E after
     // the rows' C_0[j]
     unsigned char* ci0 = WG ? Eb(1) : cst + (size_t)RW * 2 * D;
-    if (stg) {
+    if (L.fan) {
       // stage the bf16 rows C_0[j] of every row into X's space, and C_0[i]
       const int pieces = 2 * D / 16;
       for (int i = tid; i < (RW + F) * pieces; i += kThreads) {
@@ -1221,14 +1240,14 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
       const int f = r / M;
       const unsigned char* er = reinterpret_cast<const unsigned char*>(Er + f * L.er_stride);
       const float csc0 = ET == kI8 ? a.csc[0] : 1.0f;
-      if (stg)
-        extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, cst + (size_t)r * 2 * D,
-                                            ci0 + (size_t)f * 2 * D, nullptr, nullptr, er, 0,
-                                            Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
+      if (L.fan)
+        extend_row<ET, true, REQ, LAZY, WG, MAXC>(
+            a, D, 0, cst + (size_t)r * 2 * D, ci0 + (size_t)f * 2 * D, nullptr, nullptr, er, 0,
+            Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
       else
-        extend_row<ET, true, REQ, LAZY, WG>(a, D, 0, a.C + (size_t)selj[r] * D,
-                                            a.C + (size_t)sol[f * nc] * D, nullptr, nullptr, er,
-                                            0, Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
+        extend_row<ET, true, REQ, LAZY, WG, MAXC>(
+            a, D, 0, a.C + (size_t)selj[r] * D, a.C + (size_t)sol[f * nc] * D, nullptr, nullptr,
+            er, 0, Eb(0), r, L.e_stride, 0.0f, scb(0) + r, csc0, lane);
     }
     if (WG || RG) fence_proxy_async();
     clk.sync(kStRoot);
@@ -1407,20 +1426,17 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
           }
           const float s_src = ET == kI8 ? scb(cur)[src_row] : 0.0f;
           if (stg)
-            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, cst + (size_t)r * crb,
-                                                 cst + (size_t)(RW + f) * crb, pj, pi, Eb(cur),
-                                                 src_row, Eb(dst), r, L.e_stride, s_src,
-                                                 scb(dst) + r, csc_t, lane);
+            extend_row<ET, false, REQ, LAZY, WG, MAXC>(
+                a, D, t, cst + (size_t)r * crb, cst + (size_t)(RW + f) * crb, pj, pi, Eb(cur),
+                src_row, Eb(dst), r, L.e_stride, s_src, scb(dst) + r, csc_t, lane);
           else if (from_slot)
-            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, ct + (size_t)selj[r] * crb,
-                                                 ct + (size_t)it * crb, pj, pi, eslot, src_row,
-                                                 Eb(dst), r, L.e_stride, s_src, scb(dst) + r,
-                                                 csc_t, lane);
+            extend_row<ET, false, REQ, LAZY, WG, MAXC>(
+                a, D, t, ct + (size_t)selj[r] * crb, ct + (size_t)it * crb, pj, pi, eslot,
+                src_row, Eb(dst), r, L.e_stride, s_src, scb(dst) + r, csc_t, lane);
           else
-            extend_row<ET, false, REQ, LAZY, WG>(a, D, t, ct + (size_t)selj[r] * crb,
-                                                 ct + (size_t)it * crb, pj, pi, Eb(cur), src_row,
-                                                 Eb(dst), r, L.e_stride, s_src, scb(dst) + r,
-                                                 csc_t, lane);
+            extend_row<ET, false, REQ, LAZY, WG, MAXC>(
+                a, D, t, ct + (size_t)selj[r] * crb, ct + (size_t)it * crb, pj, pi, Eb(cur),
+                src_row, Eb(dst), r, L.e_stride, s_src, scb(dst) + r, csc_t, lane);
         }
       }
       // WG: E's new rows are read by the next wgmma, and without `ahead`
@@ -1457,9 +1473,9 @@ __global__ void __launch_bounds__(kThreads, 1) seqbeam_kernel(const Args a) {
   clk.finish(a.stages + (size_t)blockIdx.x * kStageCols, tid);
 }
 
-template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL>
+template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED, bool SPILL, int MAXC>
 int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
-  auto* k = seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED, SPILL>;
+  auto* k = seqbeam_kernel<ET, M, V1, REQ, LAZY, TIMED, SPILL, MAXC>;
   const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1472,8 +1488,23 @@ int launch_kernel(const Args& a, size_t smem, cudaStream_t stream) {
 template <int ET, int M, bool V1, int REQ, bool LAZY, bool TIMED = false>
 int launch(const Args& a, size_t smem, cudaStream_t stream) {
   if constexpr (spills(ET, M))
-    if (a.kind == kSpill) return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, true>(a, smem, stream);
-  return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, false>(a, smem, stream);
+    if (a.kind == kSpill)
+      return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, true, kNarrowChunks>(a, smem, stream);
+  return launch_kernel<ET, M, V1, REQ, LAZY, TIMED, false, kNarrowChunks>(a, smem, stream);
+}
+
+// Beams the wide instantiations take (D > 1024): auto's two rungs, v2 with
+// bf16 or int8 E, M=8, requant "step", no lazy_r1.
+__host__ __device__ constexpr bool wide_beam(int et, int M, bool lazy) {
+  return et != kF32 && M == 8 && !lazy;
+}
+
+// A wide beam (D in (1024, 1280]) in its wide instantiation.
+template <bool TIMED = false>
+int launch_wide(const Args& a, int e_dtype, size_t smem, cudaStream_t st) {
+  if (e_dtype == kI8)
+    return launch_kernel<kI8, 8, false, kStep, false, TIMED, false, kWideChunks>(a, smem, st);
+  return launch_kernel<kBF16, 8, false, kStep, false, TIMED, false, kWideChunks>(a, smem, st);
 }
 
 template <int ET, int REQ, bool LAZY>
@@ -1491,6 +1522,9 @@ int launch_m(const Args& a, int M, size_t smem, cudaStream_t stream) {
 // only, lazy_r1 takes "step" only.
 int launch_v2(const Args& a, int e_dtype, int M, int requant, bool lazy, size_t smem,
               cudaStream_t s) {
+  if (a.D > kNarrowDim)
+    return wide_beam(e_dtype, M, lazy) && requant == kStep ? launch_wide(a, e_dtype, smem, s)
+                                                           : (int)cudaErrorInvalidValue;
   if (lazy) {
     switch (e_dtype) {
       case kF32: return launch_m<kF32, kStep, true>(a, M, smem, s);
@@ -1528,13 +1562,17 @@ int launch_v1(const Args& a, int M, size_t smem, cudaStream_t stream) {
 // the full layout if any F fits it, else (bf16 and int8 E with M >= 32, f32
 // E with spills()) in the compact one, else (spills(): f32 E from M = 24,
 // wgmma's M = 64) in the spill one; 0 if none does.  Every beam narrower
-// than 24 fits the full layout.
+// than 24 fits the full layout up to D = 1024.  Above it only wide_beam()s
+// run, up to D = 1280, in the full layout without the fan-out's staged
+// rows (int8 E: F = 4; bf16 E: F = 2).
 int frames_per_block(int e_dtype, int M, int D, int nc, int R, bool lazy, int* kind) {
+  const bool wide = D > kNarrowDim;
+  if (D > kWideDim || (wide && !wide_beam(e_dtype, M, lazy))) return 0;
   for (int k = kFull; k <= kSpill; ++k) {
     if ((k == kCompact && !compacts(e_dtype, M)) || (k == kSpill && !spills(e_dtype, M)))
       continue;
     for (int F = kMaxRows / M; F >= 1 && F * M >= 16; F /= 2)
-      if (make_layout(e_dtype, M, F, D, nc, R, lazy, k).total <= kMaxSmem) {
+      if (make_layout(e_dtype, M, F, D, nc, R, lazy, k, wide).total <= kMaxSmem) {
         *kind = k;
         return F;
       }
@@ -1562,7 +1600,8 @@ int layout_args(Args* a, int e_dtype, int M, bool lazy, size_t* smem) {
   if (a->F == 0) return (int)cudaErrorInvalidValue;
   if (a->kind == kSpill && (!a->spill || !a->slots || a->nslots < 1))
     return (int)cudaErrorInvalidValue;
-  *smem = make_layout(e_dtype, M, a->F, a->D, a->nc, a->R, lazy, a->kind).total;
+  const bool wide = a->D > kNarrowDim;
+  *smem = make_layout(e_dtype, M, a->F, a->D, a->nc, a->R, lazy, a->kind, wide).total;
   return 0;
 }
 
@@ -1618,9 +1657,10 @@ int v1_args(const void* x, const void* idx0, const void* centers, const void* qg
 // 1 bf16, 2 int8. requant: 0 step, 1 pass, 2 bound (int8 only). spill, slots,
 // nslots: for a spill layout (qtt_seqbeam_layout), nslots scratch slots of its
 // spill bytes and nslots zeroed int32 flags, else null, null, 0.  Shapes and
-// combinations are checked by the caller: D % 128 == 0, D <= 1024, nc even
-// and <= 16, M in {8, 16, 32, 64}, M * R <= 512; with lazy, no deferring R1
-// step is followed by another R1 step.
+// combinations are checked by the caller: D % 128 == 0, D <= 1280 (above
+// 1024 only bf16 or int8 E, M = 8, requant 0, no lazy), nc even and <= 16,
+// M in {8, 16, 32, 64}, M * R <= 512; with lazy, no deferring R1 step is
+// followed by another R1 step.
 extern "C" int qtt_seqbeam_v2_launch(const void* x, const void* idx0, const void* centers,
                                      const void* gmod, const void* centers_i8, const void* csc,
                                      const void* cmax, const void* gx, const void* chunks_bf16,
@@ -1662,6 +1702,7 @@ extern "C" int qtt_seqbeam_v2_timed_launch(const void* x, const void* idx0, cons
   if (err) return err;
   a.stages = (long long*)stages;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (D > kNarrowDim) return launch_wide<true>(a, e_dtype, smem, st);
   return e_dtype == kI8 ? launch<kI8, 8, false, kStep, false, true>(a, smem, st)
                         : launch<kBF16, 8, false, kStep, false, true>(a, smem, st);
 }
@@ -1675,7 +1716,8 @@ extern "C" int qtt_seqbeam_layout(int e_dtype, int M, int D, int nc, int R, int 
   long long* o = (long long*)out;
   int kind = kFull;
   const int F = frames_per_block(e_dtype, M, D, nc, R, lazy != 0, &kind);
-  const Layout L = make_layout(e_dtype, M, F > 0 ? F : 1, D, nc, R, lazy != 0, kind);
+  const Layout L =
+      make_layout(e_dtype, M, F > 0 ? F : 1, D, nc, R, lazy != 0, kind, D > kNarrowDim);
   o[0] = F;
   o[1] = kind;
   o[2] = F > 0 ? (long long)L.total : 0;

@@ -25,7 +25,7 @@ use_kernel=True)`` (K1), and that error's delta over the beam's.
 
     python -m quantization_tpu_torch.experiments.head_to_head DIM BPF P1 P2 BATCH \\
         [--search beam|auto|seqbeam|gramv3] [--ft N] [--seed N] [--ranks 1|2] \\
-        [--device cpu] [--out q.npz]
+        [--device cpu] [--out q.npz [--int8]]
 
 It runs on the card unless ``--device`` says otherwise; without CUDA and
 without ``--device`` it exits nonzero.  ``--ranks 2`` trains under a 2 x 1
@@ -33,7 +33,8 @@ data mesh: two spawned gloo ranks on the one device, each stepping half the
 rows of every batch; the eval runs on rank 0's quantizer.  The result, one
 JSON object, is printed and written to ``h2h/<stem>.json`` beside this
 module (the JAX script's stem, ``_ranks2`` appended for two ranks); ``--out``
-saves the trained quantizer.  The run exits nonzero when a bar fails:
+saves the trained quantizer, with ``--int8`` as :func:`save_int8`'s compact
+file.  The run exits nonzero when a bar fails:
 
 (i) ``rel_err <= 1.01 x`` the reference's recorded error;
 (ii) ``rel_err`` within 1% of the JAX package's recorded errors (their
@@ -368,6 +369,34 @@ def _rank(rank: int, world: int, port: int, cfg: dict, device: str, results) -> 
             dist.destroy_process_group()
 
 
+def save_int8(path, quantizer):
+    """Save ``quantizer`` as a compressed ``.npz`` a quarter of the size:
+    ``centers`` and ``to_logits_w`` each rounded to whole multiples of one
+    step (their largest magnitude over 127) and stored as int8, the step
+    folded into ``centers_scale`` and ``logits_scale`` (which multiply them
+    through ``exp(scale * scale_speed)``).  The file is an ordinary quantizer
+    of the same layout whose two tables hold whole numbers; its scaled
+    codebooks and logits are ``quantizer``'s up to that rounding.  Returns
+    the quantizer as saved, loaded back onto ``quantizer``'s device.  (The
+    d1280 / 8 B quantizer in this directory is such a file.)"""
+    import numpy as np
+
+    from ..utils.serialization import load_quantizer, save_quantizer
+
+    save_quantizer(path, quantizer)
+    with np.load(path) as z:
+        arrays = dict(z)
+    speed = float(quantizer.config.scale_speed)
+    for table, scale in (("centers", "centers_scale"), ("to_logits_w", "logits_scale")):
+        a = arrays[table].astype(np.float64)
+        step = float(np.abs(a).max()) / 127.0 or 1.0
+        arrays[table] = np.clip(np.rint(a / step), -127, 127).astype(np.int8)
+        arrays[scale] = np.asarray(float(arrays[scale]) + np.log(step) / speed, np.float32)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    return load_quantizer(path, device=quantizer.device)
+
+
 # ---------------------------------------------------------------- entry
 
 
@@ -384,6 +413,8 @@ def main(argv=None) -> int:
                     help="device to run on (default: the GPU; 'cpu' runs the kernels' plain "
                          "versions)")
     ap.add_argument("--out", default=None, help="save the trained quantizer (.npz or .pt)")
+    ap.add_argument("--int8", action="store_true",
+                    help="save --out (.npz) with int8 tables (save_int8)")
     args = ap.parse_args(argv)
     try:
         device = resolve_device(args.device)
@@ -394,7 +425,7 @@ def main(argv=None) -> int:
     if args.out:
         from ..utils.serialization import save_quantizer
 
-        save_quantizer(args.out, q)
+        (save_int8 if args.int8 else save_quantizer)(args.out, q)
     out = hold(result)
     H2H_DIR.mkdir(exist_ok=True)
     path = H2H_DIR / (stem(args.dim, args.bpf, args.p1, args.p2, args.search, args.ft,

@@ -3,7 +3,8 @@
 For each kernel configuration on the auto ladder (``core.codec``), and for
 the promotion candidates in :data:`CANDIDATES` that auto does not run, on
 the committed trained quantizers and 8,192 in-distribution frames per eval
-seed (7, 8, 9) from the key-42 MLP sampler, this measures on the card:
+seed (7, 8, 9) from the shipped MLP sampler of their dim (key 42; d1280's
+seeded, ``data/synthetic.py``), this measures on the card:
 
 * ``verified.json`` (smoke): the kernel builds, launches, agrees with its
   plain PyTorch version on the card (at least 99.5% of indexes equal, summed
@@ -40,8 +41,11 @@ from .seqbeam import (SEQBEAM_KERNEL, SeqbeamProblem, seqbeam_cuda, seqbeam_plai
 
 KEYS = (7, 8, 9)
 FRAMES = 8192
-TRAINED = {512: "q512_8_full.npz", 256: "q256_4_full.npz"}
 EXPERIMENTS = pathlib.Path(__file__).resolve().parents[2] / "experiments"
+# the committed trained quantizers: the JAX package's d512 and d256, and the
+# port's d1280 / 8 B (compact int8 tables, experiments/head_to_head.py::save_int8)
+TRAINED = {512: EXPERIMENTS / "q512_8_full.npz", 256: EXPERIMENTS / "q256_4_full.npz",
+           1280: pathlib.Path(__file__).resolve().parents[1] / "experiments/q1280_8_full.npz"}
 TRAIN_RATIO = 1.0001091779448747
 TRAIN_RATIO_SOURCE = (
     "experiments/head_to_head_d512_b8_10000+10000.json (beam-trained flagship "
@@ -65,6 +69,7 @@ CANDIDATES = {
         ("seqbeam_int8e_d256", 2, dict(M=8, R=4, pool_mask="altparity", block_b=256,
                                        interleave=2, reorder="select", e_dtype="int8")),
     ],
+    1280: [],
 }
 # the seqbeam_problem arguments; the rest are the TPU's scheduling knobs
 SEMANTIC_KEYS = ("M", "R", "pool_mask", "e_dtype", "init_precision", "impl", "requant",
@@ -115,7 +120,7 @@ def against_plain(problem: Union[SeqbeamProblem, Gramv3Problem], centers: torch.
 def guard_dim(dim: int, device) -> tuple:
     """(smoke entries, quality entries) of the ladder and the candidates at
     ``dim``."""
-    q = load_quantizer(EXPERIMENTS / TRAINED[dim], device=device)
+    q = load_quantizer(TRAINED[dim], device=device)
     params, config = q.params, q.config
     centers, mean = q.get_centers(), q.get_data_mean()
     xs = eval_frames(dim, device)

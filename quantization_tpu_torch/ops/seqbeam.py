@@ -108,15 +108,21 @@ STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "exten
 LAYOUT = cuda_build.CFunction("seqbeam", "qtt_seqbeam_layout",
                               [ctypes.c_int] * 6 + [ctypes.c_void_p])
 LAYOUT_KINDS = ("full", "compact", "spill")
+# the kernels' launches (v1, v2 and the stage-timed builds) by layout kind
+LAYOUT_LAUNCHES = dict.fromkeys(LAYOUT_KINDS, 0)
+# the widest dim every beam runs at on the card; above it, up to 1280, the
+# kernel's wide instantiations run auto's rungs only (see _check_wide)
+NARROW_DIM = 1024
 
 
 def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
     """Kernel constraints: flagship-family configs only; everything else
-    falls back to the pair-tree beam."""
+    falls back to the pair-tree beam.  Above dim 1024 the card runs auto's
+    beams only (:func:`seqbeam_layout` refuses the others)."""
     return (
         config.codebook_size == 256
         and config.dim % 128 == 0
-        and 128 <= config.dim <= 1024
+        and 128 <= config.dim <= 1280
         and config.num_codebooks in (2, 4, 8, 16)
     )
 
@@ -567,13 +573,28 @@ def seqbeam_stages(problem: SeqbeamProblem) -> Tuple[torch.Tensor, torch.Tensor]
     return _launch(problem, kernel, stages.data_ptr()), stages
 
 
+def _check_wide(problem: SeqbeamProblem, D: int) -> None:
+    """Above :data:`NARROW_DIM` the kernel runs v2 with bf16 or int8 E,
+    M=8, ``requant="step"`` and no ``lazy_r1`` (auto's rungs) and nothing
+    else: raise ValueError for any other beam there."""
+    if D > NARROW_DIM and not (
+            problem.impl == "v2" and problem.e_dtype in ("bf16", "int8") and problem.M == 8
+            and problem.requant == "step" and not problem.lazy_r1):
+        raise ValueError(
+            f"above dim {NARROW_DIM} the seqbeam kernel runs v2 with bf16 or int8 E, M=8, "
+            f"requant='step' and no lazy_r1 only; got {problem.impl} with {problem.e_dtype} E, "
+            f"M={problem.M}, requant={problem.requant!r}, lazy_r1={problem.lazy_r1} at dim {D}")
+
+
 def seqbeam_layout(problem: SeqbeamProblem) -> dict:
     """The kernel's shared-memory layout on ``problem``: frames a block,
     its kind ("full"; "compact", the ring in the score tile's space;
     "spill", E in a global scratch slot), its shared-memory bytes and the
     bytes of a block's scratch slot (0 unless it spills).  Every beam the
-    JAX wrapper takes has one."""
+    JAX wrapper takes has one up to dim 1024; above it, auto's beams only
+    (:func:`_check_wide`)."""
     nc, _, D = problem.tables.centers_bf16.shape
+    _check_wide(problem, D)
     out = (ctypes.c_longlong * 4)()
     LAYOUT(E_DTYPES[problem.e_dtype][0], problem.M, D, nc, problem.R, int(problem.lazy_r1),
            ctypes.addressof(out))
@@ -600,7 +621,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
     """Check the problem's tensors and launch ``kernel`` (v1's entry point
     or one of v2's, by ``problem.impl``) on them with ``extra`` arguments
     before the stream; returns the (B, nc) indexes."""
-    with span("seqbeam.launch"):
+    with span("seqbeam.launch") as sp:
         x, idx0, tables = problem.x, problem.idx0, problem.tables
         M, R, passes, masks, e_dtype = (
             problem.M, problem.R, problem.passes, problem.masks, problem.e_dtype)
@@ -613,7 +634,9 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
         if idx0.shape != (B, nc) or len(masks) != passes:
             raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
                              f"got {tuple(idx0.shape)} and {len(masks)}")
-        spill, slots, nslots = _spill_scratch(seqbeam_layout(problem), x.device)
+        layout = seqbeam_layout(problem)
+        sp.set(layout=layout["kind"], chunks=D // 128, smem_bytes=layout["smem_bytes"])
+        spill, slots, nslots = _spill_scratch(layout, x.device)
         x = x.contiguous()
         idx0 = idx0.to(torch.int32).contiguous()
         centers = tables.centers_bf16.contiguous()
@@ -632,6 +655,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
             kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
                    cpb.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots),
                    nslots, *extra, stream)
+            LAYOUT_LAUNCHES[layout["kind"]] += 1
             return out
         int8 = e_dtype == "int8"
         gmod = tables.gmod_bf16.contiguous()
@@ -651,6 +675,7 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
             R, passes, ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
             int(problem.lazy_r1), _ptr(spill), _ptr(slots), nslots, *extra, stream,
         )
+        LAYOUT_LAUNCHES[layout["kind"]] += 1
         return out
 
 

@@ -358,9 +358,11 @@ class QuantizerTrainer:
         if self.train_search == "auto":
             return "beam"
         if self.train_search == "seqbeam":
-            from ..ops.seqbeam import SEQBEAM_SUPPORTED
+            from ..ops.seqbeam import NARROW_DIM, SEQBEAM_SUPPORTED
 
-            return "seqbeam" if SEQBEAM_SUPPORTED(self.config) else "beam"
+            # the training search's beam (M=16, f32 E) runs up to NARROW_DIM
+            ok = SEQBEAM_SUPPORTED(self.config) and self.config.dim <= NARROW_DIM
+            return "seqbeam" if ok else "beam"
         if self.train_search in ("gramv3", "gramv3-int8"):
             # phase 1 runs at codebook_size 16, where no kernel applies
             from ..ops.gramv3 import GRAMV3_SUPPORTED

@@ -63,6 +63,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs) -> None:
+        pass
+
 
 _OFF = _Off()
 
@@ -98,10 +101,16 @@ class _Span:
                              threading.get_ident(), self.start_ns, end_ns, self.attrs))
         return False
 
+    def set(self, **attrs) -> None:
+        """Add ``attrs`` to the span's attributes (what is known only
+        inside its block)."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+
 
 def span(name: str, **attrs):
     """A context manager that records ``name`` over its ``with`` block while
-    recording is on, with ``attrs``; off, the shared no-op."""
+    recording is on, with ``attrs`` and those its ``set(**attrs)`` adds
+    inside the block; off, the shared no-op."""
     if not _recording:
         return _OFF
     return _Span(name, attrs or None)  # keeps no empty dict for each span

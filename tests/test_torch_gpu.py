@@ -10,7 +10,9 @@ PyTorch (the repository's ``conftest.py`` imports JAX, hence
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 
+import json
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from quantization_tpu_torch.experiments import prim_bench as tprim
 from quantization_tpu_torch.ops import decode as tdecode
 from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
+from quantization_tpu_torch.ops import verify as tverify
 from quantization_tpu_torch.ops.quality_guard import against_plain
 from quantization_tpu_torch.utils import spans
 from quantization_tpu_torch.utils.profiling import profile_device_ops
@@ -32,6 +35,7 @@ from probe_inputs import above_inf
 
 Q256 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q256_4_full.npz"
 Q512 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q512_8_full.npz"
+Q1280 = pathlib.Path(tseq.__file__).resolve().parents[1] / "experiments" / "q1280_8_full.npz"
 BAR = 1.012  # vs beam-5, as tests/test_kernel_quality.py
 
 
@@ -266,6 +270,77 @@ def test_cuda_seqbeam_layout_unchanged(cuda, key):
     got = tseq.seqbeam_layout(problem)
     assert (got["frames"], got["kind"], got["smem_bytes"]) == LAYOUTS_BEFORE[key]
     assert got["spill_bytes"] == 0
+
+
+# d1280 / 8 B: auto's rungs in the kernel's wide instantiations (frames a
+# block, kind, shared-memory bytes): the full layout without the fan-out's
+# staged rows
+LAYOUTS_D1280 = {"int8": (4, "full", 225248), "bf16": (2, "full", 214272)}
+D1280_RUNG = dict(M=8, R=4, pool_mask="altparity")
+
+
+def _recorded_agreement(name):
+    """The share of indexes equal to plain in the named config's smoke entry."""
+    detail = json.loads(tverify.VERIFIED.read_text())["results"][name]["detail"]
+    return float(re.search(r"index agreement with plain ([0-9.]+)", detail).group(1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e_dtype", ["int8", "bf16"])
+def test_cuda_seqbeam_d1280_rungs_match_plain(cuda, e_dtype):
+    # B=2049: a ragged last block of either layout
+    problem, centers = _seqbeam_case(cuda, 14, 8, 1280, 2049, passes=3, e_dtype=e_dtype,
+                                     **D1280_RUNG)
+    lay = tseq.seqbeam_layout(problem)
+    assert (lay["frames"], lay["kind"], lay["smem_bytes"]) == LAYOUTS_D1280[e_dtype]
+    got = _launched_once(tseq.SEQBEAM_KERNEL, lambda: tseq.seqbeam_cuda(problem))
+    if e_dtype == "int8":  # as at d512: every index equal
+        assert torch.equal(got, tseq.seqbeam_plain(problem))
+    else:  # bf16 E sums its rescores on the tensor cores: hl_d512's recorded agreement
+        chk = against_plain(problem, centers, got)
+        assert chk["ok"] and chk["index_agreement"] >= _recorded_agreement("seqbeam_hl_d512"), chk
+
+
+@pytest.mark.gpu
+def test_cuda_seqbeam_d1280_stage_timed_build_same_indexes(cuda):
+    problem, _ = _seqbeam_case(cuda, 15, 8, 1280, 1000, passes=3, e_dtype="int8", **D1280_RUNG)
+    got, stages = tseq.seqbeam_stages(problem)
+    assert torch.equal(got, tseq.seqbeam_cuda(problem))
+    assert stages.shape == (-(-1000 // 4), len(tseq.STAGES) + 2)
+    assert bool((stages > 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(e_dtype="f32"), dict(impl="v1", M=16, R=8), dict(e_dtype="bf16", M=16),
+    dict(e_dtype="int8", requant="pass"), dict(e_dtype="int8", lazy_r1=True,
+                                               pool_mask="altparity")])
+def test_cuda_seqbeam_refuses_other_beams_above_dim_1024(cuda, kw):
+    problem, _ = _seqbeam_case(cuda, 16, 8, 1280, 64, **{"M": 8, "R": 4, **kw})
+    counter = tseq.SEQBEAM_V1_KERNEL if kw.get("impl") == "v1" else tseq.SEQBEAM_KERNEL
+    before = counter.launches
+    with pytest.raises(ValueError, match="above dim 1024"):
+        tseq.seqbeam_cuda(problem)
+    assert counter.launches == before
+
+
+@pytest.mark.gpu
+def test_d1280_main_path_runs_the_int8_rung_and_records_its_layout(cuda):
+    q = qtt.load_quantizer(Q1280, device=cuda)
+    x = make_mlp_sampler(1280, device=cuda)(torch.Generator().manual_seed(7), 2048)
+    assert qtt.core.codec.auto_choice(q.config, x, 5)[0] == "seqbeam_int8e_d1280"
+    q.encode(x)  # the kernel's build and the tables, outside the recording
+    k2, full = tseq.SEQBEAM_KERNEL.launches, tseq.LAYOUT_LAUNCHES["full"]
+    spans.start()
+    codes = q.encode(x)
+    records = spans.stop()
+    torch.cuda.synchronize()
+    assert tseq.SEQBEAM_KERNEL.launches == k2 + 1 and tseq.LAYOUT_LAUNCHES["full"] == full + 1
+    launch = [r for r in records if r.name == "seqbeam.launch"]
+    assert len(launch) == 1
+    assert launch[0].attrs == {"layout": "full", "chunks": 10, "smem_bytes": 225248}
+    beam5 = float(((q.decode(q.encode(x, search_method="beam")) - x) ** 2).sum())
+    assert float(((q.decode(codes) - x) ** 2).sum()) <= beam5 * BAR
 
 
 @pytest.mark.gpu

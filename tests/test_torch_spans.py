@@ -66,6 +66,19 @@ def test_off_span_is_the_shared_noop_and_keeps_nothing():
     assert spans.stop() == []
 
 
+def test_set_adds_attributes_inside_the_block():
+    with spans.span("off") as sp:
+        sp.set(layout="full")  # off: the shared no-op takes and keeps nothing
+    spans.start()
+    with spans.span("a", frames=3) as sp:
+        sp.set(layout="full", chunks=10)
+    with spans.span("b") as sp:
+        sp.set(smem_bytes=7)
+    records = spans.stop()
+    assert [(r.name, r.attrs) for r in records] == [
+        ("a", {"frames": 3, "layout": "full", "chunks": 10}), ("b", {"smem_bytes": 7})]
+
+
 def test_seqbeam_encode_records_each_stage_nested():
     # a quantizer of its own: its first encode builds the tables
     q = qtt.Quantizer(DIM, 256, NC, generator=torch.Generator().manual_seed(0), device="cpu")
