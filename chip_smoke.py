@@ -19,12 +19,14 @@ Phases, each of which raises (and exits nonzero) when its check fails:
 4. the main path, for the three committed trained quantizers:
    ``load_quantizer`` -> ``Quantizer.encode(x)`` (``search_method="auto"``)
    -> ``decode(codes, use_kernel=True)`` on 32,768 frames, with the launch
-   counts set to 0 just before and read just after.  The path's own outputs
-   are held against the plain versions on its own inputs: its indexes
-   against the plain seqbeam (the bars of phase 3) and its reconstruction
-   against the plain decode of those indexes (bit-exact).  The squared
-   error on 8,192 of the frames must be within 1.012 x the port's beam-5 on
-   the same frames; encode and decode vectors/s;
+   counts set to 0 just before and read just after, of whichever search
+   kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one).  The path's
+   own outputs are held against the plain versions on its own inputs: its
+   indexes against that kernel's plain version (the bars of phase 3) and
+   its reconstruction against the plain decode of those indexes
+   (bit-exact).  The squared error on 8,192 of the frames must be within
+   1.012 x the port's beam-5 on the same frames; encode and decode
+   vectors/s;
 5. the Gram-table encode (K3) on the serving path: ``Quantizer.encode(x,
    search_method="gramv3")`` (5 passes, M=8, R=4) on the same 32,768 frames
    of both trained quantizers, with bf16 and int8 tables, and at d512 also
@@ -109,15 +111,16 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    ``ShardStream`` must run the native loader.  ``train`` (4 + 4 steps,
    batch 600) writes a quantizer that loads, is 8 x 256 and has a finite
    loss; ``encode`` of the whole corpus with the defaults and the committed
-   d512 quantizer must launch K2 once a batch (64), its codes on rows
-   0-32,767 and 196,608-204,799 (the first shard boundary) must equal
+   d512 quantizer must launch auto's search kernel once a batch (64), its
+   codes on rows 0-32,767 and 196,608-204,799 (the first shard boundary)
+   must equal
    ``Quantizer.encode`` of the same batches bit for bit, pass phase 3's bars
-   against the plain seqbeam and stay within 1.012 x beam-5 on 8,192
+   against its plain version and stay within 1.012 x beam-5 on 8,192
    frames; ``decode`` must exit 0 and give rows 65,000-66,000 and the last
    1,000 equal to ``Quantizer.decode`` bit for bit.  ``profile_device_ops``
    traces one CLI encode of 131,072 frames (the card's busy share, its top
-   5 rows, which must hold K2) and one phase-1 and one phase-2 training
-   step for ``train_search`` "auto" and "gramv3" (top 8 rows, busy share).
+   5 rows, which must hold that kernel) and one phase-1 and one phase-2
+   training step for ``train_search`` "auto" and "gramv3" (top 8 rows, busy share).
 10. the aux models at full width.  (a) ``QuantizerTrainer(dim=512,
    bytes_per_frame=8, init="multi_kmeans", init_data=<the guard's 8,192
    seed-7 frames>, init_iters=300, train_search="gramv3",
@@ -131,23 +134,23 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    256, finite losses, ``encode(as_bytes=True)`` of 8,192 frames (8192, 4)
    uint8 whose decode equals the unpacked codes' bit for bit; steps/s a
    stage.  (c) ``PredictorTrainer`` against the d512 and d256 quantizers
-   (hidden 512, batch 512, 50 steps each): K2 once a step, the targets held
-   against the plain seqbeam, finite losses, the mean CE of the last 10
-   steps below the first 10's; at d512 the checkpointed predictor's
+   (hidden 512, batch 512, 50 steps each): auto's search kernel once a
+   step, the targets held against its plain version, finite losses, the
+   mean CE of the last 10 steps below the first 10's; at d512 the checkpointed predictor's
    gradients within 1e-6 relative of the plain ones, and one traced step
-   (top 5 rows hold K2; busy share); steps/s.  (d), run in phase 9's
-   corpus: ``train --init multi_kmeans`` (4 + 4 steps, batch 600) writes an
+   (top 5 rows hold that kernel; busy share); steps/s.  (d), run in phase
+   9's corpus: ``train --init multi_kmeans`` (4 + 4 steps, batch 600) writes an
    8 x 256 quantizer that loads, with finite losses.
 11. multi-device runs (``quantization_tpu_torch.parallel``) at full width,
    each against one process.  (a) One rank over NCCL in this process
    (world 1, so every collective goes through NCCL): ``encode_sharded``
-   (auto: K2) and ``decode_sharded(use_kernel=True)`` (K1) on phase 4's
-   32,768 frames equal ``Quantizer.encode`` and ``decode`` bit for bit, and
+   (auto's search kernel) and ``decode_sharded(use_kernel=True)`` (K1) on
+   phase 4's 32,768 frames equal ``Quantizer.encode`` and ``decode`` bit for bit, and
    ``QuantizerTrainer(mesh=...)`` at d512 / 8 B, 4 + 4 steps, batch 600,
    ``train_search="gramv3"`` (K3 once in each of the 4 phase-2 steps) ends
    with parameters equal to the same run without a mesh.  (b) Two ranks,
    two processes on the one card, over gloo (NCCL refuses two ranks on one
-   device), a 2 x 1 mesh: each rank encodes 16,384 of the frames (K2), the
+   device), a 2 x 1 mesh: each rank encodes 16,384 of the frames (auto), the
    codes equal phase 4's, the decode (K1) equals it, and the data-parallel
    trainer runs (300 + 300 frames a step, gramv3, K3 once a phase-2 step).
    (c) The same two ranks as a 1 x 2 model mesh: the trainer with the
@@ -168,8 +171,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    the function its entry point calls): d512 / 8 B, 1000 + 1000 steps,
    batch 300 (the batch of the JAX package's record), the exact beam, seed
    0, one process, then the eval on 2,048 frames, with the launch counts set
-   to 0 just before and read just after (K2 by the eval's ``encode(auto)``,
-   K1 by its kernel decode).  Held to bars (i)-(iii): the final relative
+   to 0 just before and read just after (K2 or K3 by the eval's
+   ``encode(auto)``, K1 by its kernel decode).  Held to bars (i)-(iii): the final relative
    error within 1.01 x the reference's recorded 0.58556, within 1% of the
    JAX package's 0.58486, and the auto encode with the kernel decode within
    +1.2% of the beam; a ``[parity ...]`` line.
@@ -255,6 +258,33 @@ DECODE_ROWS = ((65000, 66000), (CLI_FRAMES - 1000, CLI_FRAMES))  # the first cro
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def auto_search(config, x, iters: int = 5) -> dict:
+    """What ``encode(x)`` with auto runs: its rung (``name``, ``passes``,
+    ``kw``: the problem's arguments), the search kernel's name in the
+    ``kernels`` line (``kernel``) and in a trace (``op``), its launch
+    count, its problem builder, the kernel and its plain version on a
+    problem, and its bound at ``B`` frames (``bound(B)``): K3 on a gramv3
+    rung, K2 on a seqbeam one."""
+    from quantization_tpu_torch.core import codec
+    from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import seqbeam as K2
+    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS
+
+    name, passes, kw = codec.auto_choice(config, x, iters)
+    sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
+    nc = config.num_codebooks
+    if name.startswith("gramv3_"):
+        return dict(name=name, passes=passes, kw=sem, kernel="gramv3", op="gramv3_kernel",
+                    counter=K3.GRAMV3_KERNEL, problem=K3.gramv3_problem, cuda=K3.gramv3_cuda,
+                    plain=K3.gramv3_plain,
+                    bound=lambda B: _gramv3_bound(B, nc, passes, sem["M"], sem["g_dtype"]))
+    return dict(name=name, passes=passes, kw=sem, kernel="seqbeam_v2", op="seqbeam_kernel",
+                counter=K2.SEQBEAM_KERNEL, problem=K2.seqbeam_problem, cuda=K2.seqbeam_cuda,
+                plain=K2.seqbeam_plain,
+                bound=lambda B: _seqbeam_bound(B, config.dim, nc, passes, sem["M"],
+                                               sem["e_dtype"]))
 
 
 def host_s(fn, reps: int) -> float:
@@ -368,39 +398,42 @@ def main() -> int:
     print("[seqbeam stages] share of the warps' cycles, us a block-step: "
           + "; ".join(stage_lines), flush=True)
 
-    # ---- 4. the main path, per trained quantizer
+    # ---- 4. the main path, per trained quantizer, through whichever search
+    # kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one)
     paths = []
     main_frames = {}  # dim -> (frames, beam-5 squared error on the first CHECK_B)
-    launches = {"decode": 0, "seqbeam_v2": 0}
+    launches = {"decode": 0, "seqbeam_v2": 0, "gramv3": 0}
     k1_checks = [{"where": "phase 2", "shape": k1["shape"], "max_abs_err": k1["max_abs_err"]}]
-    k2_checks = []
+    k2_checks, main_k3_checks, main_bounds = [], [], {}
     for dim, qq in quantizers.items():
         x = frames(dim, 9, TIME_B)
+        auto = auto_search(qq.config, x)
+        kernel, counter, gram = auto["kernel"], auto["counter"], auto["kernel"] == "gramv3"
         K1.DECODE_KERNEL.launches = 0
-        K2.SEQBEAM_KERNEL.launches = 0
+        counter.launches = 0
         codes = qq.encode(x)
         recon = qq.decode(codes, use_kernel=True)
         torch.cuda.synchronize()
-        n_dec, n_enc = K1.DECODE_KERNEL.launches, K2.SEQBEAM_KERNEL.launches
-        check(n_enc > 0, f"d{dim}: encode(auto) did not launch the seqbeam kernel")
+        n_dec, n_enc = K1.DECODE_KERNEL.launches, counter.launches
+        check(n_enc > 0, f"d{dim}: encode(auto) did not launch the {kernel} kernel")
         check(n_dec > 0, f"d{dim}: decode(use_kernel=True) did not launch the decode kernel")
         launches["decode"] += n_dec
-        launches["seqbeam_v2"] += n_enc
+        launches[kernel] += n_enc
         check(codes.dtype == torch.uint8 and codes.shape == (TIME_B, qq.config.bytes_per_frame),
               f"d{dim}: codes {codes.dtype} {tuple(codes.shape)}")
         check(recon.shape == x.shape and bool(torch.isfinite(recon).all()),
               f"d{dim}: reconstruction {tuple(recon.shape)} not finite")
         # the main path's own outputs against the plain versions on its inputs
-        chosen = codec.auto_choice(qq.config, x, 5)
-        passes, kw = ladder[chosen[0]]
-        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
-        problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
+        passes, sem, make, run = auto["passes"], auto["kw"], auto["problem"], auto["cuda"]
+        problem = make(qq.params, qq.config, x, passes=passes, **sem)
         indexes = codec.unpack_indexes(codes, qq.codebook_size, qq.num_codebooks)
         shape = f"B={TIME_B} D={dim} nc={qq.num_codebooks} passes={passes}"
         chk = against_plain(problem, qq.get_centers().detach(), got=indexes)
-        check(chk["ok"], f"d{dim}: encode(auto) indexes vs the plain seqbeam: {chk}")
-        k2_checks.append({"where": f"main path d{dim}", "config": chosen[0], "shape": shape,
-                          **{k: chk[k] for k in CHECK_KEYS}})
+        check(chk["ok"], f"d{dim}: encode(auto) indexes vs the plain {kernel}: {chk}")
+        (main_k3_checks if gram else k2_checks).append(
+            {"where": f"main path d{dim}", "config": auto["name"], "shape": shape,
+             **{k: chk[k] for k in CHECK_KEYS}})
+        main_bounds[auto["name"]] = auto["bound"](TIME_B)["bound_ms"]
         cb = scaled_centers(qq.params, qq.config.scale_speed).detach().to(torch.bfloat16)
         want = K1.decode_plain(indexes, cb)
         dec_err = float((recon - want).abs().max())
@@ -408,7 +441,7 @@ def main() -> int:
               f"d{dim}: decode(use_kernel=True) is not bit-exact against the plain decode")
         k1_checks.append({"where": f"main path d{dim}", "max_abs_err": dec_err,
                           "shape": f"B={TIME_B} nc={qq.num_codebooks} cs={qq.codebook_size} D={dim}"})
-        print(f"[main d{dim}] vs plain on the path's own inputs ({shape}): seqbeam agreement "
+        print(f"[main d{dim}] vs plain on the path's own inputs ({shape}): {kernel} agreement "
               f"{chk['index_agreement']:.6f}, sse rel diff {chk['sse_rel_diff']:+.2e}; "
               f"decode bit-exact", flush=True)
         xs, cs_ = x[:CHECK_B], codes[:CHECK_B]
@@ -422,15 +455,16 @@ def main() -> int:
         check(sse_auto_k1 / sse_beam <= BAR, f"d{dim}: bf16 decode error {sse_auto_k1 / sse_beam}")
         enc_s = host_s(lambda: qq.encode(x), 3)
         dec_s = host_s(lambda: qq.decode(codes, use_kernel=True), 5)
-        # where the encode time goes: the logits-argmax init and the tables,
-        # then the kernel (the rest is packing and Python)
-        prep_ms = device_ms(lambda: K2.seqbeam_problem(qq.params, qq.config, x, passes=passes,
-                                                     **sem), 3)
-        kernel_ms = device_ms(lambda: K2.seqbeam_cuda(problem), 3)
+        # where the encode time goes: the problem (the init, and the tables
+        # where the cache misses), then the kernel (the rest is packing and
+        # Python)
+        prep_ms = device_ms(lambda: make(qq.params, qq.config, x, passes=passes, **sem), 3)
+        kernel_ms = device_ms(lambda: run(problem), 3)
         path = {
-            "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": chosen[0],
-            "batch": TIME_B, "launches": {"seqbeam_v2": n_enc, "decode": n_dec},
-            "seqbeam_vs_plain": k2_checks[-1], "decode_bit_exact": True,
+            "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": auto["name"],
+            "batch": TIME_B, "launches": {kernel: n_enc, "decode": n_dec},
+            "search_vs_plain": (main_k3_checks if gram else k2_checks)[-1],
+            "decode_bit_exact": True,
             "quality_delta_pct": (ratio - 1.0) * 100.0,
             "quality_delta_pct_bf16_decode": (sse_auto_k1 / sse_beam - 1.0) * 100.0,
             "encode_vec_per_s": TIME_B / enc_s, "decode_vec_per_s": TIME_B / dec_s,
@@ -438,7 +472,7 @@ def main() -> int:
             "encode_kernel_ms": kernel_ms,
         }
         paths.append(path)
-        print(f"[main d{dim}/{qq.config.bytes_per_frame}B] auto -> {chosen[0]}; "
+        print(f"[main d{dim}/{qq.config.bytes_per_frame}B] auto -> {auto['name']}; "
               f"{path['encode_vec_per_s']:,.0f} vec/s encode, "
               f"{path['decode_vec_per_s']:,.0f} vec/s decode; quality "
               f"{path['quality_delta_pct']:+.3f}% vs beam-5 on {CHECK_B} frames; "
@@ -447,13 +481,14 @@ def main() -> int:
 
     # ---- 5. K3 on the serving path; 6. training at full width
     gram_paths, k3_configs, k3_checks, n_k3, k3_stages = gram_phase(quantizers, main_frames)
+    k3_checks = main_k3_checks + k3_checks
     print("[gramv3 stages] share of the warps' cycles, us a frame-step: " + "; ".join(k3_stages),
           flush=True)
     train_paths, train_checks = train_phase(samplers[512], dev)
     for c in train_checks:
         (k3_checks if c["kernel"] == "gramv3" else k2_checks).append(c)
         launches[c["kernel"]] = launches.get(c["kernel"], 0) + c["launches"]
-    launches["gramv3"] = launches.get("gramv3", 0) + n_k3
+    launches["gramv3"] += n_k3
     # ---- 7. the rest of seqbeam
     rest = rest_phase(quantizers, main_frames, ladder)
     print("[seqbeam stages] share of the warps' cycles, us a block-step: "
@@ -491,9 +526,9 @@ def main() -> int:
     for kernel, n in parity["launches"].items():
         launches[kernel] += n
 
-    # times are those of the d512 main path's config; max_abs_err is the
-    # largest over the main path's own checks, each listed with its shape
-    head = next(c for c in k2_configs if c["config"] == paths[0]["config"])
+    # times are those of d512's first seqbeam rung; max_abs_err is the
+    # largest over the paths' own checks, each listed with its shape
+    head = k2_configs[0]
     k2 = {
         "name": "seqbeam_v2", "route": "cuda", "source": "quantization_tpu_torch/csrc/seqbeam.cu",
         "replaces": "quantization_tpu/ops/seqbeam.py:454",
@@ -527,8 +562,9 @@ def main() -> int:
     # how many times; then the rest by launches x (kernel ms - bound ms),
     # for K2, K3 and B4 summed over the paths' runs, each at its own config
     bounds = {c["config"]: c["bound_ms"] for c in k2_configs + k3_configs + v1_configs}
-    runs = [("seqbeam_v2", p["launches"]["seqbeam_v2"], p["encode_kernel_ms"], bounds[p["config"]])
-            for p in paths]
+    bounds.update(main_bounds)
+    runs = [(k, n, p["encode_kernel_ms"], bounds[p["config"]])
+            for p in paths for k, n in p["launches"].items() if k != "decode"]
     runs += [("gramv3", p["launches"]["gramv3"], p["encode_kernel_ms"], bounds[p["config"]])
              for p in gram_paths]
     runs += [(c["kernel"], c["launches"], c["ms"], c["bound_ms"])
@@ -1181,8 +1217,7 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
     from quantization_tpu_torch import cli, load_quantizer
     from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.data.shards import ShardStream, iter_shards_sequential, write_shards
-    from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain
+    from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.profiling import profile_device_ops
 
     t_phase = time.perf_counter()
@@ -1234,14 +1269,15 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
 
             # encode, the whole corpus with the CLI's defaults
             codes_path = d / "codes.npy"
-            K2.SEQBEAM_KERNEL.launches = 0
+            auto = auto_search(q.config, torch.empty(CLI_BATCH, q.dim, device=dev))
+            auto["counter"].launches = 0
             cli.main(["encode", "--quantizer", str(TRAINED[512]), "--data", str(corpus),
                       "--out", str(codes_path)])
             torch.cuda.synchronize()
-            n_k2 = K2.SEQBEAM_KERNEL.launches
+            n_k2 = auto["counter"].launches
             enc = stats.pop()
             check(n_k2 == CLI_FRAMES // CLI_BATCH,
-                  f"cli encode: {n_k2} seqbeam launches, not one for each of "
+                  f"cli encode: {n_k2} {auto['kernel']} launches, not one for each of "
                   f"{CLI_FRAMES // CLI_BATCH} batches")
             codes = np.load(codes_path)
             check(codes.dtype == np.uint8 and codes.shape == (CLI_FRAMES, 8),
@@ -1257,23 +1293,24 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
                     check(np.array_equal(codes[i * CLI_BATCH:(i + 1) * CLI_BATCH], want),
                           f"cli encode: batch {i} differs from Quantizer.encode")
             x0 = torch.cat([xs[i] for i in range(ENCODE_ROWS[0][1] // CLI_BATCH)])
-            name, passes, kw = codec.auto_choice(q.config, x0, 5)
-            sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
-            problem = K2.seqbeam_problem(q.params, q.config, x0, passes=passes, **sem)
+            auto = auto_search(q.config, x0)
+            name = auto["name"]
+            problem = auto["problem"](q.params, q.config, x0, passes=auto["passes"], **auto["kw"])
             indexes = codec.unpack_indexes(torch.from_numpy(codes[:x0.shape[0]]).to(dev),
                                            q.codebook_size, q.num_codebooks)
             chk = against_plain(problem, q.get_centers().detach(), got=indexes)
-            check(chk["ok"], f"cli encode: rows 0-{x0.shape[0] - 1} vs the plain seqbeam: {chk}")
+            check(chk["ok"], f"cli encode: rows 0-{x0.shape[0] - 1} vs the plain "
+                             f"{auto['kernel']}: {chk}")
             xb = x0[:CHECK_B]
             sse_beam = float(((q.decode(q.encode(xb, search_method="beam")) - xb) ** 2).sum())
             sse = float(((q.decode(torch.from_numpy(codes[:CHECK_B]).to(dev)) - xb) ** 2).sum())
             ratio = sse / sse_beam
             check(ratio <= BAR, f"cli encode: squared error {ratio} x beam-5 > {BAR}")
-            out.update({"config": name, "encode_launches": {"seqbeam_v2": n_k2},
+            out.update({"config": name, "encode_launches": {auto["kernel"]: n_k2},
                         "encode_vec_per_s": enc["steady_vec_per_s"],
                         "encode_steady_s": enc["steady_seconds"],
                         "in_memory_encode_vec_per_s": main_path["encode_vec_per_s"],
-                        "seqbeam_vs_plain": {k: chk[k] for k in CHECK_KEYS},
+                        "search_vs_plain": {k: chk[k] for k in CHECK_KEYS},
                         "quality_delta_pct": (ratio - 1.0) * 100.0})
             print(f"[cli encode] {CLI_FRAMES} frames from {len(sizes)} shards, batch {CLI_BATCH}: "
                   f"{enc['steady_vec_per_s']:,.0f} vec/s steady-state (phase 4's in-memory "
@@ -1316,8 +1353,9 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
             del stats[:]
             device_ms = sum(r["ms"] for r in rows)
             busy = device_ms / (walls[-1] * 1e3)
-            check(any("seqbeam_kernel" in r["source"] for r in rows[:5]),
-                  f"cli encode: the seqbeam kernel is not among the top 5 rows: {rows[:5]}")
+            check(any(auto["op"] in r["source"] for r in rows[:5]),
+                  f"cli encode: the {auto['kernel']} kernel is not among the top 5 rows: "
+                  f"{rows[:5]}")
             out.update({"profile_frames": CLI_PROFILE_LIMIT, "profile_wall_ms": walls[-1] * 1e3,
                         "profile_device_ms": device_ms, "device_busy_share": busy,
                         "profile_top5": _short(rows[:5])})
@@ -1401,12 +1439,10 @@ def aux_phase(samplers: dict, dev) -> dict:
     import numpy as np
 
     from quantization_tpu_torch import JointCodebookLoss, QuantizerTrainer, load_quantizer
-    from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.core.types import scaled_centers
     from quantization_tpu_torch.models import multi_kmeans as mk
     from quantization_tpu_torch.ops import gramv3 as K3
-    from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain, eval_frames
+    from quantization_tpu_torch.ops.quality_guard import against_plain, eval_frames
     from quantization_tpu_torch.train import MultiKmeansTrainer, PredictorTrainer
     from quantization_tpu_torch.utils.device import device_ms
     from quantization_tpu_torch.utils.profiling import profile_device_ops
@@ -1510,41 +1546,41 @@ def aux_phase(samplers: dict, dev) -> dict:
         tr = PredictorTrainer(q, predictor_channels=dim, seed=0)
         xp = samplers[dim](torch.Generator().manual_seed(13), AUX_PRED_STEPS * 512).reshape(
             AUX_PRED_STEPS, 512, dim)
-        K2.SEQBEAM_KERNEL.launches = 0
+        auto = auto_search(q.config, xp[0], tr.encode_refine_iters)
+        auto["counter"].launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ce = [tr.step(x) for x in xp]
         torch.cuda.synchronize()
         s = time.perf_counter() - t0
-        n_k2 = K2.SEQBEAM_KERNEL.launches
+        n_k2 = auto["counter"].launches
         check(n_k2 == AUX_PRED_STEPS,
-              f"aux predictor d{dim}: {n_k2} seqbeam launches in {AUX_PRED_STEPS} steps")
+              f"aux predictor d{dim}: {n_k2} {auto['kernel']} launches in {AUX_PRED_STEPS} steps")
         check(all(math.isfinite(v) for v in ce),
               f"aux predictor d{dim}: a loss is not finite")
         first, last = statistics.mean(ce[:10]), statistics.mean(ce[-10:])
         check(last < first, f"aux predictor d{dim}: mean CE {first} -> {last}")
         # the targets' kernel against its plain version on the path's batch
         x = xp[-1]
-        name, passes, kw2 = codec.auto_choice(q.config, x, tr.encode_refine_iters)
-        sem = {k: v for k, v in kw2.items() if k in SEMANTIC_KEYS}
-        problem = K2.seqbeam_problem(q.params, q.config, x, passes=passes, **sem)
+        passes = auto["passes"]
+        problem = auto["problem"](q.params, q.config, x, passes=passes, **auto["kw"])
         chk = against_plain(problem, q.get_centers().detach(),
                             got=q.encode(x, refine_indexes_iters=tr.encode_refine_iters,
                                          as_bytes=False))
-        check(chk["ok"], f"aux predictor d{dim}: the targets vs the plain seqbeam: {chk}")
-        checks.append({"where": f"predictor targets d{dim}", "kernel": "seqbeam_v2",
-                       "config": name, "shape": f"B=512 D={dim} nc={q.num_codebooks} "
+        check(chk["ok"], f"aux predictor d{dim}: the targets vs the plain {auto['kernel']}: "
+                         f"{chk}")
+        checks.append({"where": f"predictor targets d{dim}", "kernel": auto["kernel"],
+                       "config": auto["name"], "shape": f"B=512 D={dim} nc={q.num_codebooks} "
                        f"passes={passes}", "launches": n_k2, **{k: chk[k] for k in CHECK_KEYS},
-                       "ms": device_ms(lambda: K2.seqbeam_cuda(problem), 20),
-                       "plain_ms": device_ms(lambda: K2.seqbeam_plain(problem), 3),
-                       **_seqbeam_bound(512, dim, q.num_codebooks, passes, sem["M"],
-                                        sem["e_dtype"])})
+                       "ms": device_ms(lambda: auto["cuda"](problem), 20),
+                       "plain_ms": device_ms(lambda: auto["plain"](problem), 3),
+                       **auto["bound"](512)})
         entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": TRAINED[dim].name,
                  "batch": 512, "hidden_channels": 512, "steps": AUX_PRED_STEPS,
-                 "launches": {"seqbeam_v2": n_k2}, "steps_per_s": AUX_PRED_STEPS / s,
+                 "launches": {auto["kernel"]: n_k2}, "steps_per_s": AUX_PRED_STEPS / s,
                  "mean_ce_first10": first, "mean_ce_last10": last}
         line = (f"[aux predictor d{dim}] {q.num_codebooks} x 256, batch 512, hidden 512: "
-                f"{entry['steps_per_s']:.1f} steps/s; seqbeam launches {n_k2} in "
+                f"{entry['steps_per_s']:.1f} steps/s; {auto['kernel']} launches {n_k2} in "
                 f"{AUX_PRED_STEPS} steps; mean CE a frame {first:.3f} -> {last:.3f}; targets "
                 f"vs plain agreement {chk['index_agreement']:.6f}")
         if dim == 512:
@@ -1573,9 +1609,9 @@ def aux_phase(samplers: dict, dev) -> dict:
                 walls.append(time.perf_counter() - t1)
 
             rows = profile_device_ops(step)
-            check(any("seqbeam_kernel" in r["source"] for r in rows[:5]),
-                  f"aux predictor d{dim}: the seqbeam kernel is not among the top 5 rows: "
-                  f"{rows[:5]}")
+            check(any(auto["op"] in r["source"] for r in rows[:5]),
+                  f"aux predictor d{dim}: the {auto['kernel']} kernel is not among the top 5 "
+                  f"rows: {rows[:5]}")
             busy = sum(r["ms"] for r in rows) / (walls[-1] * 1e3)
             entry.update({"profile_step_ms": walls[-1] * 1e3, "device_busy_share": busy,
                           "profile_top5": _short(rows[:5])})
@@ -1699,6 +1735,13 @@ def parallel_phase(q, x, sampler, dev) -> dict:
     out = {"path": "parallel", "frames": x.shape[0], "batch": TRAIN_BATCH, **PARALLEL_TRAIN,
            "scaling": "not measured: the ranks of (b) and (c) share one card"}
     launches = dict.fromkeys(counters, 0)
+    auto_kernel = auto_search(q.config, x)["kernel"]
+
+    def launches_as_expected(got, kernel):
+        """auto's encode launched its kernel once and K1 at least once, and
+        the trainer K3 once a phase-2 step."""
+        return (got["decode"] >= 1 and got[kernel] >= 1 and got["gramv3"]
+                == PARALLEL_TRAIN["phase_two_iters"] + (kernel == "gramv3"))
 
     # (a) one rank over NCCL
     init_distributed("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
@@ -1713,9 +1756,9 @@ def parallel_phase(q, x, sampler, dev) -> dict:
         t = QuantizerTrainer(mesh=mesh, **PARALLEL_TRAIN, **searches["gramv3"])
         train_s = _run_trainer(t, xs)
         got = {k: c.launches for k, c in counters.items()}
-        check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1
-              and got["gramv3"] == PARALLEL_TRAIN["phase_two_iters"],
-              f"phase 11 (a): launches {got}: K2 and K1, and K3 once a phase-2 step")
+        check(launches_as_expected(got, auto_kernel),
+              f"phase 11 (a): launches {got}: auto's {auto_kernel} and K1, and K3 once a "
+              f"phase-2 step")
         check(bool(torch.equal(codes, codes_ref)), "phase 11 (a): encode_sharded codes differ")
         check(bool(torch.equal(recon, recon_ref)), "phase 11 (a): decode_sharded differs")
         diffs = {f: float((getattr(t.params, f) - getattr(ref["gramv3"].params, f)).detach().abs().max())
@@ -1775,9 +1818,7 @@ def parallel_phase(q, x, sampler, dev) -> dict:
     r0, r1 = ranks[0], ranks[1]
     for r, v in ranks.items():
         got = v["launches"]
-        check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1
-              and got["gramv3"] == PARALLEL_TRAIN["phase_two_iters"],
-              f"phase 11 rank {r}: launches {got}")
+        check(launches_as_expected(got, auto_kernel), f"phase 11 rank {r}: launches {got}")
         for k, c in got.items():
             launches[k] += c
         check(v["rows"] == x.shape[0] // 2, f"phase 11 rank {r}: encoded {v['rows']} rows")
@@ -1912,14 +1953,18 @@ def parity_phase(smi: str) -> dict:
     ``paths`` entry and the launches of the run and its eval."""
     from quantization_tpu_torch.experiments import head_to_head as h2h
     from quantization_tpu_torch.ops import decode as K1
+    from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
 
-    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL}
+    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
+                "gramv3": K3.GRAMV3_KERNEL}
     for c in counters.values():
         c.launches = 0
     result, _ = h2h.run(*PARITY, device="cuda")
     got = {k: c.launches for k, c in counters.items()}
-    check(got["seqbeam_v2"] >= 1 and got["decode"] >= 1,
+    # the run trains with the exact beam; its eval's encode(auto) launches a
+    # search kernel
+    check(got["seqbeam_v2"] + got["gramv3"] >= 1 and got["decode"] >= 1,
           f"phase 12: the eval's encode(auto) and kernel decode launched {got}")
     out = h2h.hold(result)
     name = h2h.stem(*PARITY[:4])[len("head_to_head_"):]

@@ -1,0 +1,111 @@
+"""End-to-end encode times of auto's candidate rungs, on the card.
+
+For each trained quantizer (d512 / 8 B, d256 / 4 B, d1280 / 8 B), each
+call size (by default 8,192 frames: the CLI's batch; 512: a predictor's
+minibatch) and each rung (auto's first seqbeam rung, and every Gram-table
+candidate of ``ops/quality_guard.py``; ``--rungs`` keeps those whose names
+hold one of its words), this times whole ``Quantizer.encode`` calls in a
+closed loop, as a caller sees them: each call is followed by a
+synchronize, and its milliseconds are the host's clock from before the
+call to after the synchronize.  The rungs run in turns, ``--rounds``
+rounds of ``--seconds`` each, so that a drift of the card or the host
+falls on every rung alike; the line of a rung gives the median call over
+all rounds and each round's median.
+
+    python -m quantization_tpu_torch.experiments.rung_times [--dims 512 1280]
+        [--sizes 8192 512] [--rungs seqbeam bf16_alt3] [--rounds 3] [--seconds 0.4]
+        [--out chiprun_out/rung_times.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import time
+
+import torch
+
+from quantization_tpu_torch.core.codec import _auto_candidates
+from quantization_tpu_torch.data.synthetic import make_mlp_sampler
+from quantization_tpu_torch.ops.quality_guard import GRAMV3_CANDIDATES, TRAINED
+from quantization_tpu_torch.utils.device import nvidia_smi_line
+from quantization_tpu_torch.utils.serialization import load_quantizer
+
+SIZES = (8192, 512)
+
+
+def rungs(config, words=None) -> list:
+    """(name, search_method, passes, kwargs) of the rungs timed for
+    ``config``: auto's first seqbeam rung, then the gramv3 candidates; only
+    those whose names hold one of ``words``, where given."""
+    name, passes, kw = next(r for r in _auto_candidates(config) if r[0].startswith("seqbeam"))
+    out = [(name.rstrip("!"), "seqbeam", passes, kw)] + [
+        (n, "gramv3", p, k) for n, p, k in GRAMV3_CANDIDATES[config.dim]]
+    return [r for r in out if not words or any(w in r[0] for w in words)]
+
+
+def call_ms(encode, seconds: float) -> list:
+    """Milliseconds of each closed-loop call of ``encode`` over about
+    ``seconds``."""
+    out, end = [], time.perf_counter() + seconds
+    while time.perf_counter() < end or len(out) < 5:
+        t0 = time.perf_counter()
+        encode()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+@torch.no_grad()
+def time_dim(dim: int, sizes, words, rounds: int, seconds: float) -> list:
+    q = load_quantizer(TRAINED[dim], device="cuda")
+    sampler = make_mlp_sampler(dim, device="cuda")
+    results = []
+    for n in sizes:
+        x = sampler(torch.Generator().manual_seed(11), n)
+        calls = {}
+        for name, method, passes, kw in rungs(q.config, words):
+            def encode(method=method, passes=passes, kw=kw):
+                return q.encode(x, search_method=method, refine_indexes_iters=passes, **kw)
+            for _ in range(3):  # builds, tables, allocator
+                encode()
+            calls[name] = (encode, [])
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            for name, (encode, got) in calls.items():
+                got.append(call_ms(encode, seconds))
+        for (name, method, passes, kw), (_, got) in zip(rungs(q.config, words), calls.values()):
+            entry = {"dim": dim, "frames": n, "rung": name, "passes": passes,
+                     "median_ms": statistics.median(v for r in got for v in r),
+                     "round_medians_ms": [statistics.median(r) for r in got],
+                     "calls": sum(len(r) for r in got)}
+            results.append(entry)
+            print(f"[rung d{dim} B={n}] {name:24s} {entry['median_ms']:.4f} ms a call "
+                  f"(rounds {', '.join(f'{v:.4f}' for v in entry['round_medians_ms'])}; "
+                  f"{entry['calls']} calls)", flush=True)
+    return results
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dims", type=int, nargs="+", default=list(TRAINED))
+    ap.add_argument("--sizes", type=int, nargs="+", default=list(SIZES))
+    ap.add_argument("--rungs", nargs="+", default=None)
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--seconds", type=float, default=0.4)
+    ap.add_argument("--out", type=pathlib.Path, default=pathlib.Path("chiprun_out/rung_times.json"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("rung_times times the encode on a CUDA card; none is available")
+    card = nvidia_smi_line()
+    print(card, flush=True)
+    results = [e for dim in args.dims
+               for e in time_dim(dim, args.sizes, args.rungs, args.rounds, args.seconds)]
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"card": card, "results": results}, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -53,8 +53,10 @@ import torch
 
 from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
 from ..utils.device import dispatch
+from ..utils.spans import span
 from .cuda_build import CFunction, CudaKernel
-from .seqbeam import LANE_BITS, LANE_MASK, _as_float, _keys, init_indexes_from_logits, pool_bits
+from .seqbeam import (LANE_BITS, LANE_MASK, TablesCache, _as_float, _keys,
+                      init_indexes_from_logits, pool_bits)
 
 G_DTYPES = {"bf16": 0, "int8": 1}
 MAX_PASSES = 64
@@ -115,6 +117,38 @@ def _pass_modes(masks: Tuple[int, ...], nc: int):
     return tuple(modes)
 
 
+@dataclasses.dataclass
+class Gramv3Tables:
+    """What a problem takes from the parameters alone, for one ``g_dtype``:
+    the (nc, cs, D) f32 scaled centers (the root scores read them), their
+    (K, D) bf16 copy ``ctab`` (the cross terms' operand), the laid-out
+    table ``gt`` and, for int8, ``inv = 1 / scale`` (else None)."""
+
+    centers: torch.Tensor
+    ctab: torch.Tensor
+    gt: torch.Tensor
+    inv: Optional[torch.Tensor]
+
+
+def gramv3_tables(centers: torch.Tensor, g_dtype: str = "bf16") -> Gramv3Tables:
+    """The tables of (nc, cs, D) f32 scaled centers."""
+    nc, cs, D = centers.shape
+    centers = centers.detach().float()
+    ctab = centers.reshape(nc * cs, D).to(torch.bfloat16)
+    gtil, inv = gram_table(ctab, nc, g_dtype)
+    return Gramv3Tables(centers, ctab, table_layout(gtil, nc), inv)
+
+
+@torch.no_grad()  # tables with a graph would keep the parameters alive
+def _build_tables(params: QuantizerParams, scale_speed: float, variant) -> Gramv3Tables:
+    with span("gramv3.tables"):
+        return gramv3_tables(scaled_centers(params, scale_speed), *variant)
+
+
+# the variant: (g_dtype,); an entry at d1280 is about 24 MB
+TABLES_CACHE = TablesCache(8, _build_tables)
+
+
 @torch.no_grad()
 def gramv3_problem(
     params: QuantizerParams,
@@ -128,8 +162,11 @@ def gramv3_problem(
     init_indexes: Optional[torch.Tensor] = None,
 ) -> Gramv3Problem:
     """The kernel's inputs for (B, dim) frames ``x``, on ``x``'s device,
-    computed as the TPU wrapper computes them (``gramv3.py:675-710``).
-    Raises ValueError for a config or beam shape the kernel does not take."""
+    computed as the TPU wrapper computes them (``gramv3.py:675-710``): the
+    tables from :data:`TABLES_CACHE`, then what the frames give (the
+    ``gramv3.init`` span: the initial indexes, the cross terms and the root
+    scores).  Raises ValueError for a config or beam shape the kernel does
+    not take."""
     if not GRAMV3_SUPPORTED(config):
         raise ValueError(f"gramv3 does not support {config}")
     if g_dtype not in G_DTYPES:
@@ -139,27 +176,24 @@ def gramv3_problem(
     if not 0 <= passes <= MAX_PASSES:
         raise ValueError(f"passes must be in [0, {MAX_PASSES}], got {passes}")
     nc, cs, D = config.num_codebooks, config.codebook_size, config.dim
-    K = nc * cs
     x = x.float().contiguous()
     if x.ndim != 2 or x.shape[1] != D:
         raise ValueError(f"expected (B, {D}) frames, got {tuple(x.shape)}")
-    if init_indexes is None:
-        idx0 = init_indexes_from_logits(params, config, x)
-    else:
-        idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
-        if idx0.shape != (x.shape[0], nc) or bool(((idx0 < 0) | (idx0 >= cs)).any()):
-            raise ValueError("init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
     masks = pool_bits(pool_mask, nc, passes)
-
-    centers = scaled_centers(params, config.scale_speed).detach().float()  # (nc, cs, D)
-    ctab = centers.reshape(K, D).to(torch.bfloat16)
-    gtil, inv = gram_table(ctab, nc, g_dtype)
-    xc = cross_terms(x, ctab)
-    ss0 = root_scores(centers, idx0, x)
-    if inv is not None:
-        xc, ss0 = xc * inv, ss0 * inv
-    gt = table_layout(gtil, nc)
-    return Gramv3Problem(x, xc.contiguous(), idx0.contiguous(), ss0.contiguous(), gt,
+    tables = TABLES_CACHE.get(params, config.scale_speed, g_dtype)
+    with span("gramv3.init"):
+        if init_indexes is None:
+            idx0 = init_indexes_from_logits(params, config, x)
+        else:
+            idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
+            if idx0.shape != (x.shape[0], nc) or bool(((idx0 < 0) | (idx0 >= cs)).any()):
+                raise ValueError(
+                    "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
+        xc = cross_terms(x, tables.ctab)
+        ss0 = root_scores(tables.centers, idx0, x)
+        if tables.inv is not None:
+            xc, ss0 = xc * tables.inv, ss0 * tables.inv
+    return Gramv3Problem(x, xc.contiguous(), idx0.contiguous(), ss0.contiguous(), tables.gt,
                          M, R, passes, masks, g_dtype)
 
 
@@ -294,34 +328,36 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
 
 def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
     """Check ``problem``'s tensors and launch ``kernel`` on them with the
-    ``extra`` arguments before the stream; returns the (B, nc) indexes."""
-    xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
-    nc = gt.shape[0]
-    K = nc * CS
-    B = xc.shape[0]
-    if not xc.is_cuda:
-        raise ValueError(f"{kernel.symbol} needs CUDA tensors")
-    want_gt = torch.int8 if problem.g_dtype == "int8" else torch.bfloat16
-    if (xc.dtype != torch.float32 or xc.shape != (B, K) or idx0.shape != (B, nc)
-            or ss0.shape != (B,) or ss0.dtype != torch.float32
-            or gt.shape != (nc, K, CS) or gt.dtype != want_gt):
-        raise ValueError(
-            f"gramv3 inputs must be xc (B, {K}) f32, idx0 (B, {nc}), ss0 (B,) f32 and the "
-            f"table ({nc}, {K}, {CS}) {want_gt}")
-    if len(problem.masks) != problem.passes:
-        raise ValueError(f"expected {problem.passes} pool masks, got {len(problem.masks)}")
-    xc, ss0, gt = xc.contiguous(), ss0.contiguous(), gt.contiguous()
-    idx0 = idx0.to(torch.int32).contiguous()
-    if any(t.device != xc.device for t in (idx0, ss0, gt)):
-        raise ValueError("gramv3_cuda needs all tensors on one device")
-    out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
-    words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
-    kernel(
-        xc.data_ptr(), idx0.data_ptr(), ss0.data_ptr(), gt.data_ptr(), out.data_ptr(),
-        B, nc, problem.M, problem.R, problem.passes, ctypes.addressof(words),
-        G_DTYPES[problem.g_dtype], *extra, torch.cuda.current_stream(xc.device).cuda_stream,
-    )
-    return out
+    ``extra`` arguments before the stream (the ``gramv3.launch`` span);
+    returns the (B, nc) indexes."""
+    with span("gramv3.launch", g_dtype=problem.g_dtype):
+        xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
+        nc = gt.shape[0]
+        K = nc * CS
+        B = xc.shape[0]
+        if not xc.is_cuda:
+            raise ValueError(f"{kernel.symbol} needs CUDA tensors")
+        want_gt = torch.int8 if problem.g_dtype == "int8" else torch.bfloat16
+        if (xc.dtype != torch.float32 or xc.shape != (B, K) or idx0.shape != (B, nc)
+                or ss0.shape != (B,) or ss0.dtype != torch.float32
+                or gt.shape != (nc, K, CS) or gt.dtype != want_gt):
+            raise ValueError(
+                f"gramv3 inputs must be xc (B, {K}) f32, idx0 (B, {nc}), ss0 (B,) f32 and the "
+                f"table ({nc}, {K}, {CS}) {want_gt}")
+        if len(problem.masks) != problem.passes:
+            raise ValueError(f"expected {problem.passes} pool masks, got {len(problem.masks)}")
+        xc, ss0, gt = xc.contiguous(), ss0.contiguous(), gt.contiguous()
+        idx0 = idx0.to(torch.int32).contiguous()
+        if any(t.device != xc.device for t in (idx0, ss0, gt)):
+            raise ValueError("gramv3_cuda needs all tensors on one device")
+        out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
+        words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
+        kernel(
+            xc.data_ptr(), idx0.data_ptr(), ss0.data_ptr(), gt.data_ptr(), out.data_ptr(),
+            B, nc, problem.M, problem.R, problem.passes, ctypes.addressof(words),
+            G_DTYPES[problem.g_dtype], *extra, torch.cuda.current_stream(xc.device).cuda_stream,
+        )
+        return out
 
 
 def gramv3_cuda(problem: Gramv3Problem) -> torch.Tensor:

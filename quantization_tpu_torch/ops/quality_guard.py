@@ -12,6 +12,9 @@ seeded, ``data/synthetic.py``), this measures on the card:
 * ``quality.json``: the relative reconstruction error against the port's
   exact beam-5 search on the same frames, per seed, and the worst delta.
 
+The candidates are seqbeam's (:data:`CANDIDATES`) and the Gram-table
+beam's at auto's beam shape (:data:`GRAMV3_CANDIDATES`).
+
 Each file records the card's name, count and power limit.  The factor
 ``train_ratio_vs_torch`` is a property of the trained artifact, not of a
 chip, and carries over from the JAX package with its source.
@@ -35,7 +38,7 @@ from ..data.synthetic import make_mlp_sampler
 from ..utils.device import device_record
 from ..utils.serialization import load_quantizer
 from . import cuda_build, verify
-from .gramv3 import Gramv3Problem, gramv3_cuda, gramv3_plain
+from .gramv3 import GRAMV3_KERNEL, Gramv3Problem, gramv3_cuda, gramv3_plain, gramv3_problem
 from .seqbeam import (SEQBEAM_KERNEL, SeqbeamProblem, seqbeam_cuda, seqbeam_plain,
                       seqbeam_problem)
 
@@ -71,9 +74,18 @@ CANDIDATES = {
     ],
     1280: [],
 }
-# the seqbeam_problem arguments; the rest are the TPU's scheduling knobs
+# the Gram-table beam (K3) at auto's beam shape, M=8 and R=4: each table
+# dtype, all-pool and altparity, 3-5 passes, named gramv3_<g>_<pool><passes>_d<dim>
+GRAMV3_CANDIDATES = {
+    dim: [(f"gramv3_{g}_{'alt' if mask else 'pool'}{passes}_d{dim}", passes,
+           dict(M=8, R=4, pool_mask=mask, g_dtype=g))
+          for g in ("bf16", "int8") for mask in ("altparity", None) for passes in (3, 4, 5)]
+    for dim in TRAINED
+}
+# the seqbeam_problem and gramv3_problem arguments; the rest are the TPU's
+# scheduling knobs
 SEMANTIC_KEYS = ("M", "R", "pool_mask", "e_dtype", "init_precision", "impl", "requant",
-                 "lazy_r1")
+                 "lazy_r1", "g_dtype")
 
 
 def eval_frames(dim: int, device) -> dict:
@@ -128,14 +140,19 @@ def guard_dim(dim: int, device) -> tuple:
     beam5 = {k: sse(centers, search.compute_indexes(params, config, x, 5, "beam"), x)
              / denom[k] for k, x in xs.items()}
     smoke, quality = {}, {}
-    for name, passes, kw in _auto_candidates(config) + CANDIDATES[dim]:
+    for name, passes, kw in _auto_candidates(config) + CANDIDATES[dim] + GRAMV3_CANDIDATES[dim]:
         name = name.rstrip("!")
+        if name in smoke:  # a ladder's rung among the candidates
+            continue
         kw = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
-        t0, launches = time.perf_counter(), SEQBEAM_KERNEL.launches
+        gram = name.startswith("gramv3_")
+        make, run, counter = ((gramv3_problem, gramv3_cuda, GRAMV3_KERNEL) if gram
+                              else (seqbeam_problem, seqbeam_cuda, SEQBEAM_KERNEL))
+        t0, launches = time.perf_counter(), counter.launches
         deltas = {}
         for k, x in xs.items():
-            problem = seqbeam_problem(params, config, x, passes=passes, **kw)
-            idx = seqbeam_cuda(problem)
+            problem = make(params, config, x, passes=passes, **kw)
+            idx = run(problem)
             e = sse(centers, idx, x)
             deltas[str(k)] = round(100.0 * (e / denom[k] / beam5[k] - 1.0), 4)
             if k == KEYS[0]:
@@ -146,7 +163,7 @@ def guard_dim(dim: int, device) -> tuple:
                     "detail": (f"err {e_init:.1f} -> {e:.1f} (plain {chk['sse_plain']:.1f}), "
                                f"index agreement with plain {chk['index_agreement']:.5f}"),
                 }
-        smoke[name]["launches"] = SEQBEAM_KERNEL.launches - launches
+        smoke[name]["launches"] = counter.launches - launches
         smoke[name]["elapsed_s"] = round(time.perf_counter() - t0, 2)
         quality[name] = {
             "dim": dim, "bpf": config.bytes_per_frame, "frames_per_key": FRAMES,
@@ -168,7 +185,8 @@ def main(argv=None) -> None:
     device = torch.device("cuda")
     dev = device_record()
     print(dev["nvidia_smi"], flush=True)
-    print(f"built the seqbeam kernel in {cuda_build.build(['seqbeam']):.1f} s", flush=True)
+    print(f"built the search kernels in {cuda_build.build(['seqbeam', 'gramv3']):.1f} s",
+          flush=True)
     smoke, quality = {}, {}
     for dim in TRAINED:
         s, q = guard_dim(dim, device)

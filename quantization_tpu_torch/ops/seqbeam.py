@@ -222,24 +222,28 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
 
 
 class TablesCache:
-    """The seqbeam tables of the last ``size`` parameter versions and
-    variants, so that an encode with frozen parameters builds them once.
+    """A kernel's codebook tables for the last ``size`` parameter versions
+    and variants, so that an encode with frozen parameters builds them once.
+    ``build(params, scale_speed, variant)`` makes the tables of a miss; the
+    seqbeam and gramv3 kernels each keep one cache with a builder of their
+    own, under this one key rule.
 
     An entry is keyed by the centers and their log-scale (the tensor
     objects, held weakly: an entry keeps no parameter alive and goes when
-    either is freed), the scale speed and the variant ``(e_dtype, impl,
-    requant, lazy_r1)``.  It stands while both tensors keep the version
+    either is freed), the scale speed and the variant (a tuple of the
+    kernel's table options).  It stands while both tensors keep the version
     counters, storage, device and dtype they had at its build.  In-place
     writes bump the counters (an optimiser's step, ``copy_``,
-    ``load_state_dict``); a write through ``.data`` or through another
-    library's view of the same memory bumps nothing and is not seen.
-    Inference tensors keep no counter, so under ``torch.inference_mode``
-    the tables are built each call.  Every hit shares the entry's tables:
-    no consumer writes into them.  A build, and only a build, is the
-    ``seqbeam.tables`` span; ``hits`` and ``misses`` count the lookups."""
+    ``load_state_dict``); a write through ``.data``, through another
+    library's view of the same memory or by a collective bumps nothing and
+    is not seen.  Inference tensors keep no counter, so under
+    ``torch.inference_mode`` the tables are built each call.  Every hit
+    shares the entry's tables: no consumer writes into them.  The builder
+    opens its kernel's ``<kernel>.tables`` span, so a build, and only a
+    build, is recorded; ``hits`` and ``misses`` count the lookups."""
 
-    def __init__(self, size: int):
-        self.size = size
+    def __init__(self, size: int, build):
+        self.size, self.build = size, build
         self.hits = self.misses = 0
         self._entries: collections.OrderedDict = collections.OrderedDict()
         # reentrant: a weakref callback can run inside a locked block
@@ -252,14 +256,12 @@ class TablesCache:
         with self._lock:
             self._entries.clear()
 
-    def get(self, params: QuantizerParams, scale_speed: float, e_dtype: str, impl: str,
-            requant: str, lazy_r1: bool) -> SeqbeamTables:
+    def get(self, params: QuantizerParams, scale_speed: float, *variant):
         """The tables of ``params`` for the variant, from the cache or
         built and stored."""
-        variant = (e_dtype, impl, requant, bool(lazy_r1))
         c, s = params.centers, params.centers_scale
         if torch.is_inference_mode_enabled() or c.is_inference() or s.is_inference():
-            return _build_tables(params, scale_speed, variant)
+            return self.build(params, scale_speed, variant)
         key = (id(c), id(s), float(scale_speed), variant)
         state = (c._version, s._version, c.data_ptr(), s.data_ptr(), c.device, c.dtype, s.dtype)
         with self._lock:
@@ -269,7 +271,7 @@ class TablesCache:
                 self.hits += 1
                 return entry[3]
             self.misses += 1
-        tables = _build_tables(params, scale_speed, variant)
+        tables = self.build(params, scale_speed, variant)
         drop = functools.partial(self._drop, key)
         with self._lock:
             self._entries[key] = (weakref.ref(c, drop), weakref.ref(s, drop), state, tables)
@@ -294,8 +296,9 @@ def _build_tables(params: QuantizerParams, scale_speed: float, variant) -> Seqbe
 
 
 # 8 entries hold the four d512 variants ops/quality_guard.py runs on one
-# quantizer, with room to spare; an int8 E entry at d512 is about 7 MB
-TABLES_CACHE = TablesCache(8)
+# quantizer, with room to spare; an int8 E entry at d512 is about 7 MB.
+# The variant: (e_dtype, impl, requant, lazy_r1)
+TABLES_CACHE = TablesCache(8, _build_tables)
 
 
 @dataclasses.dataclass
@@ -850,7 +853,7 @@ def seqbeam_problem(
                     ((idx0 < 0) | (idx0 >= config.codebook_size)).any()):
                 raise ValueError(
                     "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
-    tables = TABLES_CACHE.get(params, config.scale_speed, e_dtype, impl, requant, lazy_r1)
+    tables = TABLES_CACHE.get(params, config.scale_speed, e_dtype, impl, requant, bool(lazy_r1))
     masks = pool_bits(pool_mask, config.num_codebooks, passes)
     return SeqbeamProblem(x, idx0.contiguous(), tables, M, R, passes, masks, e_dtype, impl,
                           requant, bool(lazy_r1))

@@ -1,5 +1,5 @@
 """d1280 / 8 B (the MVQ distillation deployment) on the CPU: the kernel's
-gate, auto's ladder, the plain seqbeam at dim 1280 against the
+gate, auto's ladder, the plain seqbeam and gramv3 at dim 1280 against the
 benchmark's plain reference, the seeded sampler's shipped weights and the
 compact quantizer file.  Imports no JAX."""
 
@@ -17,6 +17,7 @@ from quantization_tpu_torch.core import codec
 from quantization_tpu_torch.core.types import QuantizerConfig, scaled_centers
 from quantization_tpu_torch.data import synthetic
 from quantization_tpu_torch.experiments.head_to_head import save_int8
+from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import quality_guard
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
@@ -34,16 +35,26 @@ def test_kernel_gate_admits_dim_1280_and_no_wider():
 
 
 def test_auto_ladder_of_d1280_and_d512():
+    # the Gram-table rung first, then K2's rungs behind it
     names = [n for n, _, _ in codec._auto_candidates(D1280)]
-    assert names == ["seqbeam_int8e_d1280!", "seqbeam_hl_d1280"]
+    assert names == ["gramv3_bf16_alt3_d1280!", "seqbeam_int8e_d1280!", "seqbeam_hl_d1280"]
     assert all(n.rstrip("!").endswith("_d1280") for n in names)
     d512 = [n for n, _, _ in codec._auto_candidates(QuantizerConfig(512, 256, 8))]
-    assert d512 == ["seqbeam_int8e_d512!", "seqbeam_hl_d512", "seqbeam_m16_d512"]
+    assert d512 == ["gramv3_bf16_alt3_d512!", "seqbeam_int8e_d512!", "seqbeam_hl_d512",
+                    "seqbeam_m16_d512"]
     # no other configuration above dim 1024 has a measured rung: the exact beam
     for dim, nc in ((1152, 8), (1280, 4), (1280, 16)):
         assert codec._auto_candidates(QuantizerConfig(dim, 256, nc)) == []
-    # the card's wide instantiations take both rungs' beams
-    for _, passes, kw in codec._auto_candidates(D1280):
+    # both Gram-table rungs run the beam of the K2 rung beside them, with as
+    # many passes (the benchmark records auto's choice from one frame)
+    for config in (D1280, QuantizerConfig(512, 256, 8)):
+        (_, gram_passes, gram), (_, k2_passes, k2) = codec._auto_candidates(config)[:2]
+        assert gram == dict(M=8, R=4, pool_mask="altparity", g_dtype="bf16")
+        assert gram_passes == k2_passes == 3
+        assert {k: k2[k] for k in ("M", "R", "pool_mask")} == {k: gram[k] for k in
+                                                                 ("M", "R", "pool_mask")}
+    # the card's wide instantiations take both seqbeam rungs' beams
+    for _, passes, kw in codec._auto_candidates(D1280)[1:]:
         assert (kw["M"], passes, kw["e_dtype"]) in ((8, 3, "int8"), (8, 3, "bf16"))
         assert "requant" not in kw and "lazy_r1" not in kw
 
@@ -67,13 +78,18 @@ def _seeded_d1280(seed, frames=48, noise=8.0):
 
 
 @pytest.mark.parametrize("seed", [1, 2])
-@pytest.mark.parametrize("rung", ["seqbeam_int8e_d1280", "seqbeam_hl_d1280"])
+@pytest.mark.parametrize("rung", ["seqbeam_int8e_d1280", "seqbeam_hl_d1280",
+                                  "gramv3_bf16_alt3_d1280"])
 def test_plain_seqbeam_at_d1280_against_the_reference(seed, rung):
+    # each rung of auto's d1280 ladder, K3's Gram-table rung among them
     params, ref, x = _seeded_d1280(seed)
     passes, kw = next((p, kw) for n, p, kw in codec._auto_candidates(D1280)
                       if n.rstrip("!") == rung)
-    sem = {k: kw[k] for k in ("M", "R", "pool_mask", "e_dtype")}
-    idx = tseq.seqbeam_plain(tseq.seqbeam_problem(params, D1280, x, passes=passes, **sem))
+    if rung.startswith("gramv3_"):
+        idx = tg3.gramv3_plain(tg3.gramv3_problem(params, D1280, x, passes=passes, **kw))
+    else:
+        sem = {k: kw[k] for k in ("M", "R", "pool_mask", "e_dtype")}
+        idx = tseq.seqbeam_plain(tseq.seqbeam_problem(params, D1280, x, passes=passes, **sem))
     assert idx.shape == (x.shape[0], 8) and idx.dtype == torch.int32
     # the port's error of those indexes is the reference's
     port = ((codec.decode_indexes(scaled_centers(params, D1280.scale_speed), idx) - x) ** 2).sum()

@@ -20,6 +20,7 @@ import torch
 
 import quantization_tpu_torch as qtt
 from quantization_tpu_torch.core import QuantizerConfig
+from quantization_tpu_torch.core import codec as tcodec
 from quantization_tpu_torch.data.synthetic import make_mlp_sampler
 from quantization_tpu_torch.experiments import int8_mxu_probe as tprobe
 from quantization_tpu_torch.experiments import prim_bench as tprim
@@ -57,6 +58,28 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernels run only on a CUDA card")
     return torch.device("cuda")
+
+
+# the search kernels auto's rungs launch: a name's prefix -> its launch count
+# and its tables cache
+SEARCH_KERNELS = {"gramv3": (tg3.GRAMV3_KERNEL, tg3.TABLES_CACHE),
+                  "seqbeam": (tseq.SEQBEAM_KERNEL, tseq.TABLES_CACHE)}
+
+
+def _rung(config, kernel):
+    """(name, passes, kwargs) of auto's first ``kernel`` rung for ``config``."""
+    name, passes, kw = next(r for r in tcodec._auto_candidates(config) if r[0].startswith(kernel))
+    return name.rstrip("!"), passes, kw
+
+
+def _auto_takes(monkeypatch, kernel):
+    """Make auto take its first ``kernel`` rung, whatever the gate would take."""
+    monkeypatch.setattr(tcodec, "auto_choice", lambda config, x, iters: _rung(config, kernel))
+
+
+def _auto_kernel(q, x):
+    """The prefix of the kernel that ``q.encode(x)`` runs."""
+    return tcodec.auto_choice(q.config, x, 5)[0].split("_")[0]
 
 
 @pytest.mark.gpu
@@ -325,9 +348,11 @@ def test_cuda_seqbeam_refuses_other_beams_above_dim_1024(cuda, kw):
 
 
 @pytest.mark.gpu
-def test_d1280_main_path_runs_the_int8_rung_and_records_its_layout(cuda):
+def test_d1280_main_path_runs_the_int8_rung_and_records_its_layout(cuda, monkeypatch):
+    # K2's int8 rung, the fallback behind the Gram-table rung
     q = qtt.load_quantizer(Q1280, device=cuda)
     x = make_mlp_sampler(1280, device=cuda)(torch.Generator().manual_seed(7), 2048)
+    _auto_takes(monkeypatch, "seqbeam")
     assert qtt.core.codec.auto_choice(q.config, x, 5)[0] == "seqbeam_int8e_d1280"
     q.encode(x)  # the kernel's build and the tables, outside the recording
     k2, full = tseq.SEQBEAM_KERNEL.launches, tseq.LAYOUT_LAUNCHES["full"]
@@ -370,51 +395,67 @@ def test_cuda_seqbeam_v1_stage_timed_build_same_indexes(cuda, nc, dim):
 def test_main_path_on_card_launches_both_kernels(cuda):
     q = qtt.load_quantizer(Q256, device=cuda)
     x = make_mlp_sampler(256, device=cuda)(torch.Generator().manual_seed(7), 2048)
-    k2, k1 = tseq.SEQBEAM_KERNEL.launches, tdecode.DECODE_KERNEL.launches
+    search = SEARCH_KERNELS[_auto_kernel(q, x)][0]
+    k, k1 = search.launches, tdecode.DECODE_KERNEL.launches
     codes = q.encode(x)  # search_method="auto"
     recon = q.decode(codes, use_kernel=True)
     torch.cuda.synchronize()
-    assert tseq.SEQBEAM_KERNEL.launches == k2 + 1
+    assert search.launches == k + 1
     assert tdecode.DECODE_KERNEL.launches == k1 + 1
     beam5 = float(((q.decode(q.encode(x, search_method="beam")) - x) ** 2).sum())
     assert float(((recon - x) ** 2).sum()) <= beam5 * BAR
 
 
 @pytest.mark.gpu
-def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda):
+@pytest.mark.parametrize("kernel", list(SEARCH_KERNELS))
+def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda, kernel, monkeypatch):
+    _auto_takes(monkeypatch, kernel)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(7), 512)
     qtt.load_quantizer(Q512, device=cuda).encode(x)  # the kernel's build, outside the recording
     q = qtt.load_quantizer(Q512, device=cuda)  # its tables are not cached yet
-    k2 = tseq.SEQBEAM_KERNEL.launches
+    counter = SEARCH_KERNELS[kernel][0]
+    before = counter.launches
     spans.start()
     for _ in range(3):
         q.encode(x)
     records = spans.stop()
     torch.cuda.synchronize()
-    assert tseq.SEQBEAM_KERNEL.launches == k2 + 3
+    assert counter.launches == before + 3
     by_id = {r.span_id: r for r in records}
     calls = sorted((r for r in records if r.name == "quantizer.encode"), key=lambda r: r.start_ns)
     assert len(calls) == 3 and all(r.attrs == {"frames": 512} for r in calls)
+    init, tables, launch = (f"{kernel}.{s}" for s in ("init", "tables", "launch"))
     parent = {"codec.choose": "quantizer.encode", "codec.search": "quantizer.encode",
-              "seqbeam.init": "codec.search", "seqbeam.tables": "codec.search",
-              "seqbeam.launch": "codec.search", "codec.pack": "quantizer.encode"}
+              init: "codec.search", tables: "codec.search", launch: "codec.search",
+              "codec.pack": "quantizer.encode"}
     for i, call in enumerate(calls):
         inner = sorted((r for r in records if r.call_id == call.span_id and r is not call),
                        key=lambda r: r.start_ns)
-        # the first call builds the tables; the later ones find them cached
-        tables = ["seqbeam.tables"] if i == 0 else []
-        assert [r.name for r in inner] == ["codec.choose", "codec.search", "seqbeam.init",
-                                           *tables, "seqbeam.launch", "codec.pack"]
+        # the first call builds the tables; the later ones find them cached.
+        # seqbeam's init (the logits argmax) comes before its tables; gramv3's
+        # init (argmax, cross terms, root scores) reads its tables
+        built = [tables] if i == 0 else []
+        search = [init, *built] if kernel == "seqbeam" else [*built, init]
+        assert [r.name for r in inner] == ["codec.choose", "codec.search", *search, launch,
+                                           "codec.pack"]
+        assert inner[0].attrs == {"rung": _rung(q.config, kernel)[0]}
         for r in inner:
             assert by_id[r.parent_id].name == parent[r.name]
             assert call.start_ns <= r.start_ns <= r.end_ns <= call.end_ns
 
 
+# device ops a build of the tables adds to a call, at least: seqbeam's int8 E
+# tables are about 20, gramv3's bf16 table about 12
+TABLE_OPS = {"seqbeam": 10, "gramv3": 6}
+
+
 @pytest.mark.gpu
-def test_auto_encode_on_card_reuses_its_tables_with_fewer_device_ops(cuda):
+@pytest.mark.parametrize("kernel", list(SEARCH_KERNELS))
+def test_auto_encode_on_card_reuses_its_tables_with_fewer_device_ops(cuda, kernel, monkeypatch):
+    _auto_takes(monkeypatch, kernel)
     q = qtt.load_quantizer(Q512, device=cuda)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(8), 512)
-    cache = tseq.TABLES_CACHE
+    cache = SEARCH_KERNELS[kernel][1]
 
     def build_and_encode():
         cache.clear()
@@ -426,18 +467,20 @@ def test_auto_encode_on_card_reuses_its_tables_with_fewer_device_ops(cuda):
     assert cache.hits == hits + 1
     ops = {name: sum(row["count"] for row in profile_device_ops(run))
            for name, run in (("build", build_and_encode), ("cached", lambda: q.encode(x)))}
-    # the int8 E tables are about 20 device ops
-    assert ops["cached"] + 10 <= ops["build"], ops
+    print(f"{kernel}: device ops a call {ops}")
+    assert ops["cached"] + TABLE_OPS[kernel] <= ops["build"], ops
 
 
 @pytest.mark.gpu
-def test_auto_encode_on_card_after_an_adam_step_equals_a_fresh_build(cuda):
+@pytest.mark.parametrize("kernel", list(SEARCH_KERNELS))
+def test_auto_encode_on_card_after_an_adam_step_equals_a_fresh_build(cuda, kernel, monkeypatch):
+    _auto_takes(monkeypatch, kernel)
     t = qtt.QuantizerTrainer(512, 8, device=cuda, phase_one_iters=1, phase_two_iters=4, seed=0,
                              diagnostics=False)
     xs = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(9), 600)
     for _ in range(2):  # phase one, then the product quantizer (256 x 8)
         t.step(xs)
-    cache = tseq.TABLES_CACHE
+    cache = SEARCH_KERNELS[kernel][1]
 
     def encode():
         with torch.no_grad():
@@ -452,6 +495,18 @@ def test_auto_encode_on_card_after_an_adam_step_equals_a_fresh_build(cuda):
     cache.clear()
     assert torch.equal(encode(), after)  # as a build without the cache
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", [Q512, Q1280])
+def test_auto_gramv3_rung_equals_plain_at_8192_frames(cuda, path):
+    q = qtt.load_quantizer(path, device=cuda)
+    x = make_mlp_sampler(q.dim, device=cuda)(torch.Generator().manual_seed(10), 8192)
+    name, passes, kw = tcodec.auto_choice(q.config, x, 5)
+    assert name == _rung(q.config, "gramv3")[0]
+    got = _launched_once(tg3.GRAMV3_KERNEL, lambda: q.encode(x, as_bytes=False))
+    problem = tg3.gramv3_problem(q.params, q.config, x, passes=passes, **kw)
+    # the same f32 sums of the bf16 table in the same order
+    assert torch.equal(got, tg3.gramv3_plain(problem))
 
 
 def _gramv3_case(cuda, nc, dim, B, seed=5, **kw):
@@ -807,13 +862,17 @@ def test_cli_encode_equals_quantizer_encode_bit_for_bit(cuda, tmp_path):
 
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(5), 5000)
     write_shards(tmp_path / "corpus", [x.cpu().numpy()], frames_per_shard=3000)
-    before = tseq.SEQBEAM_KERNEL.launches
+    q = qtt.load_quantizer(Q512, device=cuda)
+    before = {k: c.launches for k, (c, _) in SEARCH_KERNELS.items()}
     cli.main(["encode", "--quantizer", str(Q512), "--data", str(tmp_path / "corpus"),
               "--out", str(tmp_path / "codes.npy"), "--batch", "2048"])
     torch.cuda.synchronize()
-    assert tseq.SEQBEAM_KERNEL.launches == before + 3  # one a batch: 2048, 2048, 904
+    # one search a batch (2048, 2048, 904), by the kernel auto takes at its size
+    want = dict.fromkeys(SEARCH_KERNELS, 0)
+    for n in (2048, 2048, 904):
+        want[_auto_kernel(q, torch.empty(n, 512, device=cuda))] += 1
+    assert {k: c.launches - before[k] for k, (c, _) in SEARCH_KERNELS.items()} == want
     codes = np.load(tmp_path / "codes.npy")
-    q = qtt.load_quantizer(Q512, device=cuda)
     want = [q.encode(torch.from_numpy(b).to(cuda).float()).cpu().numpy()
             for b in iter_shards_sequential(tmp_path / "corpus", 2048, dtype=np.float16)]
     np.testing.assert_array_equal(codes, np.concatenate(want))
@@ -888,6 +947,7 @@ def test_cuda_predictor_trainer_step_launches_k2_once(cuda):
     q = qtt.load_quantizer(Q512, device=cuda)
     trainer = PredictorTrainer(q, predictor_channels=512, seed=0)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(2), 512)
+    assert _auto_kernel(q, x) == "seqbeam"  # 512 frames: under GRAMV3_MIN_FRAMES
     before = tseq.SEQBEAM_KERNEL.launches
     loss = trainer.step(x)
     torch.cuda.synchronize()

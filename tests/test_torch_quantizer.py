@@ -143,26 +143,81 @@ def _gate(monkeypatch, verified, quality):
 def test_auto_ladder_and_gate(monkeypatch):
     d512 = qtt.core.QuantizerConfig(dim=512, codebook_size=256, num_codebooks=8)
     d256 = qtt.core.QuantizerConfig(dim=256, codebook_size=256, num_codebooks=4)
-    on_card = types.SimpleNamespace(is_cuda=True)
+    on_card = types.SimpleNamespace(is_cuda=True, shape=(8192, 512))  # a bulk call's frames
     ok = {"ok": True}
-    names = ("seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512", "seqbeam_hl_d256")
+    gram = tcodec._GRAMV3_RUNGS[(512, 8)][0].rstrip("!")
+    names = (gram, "seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512",
+             "seqbeam_hl_d256")
     quality = {"train_ratio_vs_torch": 1.000109,
                "results": {n: {"max_delta_pct": 0.9} for n in names}}
     _gate(monkeypatch, {n: ok for n in names}, quality)
+    # the Gram-table rung first: M=8, R=4, altparity, as the seqbeam rung it displaces
     name, passes, kw = tcodec.auto_choice(d512, on_card, 5)
-    assert (name, passes, kw["e_dtype"], kw["M"]) == ("seqbeam_int8e_d512", 3, "int8", 8)
+    assert (name, kw["M"], kw["R"], kw["pool_mask"]) == (gram, 8, 4, "altparity")
+    assert tcodec._auto_candidates(d512)[0][0] == gram + "!"  # it needs its quality row
+    # below the frames it pays off at, the K2 rung beside it, with as many passes
+    least = tcodec.GRAMV3_MIN_FRAMES[(512, 8)]
+    for frames, want in ((1, "seqbeam_int8e_d512"), (least - 1, "seqbeam_int8e_d512"),
+                         (least, gram)):
+        got = tcodec.auto_choice(d512, types.SimpleNamespace(is_cuda=True, shape=(frames, 512)), 5)
+        assert got[:2] == (want, passes), frames
     assert tcodec.auto_choice(d256, on_card, 5)[:2] == ("seqbeam_hl_d256", 2)
     # off the card, or with fewer than 3 iterations: the exact beam
-    assert tcodec.auto_choice(d512, types.SimpleNamespace(is_cuda=False), 5) is None
+    assert tcodec.auto_choice(d512, types.SimpleNamespace(is_cuda=False, shape=(8192, 512)),
+                              5) is None
     assert tcodec.auto_choice(d512, on_card, 2) is None
-    # a margin past 1% demotes; "!" needs a quality entry; no smoke entry, no kernel
+    # a margin past 1% demotes the Gram-table rung to K2's int8 rung
+    quality["results"][gram]["max_delta_pct"] = 0.995
+    name, passes, kw = tcodec.auto_choice(d512, on_card, 5)
+    assert (name, passes, kw["e_dtype"], kw["M"]) == ("seqbeam_int8e_d512", 3, "int8", 8)
+    # "!" needs a quality entry: without its row the Gram-table rung is
+    # passed over, even with a smoke entry
+    del quality["results"][gram]
+    assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_int8e_d512"
     quality["results"]["seqbeam_int8e_d512"]["max_delta_pct"] = 0.995
     assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_hl_d512"
     del quality["results"]["seqbeam_int8e_d512"]
     del quality["results"]["seqbeam_hl_d512"]
     assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_hl_d512"  # unmeasured: allowed
+    # no smoke entry, no kernel
     _gate(monkeypatch, {"seqbeam_m16_d512": {"ok": False}}, quality)
     assert tcodec.auto_choice(d512, on_card, 5) is None
+
+
+@pytest.mark.parametrize("as_bytes", [True, False])
+def test_auto_routes_a_gramv3_rung_to_the_gram_table_kernel(monkeypatch, as_bytes):
+    """encode(auto) on a ``gramv3_...`` choice runs gramv3_encode_indexes with
+    the rung's passes and kwargs (on the CPU, its plain version), counts the
+    rung and names it on the codec.choose span."""
+    from quantization_tpu_torch.ops import gramv3 as tg3
+    from quantization_tpu_torch.utils import spans
+
+    config = qtt.core.QuantizerConfig(dim=128, codebook_size=256, num_codebooks=4)
+    q = qtt.Quantizer(128, 256, 4, generator=torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(24, 128, generator=torch.Generator().manual_seed(1))
+    rung = ("gramv3_int8_pool3_d128", 3, dict(M=8, R=4, pool_mask=None, g_dtype="int8"))
+    monkeypatch.setattr(tcodec, "auto_choice", lambda c, xx, iters: rung)
+    seen = []
+    real = tg3.gramv3_encode_indexes
+
+    def recording(params, cfg, xx, **kw):
+        seen.append(kw)
+        return real(params, cfg, xx, **kw)
+
+    monkeypatch.setattr(tg3, "gramv3_encode_indexes", recording)
+    plain = tg3.GRAMV3_KERNEL.launches
+    before = tcodec.AUTO_RUNGS[rung[0]]
+    spans.start()
+    got = tcodec.encode(q.params, config, x, as_bytes=as_bytes, search_method="auto")
+    records = spans.stop()
+    assert seen == [dict(passes=3, M=8, R=4, pool_mask=None, g_dtype="int8")]
+    assert tg3.GRAMV3_KERNEL.launches == plain  # the CPU runs the plain version
+    want = real(q.params, config, x, passes=3, M=8, R=4, g_dtype="int8")
+    if as_bytes:
+        want = tcodec.pack_indexes(want, 256)
+    assert torch.equal(got, want)
+    assert tcodec.AUTO_RUNGS[rung[0]] == before + 1
+    assert [r.attrs for r in records if r.name == "codec.choose"] == [{"rung": rung[0]}]
 
 
 def test_committed_gate_tables_hold_card_runs():
@@ -174,5 +229,16 @@ def test_committed_gate_tables_hold_card_runs():
         assert table["device"]["platform"] == "gpu" and "H100" in table["device"]["kind"]
         assert "W" in table["device"]["nvidia_smi"]
     quality = json.loads(tverify.QUALITY.read_text())["results"]
+    smoke = json.loads(tverify.VERIFIED.read_text())["results"]
     for name in ("seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512", "seqbeam_hl_d256"):
         assert set(quality[name]["delta_pct_by_key"]) == {"7", "8", "9"}
+    # every Gram-table candidate of the guard, auto's rungs among them, on seeds 7-9
+    from quantization_tpu_torch.ops.quality_guard import GRAMV3_CANDIDATES
+
+    rows = [n for c in GRAMV3_CANDIDATES.values() for n, _, _ in c]
+    for name in rows:
+        assert set(quality[name]["delta_pct_by_key"]) == {"7", "8", "9"}, name
+        assert quality[name]["max_delta_pct"] == max(quality[name]["delta_pct_by_key"].values())
+        assert name in smoke, name
+    for gram, _, _ in tcodec._GRAMV3_RUNGS.values():
+        assert gram.rstrip("!") in rows and smoke[gram.rstrip("!")]["ok"], gram

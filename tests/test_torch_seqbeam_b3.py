@@ -157,18 +157,21 @@ def test_knobs_refused_where_jax_refuses(search, kw):
 def test_guard_candidates_leave_auto_unchanged(monkeypatch):
     # the quality guard measures the promotion candidates beside the ladder;
     # auto's ladder, and so its choice, is the ladder alone
-    ladder = {512: ["seqbeam_int8e_d512!", "seqbeam_hl_d512", "seqbeam_m16_d512"],
-              256: ["seqbeam_hl_d256"]}
+    gram = {dim: [r[0] for r in [tcodec._GRAMV3_RUNGS.get((dim, nc))] if r]
+            for dim, nc in ((512, 8), (256, 4))}
+    ladder = {512: gram[512] + ["seqbeam_int8e_d512!", "seqbeam_hl_d512", "seqbeam_m16_d512"],
+              256: gram[256] + ["seqbeam_hl_d256"]}
+    first = {dim: names[0].rstrip("!") for dim, names in ladder.items()}
     names = {"seqbeam_int8e_fi_d512", "seqbeam_int8e_bound_d512",
              "seqbeam_int8e_bound_fi_d512", "seqbeam_int8e_lazy_d512", "seqbeam_int8e_d256"}
     configs = {dim: tcore.QuantizerConfig(dim=dim, codebook_size=CS, num_codebooks=nc)
                for dim, nc in ((512, 8), (256, 4))}
-    on_card = types.SimpleNamespace(is_cuda=True)
+    on_card = types.SimpleNamespace(is_cuda=True, shape=(8192, 512))  # a bulk call's frames
     # with the committed tables, which hold the candidates' rows too
     for name in names:
         assert tverify.kernel_verified(name) and tverify.quality_delta_pct(name) is not None
-    assert tcodec.auto_choice(configs[512], on_card, 5)[0] == "seqbeam_int8e_d512"
-    assert tcodec.auto_choice(configs[256], on_card, 5)[0] == "seqbeam_hl_d256"
+    assert tcodec.auto_choice(configs[512], on_card, 5)[0] == first[512]
+    assert tcodec.auto_choice(configs[256], on_card, 5)[0] == first[256]
     seen = set()
     for dim, config in configs.items():
         assert [n for n, _, _ in tcodec._auto_candidates(config)] == ladder[dim]
@@ -189,5 +192,5 @@ def test_guard_candidates_leave_auto_unchanged(monkeypatch):
               tverify.QUALITY: {"train_ratio_vs_torch": 1.0,
                                 "results": {n: {"max_delta_pct": d} for n, d in rows.items()}}}
     monkeypatch.setattr(tverify, "_read", lambda path: tables[path])
-    assert tcodec.auto_choice(configs[512], on_card, 5)[0] == "seqbeam_int8e_d512"
-    assert tcodec.auto_choice(configs[256], on_card, 5)[0] == "seqbeam_hl_d256"
+    assert tcodec.auto_choice(configs[512], on_card, 5)[0] == first[512]
+    assert tcodec.auto_choice(configs[256], on_card, 5)[0] == first[256]
