@@ -7,9 +7,8 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    ``nvcc`` per source, started together;
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
-3. seqbeam v2 encode (K2) at the auto configs (d512 int8 E, d512 bf16 E,
-   d256 bf16 E, and d1280's int8 E and bf16 E in the kernel's wide
-   instantiations), each on 32,768 in-distribution frames: at least 99.5%
+3. seqbeam v2 encode (K2) at every K2 rung of ``ops.ladder.LADDERS`` (d1280's
+   in the kernel's wide instantiations), on 32,768 in-distribution frames: at least 99.5%
    of indexes equal to the plain version and summed squared error within
    0.1% (``ops.quality_guard.against_plain``); kernel and plain times on
    the same inputs.  At auto's rungs (d512 int8 E, d256 bf16 E, d1280 int8
@@ -209,14 +208,6 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 33.5e12}
 ROOT = pathlib.Path(__file__).resolve().parent
 TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz",
            1280: ROOT / "quantization_tpu_torch/experiments/q1280_8_full.npz"}
-ENC_CONFIGS = (  # (guard name, dim): every config on the auto ladder
-    ("seqbeam_int8e_d512", 512),
-    ("seqbeam_hl_d512", 512),
-    ("seqbeam_m16_d512", 512),
-    ("seqbeam_hl_d256", 256),
-    ("seqbeam_int8e_d1280", 1280),
-    ("seqbeam_hl_d1280", 1280),
-)
 # auto's rungs: the timed build
 STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256", "seqbeam_int8e_d1280")
 PRED_DIMS = (512, 256)  # the predictor's quantizers (phase 10)
@@ -267,24 +258,29 @@ def auto_search(config, x, iters: int = 5) -> dict:
     count, its problem builder, the kernel and its plain version on a
     problem, and its bound at ``B`` frames (``bound(B)``): K3 on a gramv3
     rung, K2 on a seqbeam one."""
-    from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import ladder
     from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS
 
-    name, passes, kw = codec.auto_choice(config, x, iters)
-    sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
-    nc = config.num_codebooks
-    if name.startswith("gramv3_"):
-        return dict(name=name, passes=passes, kw=sem, kernel="gramv3", op="gramv3_kernel",
-                    counter=K3.GRAMV3_KERNEL, problem=K3.gramv3_problem, cuda=K3.gramv3_cuda,
-                    plain=K3.gramv3_plain,
-                    bound=lambda B: _gramv3_bound(B, nc, passes, sem["M"], sem["g_dtype"]))
-    return dict(name=name, passes=passes, kw=sem, kernel="seqbeam_v2", op="seqbeam_kernel",
-                counter=K2.SEQBEAM_KERNEL, problem=K2.seqbeam_problem, cuda=K2.seqbeam_cuda,
-                plain=K2.seqbeam_plain,
-                bound=lambda B: _seqbeam_bound(B, config.dim, nc, passes, sem["M"],
-                                               sem["e_dtype"]))
+    rung = ladder.pick(config, x, iters)
+    K, passes, sem, nc = rung.kernel, rung.passes, rung.beam, config.num_codebooks
+    kernel, op, bound = {
+        K3.GRAMV3: ("gramv3", "gramv3_kernel",
+                    lambda B: _gramv3_bound(B, nc, passes, sem["M"], sem["g_dtype"])),
+        K2.SEQBEAM: ("seqbeam_v2", "seqbeam_kernel",
+                     lambda B: _seqbeam_bound(B, config.dim, nc, passes, sem["M"],
+                                              sem["e_dtype"])),
+    }[K]
+    return dict(name=rung.name, passes=passes, kw=sem, kernel=kernel, op=op, counter=K.entry,
+                problem=K.problem, cuda=K.cuda, plain=K.plain, bound=bound)
+
+
+def launch_counters() -> dict:
+    """The launch counts of K1, K2 and K3, by their ``kernels`` line names."""
+    from quantization_tpu_torch.ops import decode, gramv3, seqbeam
+
+    return {"decode": decode.DECODE_KERNEL, "seqbeam_v2": seqbeam.SEQBEAM_KERNEL,
+            "gramv3": gramv3.GRAMV3_KERNEL}
 
 
 def host_s(fn, reps: int) -> float:
@@ -314,7 +310,8 @@ def main() -> int:
     from quantization_tpu_torch.ops import decode as K1
     from quantization_tpu_torch.ops import gramv3 as K3
     from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import SEMANTIC_KEYS, against_plain
+    from quantization_tpu_torch.ops.ladder import LADDERS
+    from quantization_tpu_torch.ops.quality_guard import against_plain
     from quantization_tpu_torch.utils.device import device_ms, nvidia_smi_line
 
     dev = torch.device("cuda")
@@ -365,16 +362,12 @@ def main() -> int:
     print(f"[decode] bit-exact; kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
           f"embedding_bag {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms", flush=True)
 
-    # ---- 3. encode, K2, at the auto configs
-    ladder = {}
-    for dim, qq in quantizers.items():
-        for name, passes, kw in codec._auto_candidates(qq.config):
-            ladder[name.rstrip("!")] = (passes, kw)
+    # ---- 3. encode, K2, at every K2 rung of auto's ladder
     k2_configs, stage_lines = [], []
-    for name, dim in ENC_CONFIGS:
+    for dim, rung in [(dim, r) for (dim, _), rungs in LADDERS.items() for r in rungs
+                      if r.kernel is K2.SEQBEAM]:
         qq = quantizers[dim]
-        passes, kw = ladder[name]
-        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
+        name, passes, sem = rung.name, rung.passes, rung.beam
         pt = K2.seqbeam_problem(qq.params, qq.config, frames(dim, 8, TIME_B), passes=passes,
                                 **sem)
         chk = against_plain(pt, qq.get_centers().detach())
@@ -490,7 +483,7 @@ def main() -> int:
         launches[c["kernel"]] = launches.get(c["kernel"], 0) + c["launches"]
     launches["gramv3"] += n_k3
     # ---- 7. the rest of seqbeam
-    rest = rest_phase(quantizers, main_frames, ladder)
+    rest = rest_phase(quantizers, main_frames)
     print("[seqbeam stages] share of the warps' cycles, us a block-step: "
           + "; ".join(rest["stage_lines"]), flush=True)
     for kernel, n in rest["launches"].items():
@@ -728,7 +721,7 @@ def train_phase(sampler, dev):
 
     for search in TRAIN_SEARCHES:
         kernel = kernels.get(search)
-        counter = {"gramv3": K3.GRAMV3_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL}.get(kernel)
+        counter = launch_counters().get(kernel)
         t = new_trainer(search)
         check((t.config.num_codebooks, t.config.codebook_size) == (2 * nc_bytes, 16),
               f"train {search}: phase-1 config {t.config}")
@@ -769,12 +762,10 @@ def train_phase(sampler, dev):
             if kernel == "gramv3":
                 g_dtype = "int8" if search == "gramv3-int8" else "bf16"
                 problem = K3.gramv3_problem(params, cfg, xb, passes=1, g_dtype=g_dtype)
-                run, plain = K3.gramv3_cuda, K3.gramv3_plain
                 shape = f"B={TRAIN_BATCH} D={dim} nc={cfg.num_codebooks} passes=1 M=8 R=4"
                 bound = _gramv3_bound(TRAIN_BATCH, cfg.num_codebooks, 1, 8, g_dtype)
             else:
                 problem = K2.seqbeam_problem(params, cfg, xb, M=16, R=8, passes=1)
-                run, plain = K2.seqbeam_cuda, K2.seqbeam_plain
                 shape = f"B={TRAIN_BATCH} D={dim} nc={cfg.num_codebooks} passes=1 M=16 R=8 f32 E"
                 bound = _seqbeam_bound(TRAIN_BATCH, dim, cfg.num_codebooks, 1, 16, "f32")
             chk = against_plain(problem, centers)
@@ -782,8 +773,9 @@ def train_phase(sampler, dev):
                   f"train {search}: kernel vs plain on a phase-2 batch: {chk}")
             checks.append({"where": f"training {search}", "kernel": kernel, "shape": shape,
                            "launches": n_k, **{k: chk[k] for k in CHECK_KEYS},
-                           "ms": device_ms(lambda: run(problem), 20),
-                           "plain_ms": device_ms(lambda: plain(problem), 3), **bound})
+                           "ms": device_ms(lambda: problem.kernel.cuda(problem), 20),
+                           "plain_ms": device_ms(lambda: problem.kernel.plain(problem), 3),
+                           **bound})
             entry["kernel_vs_plain"] = checks[-1]
         paths.append(entry)
         print(f"[train {search}] d{dim}/{nc_bytes}B batch {TRAIN_BATCH}: launches "
@@ -1067,37 +1059,41 @@ def _chain_ops(name: str, mb: int, d: int, cs: int) -> dict:
 
 
 @torch.no_grad()
-def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
+def rest_phase(quantizers: dict, main_frames: dict) -> dict:
     """Phase 7: seqbeam v1 and v2's pass/bound/lazy semantics through
     ``encode(search_method="seqbeam")`` on the main path's frames.  Returns
     the path entries and, per kernel ("seqbeam_v1", "seqbeam_v2"), its
     per-config entries, checks and launches."""
     from quantization_tpu_torch.core import codec
     from quantization_tpu_torch.ops import seqbeam as K2
-    from quantization_tpu_torch.ops.quality_guard import CANDIDATES, SEMANTIC_KEYS, against_plain
+    from quantization_tpu_torch.ops.ladder import LADDERS, Rung
+    from quantization_tpu_torch.ops.quality_guard import CANDIDATES, against_plain
     from quantization_tpu_torch.utils.device import device_ms
 
-    cand = {name: (passes, kw) for name, passes, kw in CANDIDATES[512]}
-    int8e, hl = ladder["seqbeam_int8e_d512"], ladder["seqbeam_hl_d512"]
-    # (name, dim, passes, encode kwargs, what it is held to)
+    cand = {r.name: r for r in CANDIDATES[512]}
+    _, int8e, hl, _ = LADDERS[(512, 8)]
+    # (dim, rung, what it is held to)
     configs = [
-        ("seqbeam_v1_d512", 512, V1_PASSES, V1, "v2"),
-        ("seqbeam_v1_d256", 256, V1_PASSES, V1, "v2"),
-        ("seqbeam_int8e_pass_d512", 512, int8e[0], dict(int8e[1], requant="pass"), "init"),
-        ("seqbeam_int8e_bound_d512", 512, *cand["seqbeam_int8e_bound_d512"], "init"),
-        ("seqbeam_int8e_bound_fi_d512", 512, *cand["seqbeam_int8e_bound_fi_d512"], "init"),
-        ("seqbeam_int8e_lazy_d512", 512, *cand["seqbeam_int8e_lazy_d512"], "eager"),
-        ("seqbeam_hl_lazy_d512", 512, hl[0], dict(hl[1], lazy_r1=True), "eager"),
+        (512, Rung("seqbeam_v1_d512", K2.SEQBEAM, V1_PASSES, V1), "v2"),
+        (256, Rung("seqbeam_v1_d256", K2.SEQBEAM, V1_PASSES, V1), "v2"),
+        (512, int8e._replace(name="seqbeam_int8e_pass_d512",
+                             beam=dict(int8e.beam, requant="pass")), "init"),
+        (512, cand["seqbeam_int8e_bound_d512"], "init"),
+        (512, cand["seqbeam_int8e_bound_fi_d512"], "init"),
+        (512, cand["seqbeam_int8e_lazy_d512"], "eager"),
+        (512, hl._replace(name="seqbeam_hl_lazy_d512", beam=dict(hl.beam, lazy_r1=True)),
+         "eager"),
     ]
     out = {"paths": [], "configs": {"seqbeam_v1": [], "seqbeam_v2": []},
            "checks": {"seqbeam_v1": [], "seqbeam_v2": []},
            "launches": {"seqbeam_v1": 0, "seqbeam_v2": 0}, "stage_lines": []}
-    for name, dim, passes, kw, twin in configs:
+    for dim, rung, twin in configs:
+        name, passes, sem, kw = rung.name, rung.passes, rung.beam, rung.kwargs()
         qq = quantizers[dim]
         nc = qq.num_codebooks
         x, sse_beam = main_frames[dim]
         centers = qq.get_centers().detach()
-        kernel = "seqbeam_v1" if kw.get("impl") == "v1" else "seqbeam_v2"
+        kernel = "seqbeam_v1" if sem.get("impl") == "v1" else "seqbeam_v2"
         counter, other = ((K2.SEQBEAM_V1_KERNEL, K2.SEQBEAM_KERNEL) if kernel == "seqbeam_v1"
                           else (K2.SEQBEAM_KERNEL, K2.SEQBEAM_V1_KERNEL))
         counter.launches = other.launches = 0
@@ -1109,7 +1105,6 @@ def rest_phase(quantizers: dict, main_frames: dict, ladder: dict) -> dict:
         out["launches"][kernel] += n
         check(codes.dtype == torch.uint8 and codes.shape == (TIME_B, qq.config.bytes_per_frame),
               f"{name}: codes {codes.dtype} {tuple(codes.shape)}")
-        sem = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
         problem = K2.seqbeam_problem(qq.params, qq.config, x, passes=passes, **sem)
         indexes = codec.unpack_indexes(codes, qq.codebook_size, nc)
         chk = against_plain(problem, centers, got=indexes)
@@ -1710,16 +1705,12 @@ def parallel_phase(q, x, sampler, dev) -> dict:
     import torch.distributed as dist
 
     from quantization_tpu_torch import QuantizerTrainer
-    from quantization_tpu_torch.ops import decode as K1
-    from quantization_tpu_torch.ops import gramv3 as K3
-    from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.parallel import (decode_sharded, encode_sharded,
                                                  init_distributed, make_mesh)
     from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
 
     t_phase = time.perf_counter()
-    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
-                "gramv3": K3.GRAMV3_KERNEL}
+    counters = launch_counters()
     n = PARALLEL_TRAIN["phase_one_iters"] + PARALLEL_TRAIN["phase_two_iters"] + 1
     xs = sampler(torch.Generator().manual_seed(11), n * TRAIN_BATCH).reshape(
         n, TRAIN_BATCH, PARALLEL_TRAIN["dim"])
@@ -1878,9 +1869,6 @@ def _parallel_rank(rank: int, world: int, port: int, inputs: str, device: str,
     try:
         from quantization_tpu_torch import QuantizerTrainer, load_quantizer
         from quantization_tpu_torch.core import codec
-        from quantization_tpu_torch.ops import decode as K1
-        from quantization_tpu_torch.ops import gramv3 as K3
-        from quantization_tpu_torch.ops import seqbeam as K2
         from quantization_tpu_torch.parallel import (decode_sharded, encode_sharded,
                                                      gather_params, init_distributed,
                                                      make_mesh)
@@ -1892,8 +1880,7 @@ def _parallel_rank(rank: int, world: int, port: int, inputs: str, device: str,
         data = torch.load(inputs)
         q = load_quantizer(data["quantizer"], device=dev)
         x, xs = data["x"].to(dev), data["xs"].to(dev)
-        counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
-                    "gramv3": K3.GRAMV3_KERNEL}
+        counters = launch_counters()
         out = {}
         mesh = make_mesh(num_data=world, device=dev)
         b = xs.shape[1] // world
@@ -1952,12 +1939,8 @@ def parity_phase(smi: str) -> dict:
     and the reference's recorded runs (both must exist).  Returns the
     ``paths`` entry and the launches of the run and its eval."""
     from quantization_tpu_torch.experiments import head_to_head as h2h
-    from quantization_tpu_torch.ops import decode as K1
-    from quantization_tpu_torch.ops import gramv3 as K3
-    from quantization_tpu_torch.ops import seqbeam as K2
 
-    counters = {"decode": K1.DECODE_KERNEL, "seqbeam_v2": K2.SEQBEAM_KERNEL,
-                "gramv3": K3.GRAMV3_KERNEL}
+    counters = launch_counters()
     for c in counters.values():
         c.launches = 0
     result, _ = h2h.run(*PARITY, device="cuda")

@@ -6,9 +6,7 @@ PyTorch counterpart of ``quantization_tpu/core/codec.py``
 
 from __future__ import annotations
 
-import collections
 import re
-import threading
 
 import torch
 
@@ -47,104 +45,13 @@ def unpack_indexes(
     return expanded.reshape(*packed.shape[:-1], num_codebooks)
 
 
-# the rungs auto has taken, by name, one count an encode call ("beam" where
-# it ran the exact beam): how often each rung engages in this process
-AUTO_RUNGS: collections.Counter = collections.Counter()
-_AUTO_RUNGS_LOCK = threading.Lock()
-# auto's Gram-table rung (K3, ops/gramv3.py) by (dim, num_codebooks), put
-# ahead of the seqbeam rungs where the card's guard rows hold it within the
-# bar and it encodes faster end to end: the beam of the seqbeam rung beside
-# it (M=8, R=4, altparity, as many passes) with the Gram table in place of
-# the per-candidate error.  d256 / 4 B has none: its K2 rung runs 2 passes
-_GRAMV3_RUNGS = {
-    (512, 8): ("gramv3_bf16_alt3_d512!", 3,
-               dict(M=8, R=4, pool_mask="altparity", g_dtype="bf16")),
-    (1280, 8): ("gramv3_bf16_alt3_d1280!", 3,
-                dict(M=8, R=4, pool_mask="altparity", g_dtype="bf16")),
-}
-# the fewest frames a call takes the Gram-table rung for: below them the
-# seqbeam rung encodes as fast or faster end to end on the H100 (whole
-# calls, experiments/rung_times.py; d512: K2 faster up to 1,024 frames, K3
-# from 1,536; d1280: even at 512, K3 from 768)
-GRAMV3_MIN_FRAMES = {(512, 8): 1536, (1280, 8): 768}
-
-
-def _auto_candidates(config: QuantizerConfig):
-    """The auto search's candidates in throughput order, each tied to its
-    smoke-gate / quality-guard name (a trailing "!" marks candidates that
-    also REQUIRE a measured quality entry): a Gram-table rung first where
-    one is measured for ``(dim, num_codebooks)`` (:data:`_GRAMV3_RUNGS`),
-    then the seqbeam rungs, the JAX package's ladder
-    (``quantization_tpu/core/codec.py:118-145``) up to dim 1024 and d1280 /
-    8 B's rungs of its own, measured on its own quantizer.  No other
-    configuration above dim 1024 has a measured rung: it runs the exact
-    beam."""
-    gram = _GRAMV3_RUNGS.get((config.dim, config.num_codebooks))
-    return ([gram] if gram else []) + _seqbeam_candidates(config)
-
-
-def _seqbeam_candidates(config: QuantizerConfig):
-    if config.dim == 256 and config.num_codebooks == 4:
-        return [
-            ("seqbeam_hl_d256", 2,
-             dict(M=8, R=4, pool_mask="altparity", block_b=256,
-                  interleave=2, reorder="select", e_dtype="bf16")),
-        ]
-    if config.dim == 1280 and config.num_codebooks == 8:
-        return [
-            ("seqbeam_int8e_d1280!", 3,
-             dict(M=8, R=4, pool_mask="altparity", block_b=512,
-                  interleave=2, reorder="select", e_dtype="int8", zip_skew=1)),
-            ("seqbeam_hl_d1280", 3,
-             dict(M=8, R=4, pool_mask="altparity", block_b=256,
-                  interleave=2, reorder="select", e_dtype="bf16")),
-        ]
-    from ..ops.seqbeam import NARROW_DIM
-
-    if config.dim > NARROW_DIM:
-        return []
-    return [
-        ("seqbeam_int8e_d512!", 3,
-         dict(M=8, R=4, pool_mask="altparity", block_b=512,
-              interleave=2, reorder="select", e_dtype="int8", zip_skew=1)),
-        ("seqbeam_hl_d512", 3,
-         dict(M=8, R=4, pool_mask="altparity", block_b=256,
-              interleave=2, reorder="select", e_dtype="bf16")),
-        ("seqbeam_m16_d512", 2,
-         dict(M=16, R=4, block_b=256, interleave=2,
-              reorder="select", e_dtype="bf16")),
-    ]
-
-
 def auto_choice(config: QuantizerConfig, x: torch.Tensor, refine_indexes_iters: int):
-    """(name, passes, kwargs) of the kernel config that ``"auto"`` runs on
-    the (B, dim) frames ``x``, or None for the exact beam; a name that
-    starts with ``gramv3_`` is the Gram-table kernel's, any other seqbeam's.
+    """(name, passes, kwargs) of the rung that ``"auto"`` runs on the (B,
+    dim) frames ``x`` (:func:`ops.ladder.pick`), or None for the exact beam."""
+    from ..ops import ladder
 
-    The kernel is picked only for a CUDA tensor, a supported config and at
-    least 3 refinement iterations, and only a candidate with a passing smoke
-    entry in the port's ``ops/verified.json`` whose combined margin (train
-    ratio x worst-seed encode delta, ``ops/quality.json``) is within the 1%
-    bar; the Gram-table rung only for at least :data:`GRAMV3_MIN_FRAMES`
-    frames.  Off the GPU auto is the beam, as the JAX package's auto is off
-    the TPU."""
-    from ..ops.seqbeam import SEQBEAM_SUPPORTED
-    from ..ops.verify import combined_margin_pct, kernel_verified
-
-    if not (SEQBEAM_SUPPORTED(config) and x.is_cuda and refine_indexes_iters >= 3):
-        return None
-    few = x.shape[0] < GRAMV3_MIN_FRAMES.get((config.dim, config.num_codebooks), 0)
-    for name, iters, tuned in _auto_candidates(config):
-        if few and name.startswith("gramv3_"):
-            continue
-        need_quality = name.endswith("!")
-        name = name.rstrip("!")
-        margin = combined_margin_pct(name)
-        if margin is None and need_quality:
-            continue
-        if kernel_verified(name) and (margin is None or margin <= 1.0):
-            return name, iters, tuned
-    return None
+    rung = ladder.pick(config, x, refine_indexes_iters)
+    return None if rung is None else (rung.name, rung.passes, rung.kwargs())
 
 
 def encode(
@@ -171,33 +78,32 @@ def encode(
         codebook_size 256, at most 8 codebooks; ``refine_indexes_iters``
         counts beam sweeps and ``g_dtype="int8"`` selects the int8 table;
       * "auto": the fastest measured config within the quality bar on the
-        GPU (see :func:`auto_choice`: the gramv3 or the seqbeam kernel),
-        else "beam".
+        GPU (see :func:`ops.ladder.pick`: a gramv3 or a seqbeam rung), else
+        "beam"; ``search_kwargs`` override the rung's.
     """
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, config.dim).float()
+    x2 = x.reshape(-1, config.dim)
+    rung = None
     if search_method == "auto":
+        from ..ops import ladder
+
         with span("codec.choose") as sp:
-            chosen = auto_choice(config, x2, refine_indexes_iters)
-            rung = "beam" if chosen is None else chosen[0]
-            sp.set(rung=rung)
-        with _AUTO_RUNGS_LOCK:
-            AUTO_RUNGS[rung] += 1
-        if chosen is not None:
-            name, refine_indexes_iters, tuned = chosen
-            search_method = "gramv3" if name.startswith("gramv3_") else "seqbeam"
-            search_kwargs = {**tuned, **search_kwargs}
-        elif search_kwargs:
+            rung = ladder.pick(config, x2, refine_indexes_iters)
+            sp.set(rung="beam" if rung is None else rung.name)
+        if rung is None and search_kwargs:
             raise ValueError(
                 f"search kwargs {sorted(search_kwargs)} require a search kernel "
                 "(CUDA tensor, codebook_size=256, dim a multiple of 128); pass "
                 "search_method='seqbeam' or 'gramv3' explicitly or drop the kwargs"
             )
-        else:
-            search_method = "beam"
+        search_method = "beam"
     with span("codec.search"):
-        indexes = _search_indexes(params, config, x2, refine_indexes_iters, search_method,
-                                  search_kwargs)
+        if rung is not None:
+            indexes = rung.kernel.encode(params, config, x2, passes=rung.passes,
+                                         **{**rung.kwargs(), **search_kwargs})
+        else:
+            indexes = _search_indexes(params, config, x2, refine_indexes_iters, search_method,
+                                      search_kwargs)
     if as_bytes:
         with span("codec.pack"):
             indexes = pack_indexes(indexes, config.codebook_size)
@@ -207,8 +113,8 @@ def encode(
 def _search_indexes(params: QuantizerParams, config: QuantizerConfig, x2: torch.Tensor,
                     refine_indexes_iters: int, search_method: str,
                     search_kwargs: dict) -> torch.Tensor:
-    """(B, nc) int32 indexes of (B, dim) f32 frames by ``search_method``
-    (any of :func:`encode`'s but "auto")."""
+    """(B, nc) int32 indexes of (B, dim) frames by ``search_method`` (any
+    of :func:`encode`'s but "auto"), cast to f32 here or by a kernel's problem."""
     if search_method == "gramv3":
         from ..ops.gramv3 import gramv3_encode_indexes
 
@@ -220,6 +126,7 @@ def _search_indexes(params: QuantizerParams, config: QuantizerConfig, x2: torch.
 
         init = None
         if warm:
+            x2 = x2.float()
             logits = search.compute_logits(params, config, x2)
             init = search.refine_indexes_cd(
                 scaled_centers(params, config.scale_speed),
@@ -234,7 +141,7 @@ def _search_indexes(params: QuantizerParams, config: QuantizerConfig, x2: torch.
     if search_kwargs:
         raise ValueError(f"search kwargs {sorted(search_kwargs)} need the seqbeam kernel")
     return search.compute_indexes(
-        params, config, x2, refine_indexes_iters, search=search_method
+        params, config, x2.float(), refine_indexes_iters, search=search_method
     )
 
 

@@ -96,16 +96,16 @@ def precompute_split(qq, x: torch.Tensor, g_dtype: str) -> dict:
     ``x`` of quantizer ``qq``: the logits-argmax init, the Gram table, XC,
     ``ss0`` and the table's layout, and the whole."""
     from quantization_tpu_torch.core.types import scaled_centers
-    from quantization_tpu_torch.ops.seqbeam import init_indexes_from_logits
+    from quantization_tpu_torch.ops.beam_common import initial_indexes
 
     cfg, params = qq.config, qq.params
     nc, D = cfg.num_codebooks, cfg.dim
     centers = scaled_centers(params, cfg.scale_speed).detach().float()
     ctab = centers.reshape(nc * cfg.codebook_size, D).to(torch.bfloat16)
-    idx0 = init_indexes_from_logits(params, cfg, x)
+    idx0 = initial_indexes(params, cfg, x)
     gtil, _ = K3.gram_table(ctab, nc, g_dtype)
     return {
-        "init_ms": device_ms(lambda: init_indexes_from_logits(params, cfg, x), 5),
+        "init_ms": device_ms(lambda: initial_indexes(params, cfg, x), 5),
         "gram_table_ms": device_ms(lambda: K3.gram_table(ctab, nc, g_dtype), 5),
         "xc_ms": device_ms(lambda: K3.cross_terms(x, ctab), 5),
         "ss0_ms": device_ms(lambda: K3.root_scores(centers, idx0, x), 5),

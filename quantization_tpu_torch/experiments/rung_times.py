@@ -27,9 +27,10 @@ import time
 
 import torch
 
-from quantization_tpu_torch.core.codec import _auto_candidates
 from quantization_tpu_torch.data.synthetic import make_mlp_sampler
+from quantization_tpu_torch.ops import ladder
 from quantization_tpu_torch.ops.quality_guard import GRAMV3_CANDIDATES, TRAINED
+from quantization_tpu_torch.ops.seqbeam import SEQBEAM
 from quantization_tpu_torch.utils.device import nvidia_smi_line
 from quantization_tpu_torch.utils.serialization import load_quantizer
 
@@ -37,13 +38,12 @@ SIZES = (8192, 512)
 
 
 def rungs(config, words=None) -> list:
-    """(name, search_method, passes, kwargs) of the rungs timed for
-    ``config``: auto's first seqbeam rung, then the gramv3 candidates; only
-    those whose names hold one of ``words``, where given."""
-    name, passes, kw = next(r for r in _auto_candidates(config) if r[0].startswith("seqbeam"))
-    out = [(name.rstrip("!"), "seqbeam", passes, kw)] + [
-        (n, "gramv3", p, k) for n, p, k in GRAMV3_CANDIDATES[config.dim]]
-    return [r for r in out if not words or any(w in r[0] for w in words)]
+    """The rung records timed for ``config``: auto's first seqbeam rung,
+    then the gramv3 candidates; only those whose names hold one of
+    ``words``, where given."""
+    out = [next(r for r in ladder.rungs(config) if r.kernel is SEQBEAM),
+           *GRAMV3_CANDIDATES[config.dim]]
+    return [r for r in out if not words or any(w in r.name for w in words)]
 
 
 def call_ms(encode, seconds: float) -> list:
@@ -66,23 +66,25 @@ def time_dim(dim: int, sizes, words, rounds: int, seconds: float) -> list:
     for n in sizes:
         x = sampler(torch.Generator().manual_seed(11), n)
         calls = {}
-        for name, method, passes, kw in rungs(q.config, words):
-            def encode(method=method, passes=passes, kw=kw):
-                return q.encode(x, search_method=method, refine_indexes_iters=passes, **kw)
+        for rung in rungs(q.config, words):
+            def encode(rung=rung):
+                return q.encode(x, search_method=rung.kernel.name,
+                                refine_indexes_iters=rung.passes, **rung.kwargs())
             for _ in range(3):  # builds, tables, allocator
                 encode()
-            calls[name] = (encode, [])
+            calls[rung.name] = (encode, [])
         torch.cuda.synchronize()
         for _ in range(rounds):
             for name, (encode, got) in calls.items():
                 got.append(call_ms(encode, seconds))
-        for (name, method, passes, kw), (_, got) in zip(rungs(q.config, words), calls.values()):
-            entry = {"dim": dim, "frames": n, "rung": name, "passes": passes,
+        for rung in rungs(q.config, words):
+            got = calls[rung.name][1]
+            entry = {"dim": dim, "frames": n, "rung": rung.name, "passes": rung.passes,
                      "median_ms": statistics.median(v for r in got for v in r),
                      "round_medians_ms": [statistics.median(r) for r in got],
                      "calls": sum(len(r) for r in got)}
             results.append(entry)
-            print(f"[rung d{dim} B={n}] {name:24s} {entry['median_ms']:.4f} ms a call "
+            print(f"[rung d{dim} B={n}] {rung.name:24s} {entry['median_ms']:.4f} ms a call "
                   f"(rounds {', '.join(f'{v:.4f}' for v in entry['round_medians_ms'])}; "
                   f"{entry['calls']} calls)", flush=True)
     return results

@@ -51,15 +51,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
+from ..core.types import QuantizerConfig, QuantizerParams
 from ..utils.device import dispatch
 from ..utils.spans import span
+from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, TablesCache, as_float,
+                          initial_indexes, on_one_device, packed_keys, pool_bits)
 from .cuda_build import CFunction, CudaKernel
-from .seqbeam import (LANE_BITS, LANE_MASK, TablesCache, _as_float, _keys,
-                      init_indexes_from_logits, pool_bits)
 
 G_DTYPES = {"bf16": 0, "int8": 1}
-MAX_PASSES = 64
 CS = 256
 
 _LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
@@ -87,7 +86,7 @@ class Gramv3Problem:
     ``ss0`` in scale-divided units for int8), the table laid out per target
     codebook as (nc, nc*cs, cs) bf16 or int8 (``gt[t, s*cs + i, j] =
     Gt[s*cs + i, t*cs + j]``), the beam shape and one pool bit word per pass
-    (``ops.seqbeam.pool_bits``)."""
+    (``ops.beam_common.pool_bits``)."""
 
     x: torch.Tensor
     xc: torch.Tensor
@@ -99,6 +98,10 @@ class Gramv3Problem:
     passes: int
     masks: Tuple[int, ...]
     g_dtype: str
+
+    @property
+    def kernel(self) -> SearchKernel:
+        return GRAMV3
 
 
 def _pass_modes(masks: Tuple[int, ...], nc: int):
@@ -122,31 +125,34 @@ class Gramv3Tables:
     """What a problem takes from the parameters alone, for one ``g_dtype``:
     the (nc, cs, D) f32 scaled centers (the root scores read them), their
     (K, D) bf16 copy ``ctab`` (the cross terms' operand), the laid-out
-    table ``gt`` and, for int8, ``inv = 1 / scale`` (else None)."""
+    table ``gt`` and, for int8, ``inv = 1 / scale`` (else None), checked
+    here (TypeError), once a parameter version, and not at a launch."""
 
     centers: torch.Tensor
     ctab: torch.Tensor
     gt: torch.Tensor
     inv: Optional[torch.Tensor]
 
+    def __post_init__(self):
+        if (self.centers.dtype, self.ctab.dtype, self.gt.dtype) != (
+                torch.float32, torch.bfloat16, torch.bfloat16 if self.inv is None else torch.int8):
+            raise TypeError("gramv3 tables must hold f32 centers, bf16 codewords and a bf16 "
+                            "table, or an int8 one with its inverse scale")
+        if not all(t.is_contiguous() for t in (self.centers, self.ctab, self.gt)):
+            raise TypeError("gramv3 tables must be contiguous")
+
 
 def gramv3_tables(centers: torch.Tensor, g_dtype: str = "bf16") -> Gramv3Tables:
     """The tables of (nc, cs, D) f32 scaled centers."""
     nc, cs, D = centers.shape
-    centers = centers.detach().float()
+    centers = centers.detach().float().contiguous()
     ctab = centers.reshape(nc * cs, D).to(torch.bfloat16)
     gtil, inv = gram_table(ctab, nc, g_dtype)
     return Gramv3Tables(centers, ctab, table_layout(gtil, nc), inv)
 
 
-@torch.no_grad()  # tables with a graph would keep the parameters alive
-def _build_tables(params: QuantizerParams, scale_speed: float, variant) -> Gramv3Tables:
-    with span("gramv3.tables"):
-        return gramv3_tables(scaled_centers(params, scale_speed), *variant)
-
-
 # the variant: (g_dtype,); an entry at d1280 is about 24 MB
-TABLES_CACHE = TablesCache(8, _build_tables)
+TABLES_CACHE = TablesCache(8, "gramv3", gramv3_tables)
 
 
 @torch.no_grad()
@@ -175,26 +181,20 @@ def gramv3_problem(
         raise ValueError(f"gramv3 needs M in (8, 16, 32, 64) and M*R <= 256, got M={M}, R={R}")
     if not 0 <= passes <= MAX_PASSES:
         raise ValueError(f"passes must be in [0, {MAX_PASSES}], got {passes}")
-    nc, cs, D = config.num_codebooks, config.codebook_size, config.dim
+    nc, D = config.num_codebooks, config.dim
     x = x.float().contiguous()
     if x.ndim != 2 or x.shape[1] != D:
         raise ValueError(f"expected (B, {D}) frames, got {tuple(x.shape)}")
     masks = pool_bits(pool_mask, nc, passes)
     tables = TABLES_CACHE.get(params, config.scale_speed, g_dtype)
     with span("gramv3.init"):
-        if init_indexes is None:
-            idx0 = init_indexes_from_logits(params, config, x)
-        else:
-            idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
-            if idx0.shape != (x.shape[0], nc) or bool(((idx0 < 0) | (idx0 >= cs)).any()):
-                raise ValueError(
-                    "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
+        idx0 = initial_indexes(params, config, x, init_indexes)
         xc = cross_terms(x, tables.ctab)
         ss0 = root_scores(tables.centers, idx0, x)
         if tables.inv is not None:
             xc, ss0 = xc * tables.inv, ss0 * tables.inv
-    return Gramv3Problem(x, xc.contiguous(), idx0.contiguous(), ss0.contiguous(), tables.gt,
-                         M, R, passes, masks, g_dtype)
+    return Gramv3Problem(x, xc.contiguous(), idx0, ss0.contiguous(), tables.gt, M, R, passes,
+                         masks, g_dtype)
 
 
 def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -297,19 +297,19 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
         # ---- step 0: fan out from the root to its M best children
         Q0 = 2.0 * (_sg(gt[0], sol) - xc[:, 0:CS])  # (B, cs)
         S0 = (ss_root - Q0[fr, sol[:, 0]])[:, None] + Q0
-        top = torch.topk(_keys(S0, lanes), M, dim=-1, largest=False, sorted=True).values
-        ss = _as_float(top & ~LANE_MASK)  # (B, M)
+        top = torch.topk(packed_keys(S0, lanes), M, dim=-1, largest=False, sorted=True).values
+        ss = as_float(top & ~LANE_MASK)  # (B, M)
         ch = sol[:, None, :].repeat(1, M, 1)  # (B, M, nc)
         ch[:, :, 0] = (top & LANE_MASK).long()
         # ---- steps 1..nc-1
         for t in range(1, nc):
             Q = 2.0 * (_sg(gt[t], ch) - xc[:, None, t * CS:(t + 1) * CS])  # (B, M, cs)
             Qi = torch.gather(Q, 2, ch[:, :, t:t + 1])[..., 0]
-            keys = _keys((ss - Qi)[..., None] + Q, lanes)
+            keys = packed_keys((ss - Qi)[..., None] + Q, lanes)
             if not (problem.masks[p] >> t) & 1:
                 # R1: each parent keeps its best child in place
                 w = keys.min(dim=-1).values
-                ss = _as_float(w & ~LANE_MASK)
+                ss = as_float(w & ~LANE_MASK)
                 ch[:, :, t] = (w & LANE_MASK).long()
                 continue
             rk = torch.topk(keys, R, dim=-1, largest=False, sorted=True).values
@@ -318,18 +318,18 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
             parent = ((w >> LANE_BITS) & (M - 1)).long()
             ch = torch.gather(ch, 1, parent[..., None].expand(B, M, nc))
             ch[:, :, t] = (w & LANE_MASK).long()
-            ss = _as_float(w & ~(mbits | LANE_MASK))
+            ss = as_float(w & ~(mbits | LANE_MASK))
         # ---- pass end: the smallest packed (ss, m) becomes the root
-        wk = _keys(ss, slots.to(torch.int32)).min(dim=-1).values
+        wk = packed_keys(ss, slots.to(torch.int32)).min(dim=-1).values
         sol = ch[fr, (wk & LANE_MASK).long()]
-        ss_root = _as_float(wk & ~LANE_MASK)
+        ss_root = as_float(wk & ~LANE_MASK)
     return sol.to(torch.int32)
 
 
 def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
-    """Check ``problem``'s tensors and launch ``kernel`` on them with the
-    ``extra`` arguments before the stream (the ``gramv3.launch`` span);
-    returns the (B, nc) indexes."""
+    """Check the call's tensors of ``problem`` and launch ``kernel`` on them
+    and its table (checked at its build) with the ``extra`` arguments before
+    the stream (the ``gramv3.launch`` span); returns the (B, nc) indexes."""
     with span("gramv3.launch", g_dtype=problem.g_dtype):
         xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
         nc = gt.shape[0]
@@ -337,19 +337,14 @@ def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
         B = xc.shape[0]
         if not xc.is_cuda:
             raise ValueError(f"{kernel.symbol} needs CUDA tensors")
-        want_gt = torch.int8 if problem.g_dtype == "int8" else torch.bfloat16
         if (xc.dtype != torch.float32 or xc.shape != (B, K) or idx0.shape != (B, nc)
-                or ss0.shape != (B,) or ss0.dtype != torch.float32
-                or gt.shape != (nc, K, CS) or gt.dtype != want_gt):
-            raise ValueError(
-                f"gramv3 inputs must be xc (B, {K}) f32, idx0 (B, {nc}), ss0 (B,) f32 and the "
-                f"table ({nc}, {K}, {CS}) {want_gt}")
+                or idx0.dtype != torch.int32 or ss0.shape != (B,) or ss0.dtype != torch.float32
+                or not all(t.is_contiguous() for t in (xc, idx0, ss0))):
+            raise ValueError(f"gramv3 inputs must be contiguous xc (B, {K}) f32, idx0 (B, {nc}) "
+                             "int32 and ss0 (B,) f32")
         if len(problem.masks) != problem.passes:
             raise ValueError(f"expected {problem.passes} pool masks, got {len(problem.masks)}")
-        xc, ss0, gt = xc.contiguous(), ss0.contiguous(), gt.contiguous()
-        idx0 = idx0.to(torch.int32).contiguous()
-        if any(t.device != xc.device for t in (idx0, ss0, gt)):
-            raise ValueError("gramv3_cuda needs all tensors on one device")
+        on_one_device("gramv3_cuda", xc, idx0, ss0, gt)
         out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
         words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
         kernel(
@@ -427,3 +422,7 @@ def gramv3_encode_indexes(
         raise ValueError(
             f"loop='fori' needs a per-pass-uniform pool schedule; got {pool_mask!r}")
     return dispatch("gramv3", x.device, gramv3_cuda, gramv3_plain, problem)
+
+
+GRAMV3 = SearchKernel("gramv3", GRAMV3_SUPPORTED, gramv3_problem, gramv3_cuda, gramv3_plain,
+                      GRAMV3_KERNEL, TABLES_CACHE, lambda *a, **kw: gramv3_encode_indexes(*a, **kw))

@@ -1,6 +1,6 @@
 """Write the GPU tables behind ``search_method="auto"``.
 
-For each kernel configuration on the auto ladder (``core.codec``), and for
+For each kernel configuration on the auto ladder (``ops.ladder``), and for
 the promotion candidates in :data:`CANDIDATES` that auto does not run, on
 the committed trained quantizers and 8,192 in-distribution frames per eval
 seed (7, 8, 9) from the shipped MLP sampler of their dim (key 42; d1280's
@@ -28,19 +28,19 @@ import argparse
 import json
 import pathlib
 import time
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
 from ..core import search
-from ..core.codec import _auto_candidates, decode_indexes
+from ..core.codec import decode_indexes
 from ..data.synthetic import make_mlp_sampler
 from ..utils.device import device_record
 from ..utils.serialization import load_quantizer
-from . import cuda_build, verify
-from .gramv3 import GRAMV3_KERNEL, Gramv3Problem, gramv3_cuda, gramv3_plain, gramv3_problem
-from .seqbeam import (SEQBEAM_KERNEL, SeqbeamProblem, seqbeam_cuda, seqbeam_plain,
-                      seqbeam_problem)
+from . import cuda_build, ladder, verify
+from .gramv3 import GRAMV3
+from .ladder import Rung
+from .seqbeam import SEQBEAM
 
 KEYS = (7, 8, 9)
 FRAMES = 8192
@@ -57,35 +57,26 @@ MIN_AGREEMENT = 0.995
 MAX_SSE_REL = 1e-3
 # Promotion candidates measured beside the ladder, as the JAX package's
 # guard lists them (experiments/quality_guard.py:55-87): each needs its own
-# measured rows before it may join the ladder.  (name, passes, kwargs).
-_INT8E_D512 = dict(M=8, R=4, pool_mask="altparity", block_b=512, interleave=2,
-                   reorder="select", e_dtype="int8")
+# measured rows before it may join the ladder.
+_INT8E = dict(M=8, R=4, pool_mask="altparity", e_dtype="int8")
+_KNOBS = dict(block_b=512, interleave=2, reorder="select")
 CANDIDATES = {
-    512: [
-        ("seqbeam_int8e_fi_d512", 3, dict(_INT8E_D512, init_precision="default")),
-        ("seqbeam_int8e_bound_d512", 3, dict(_INT8E_D512, requant="bound")),
-        ("seqbeam_int8e_bound_fi_d512", 3,
-         dict(_INT8E_D512, requant="bound", init_precision="default")),
-        ("seqbeam_int8e_lazy_d512", 3, dict(_INT8E_D512, zip_skew=1, lazy_r1=True)),
-    ],
-    256: [
-        ("seqbeam_int8e_d256", 2, dict(M=8, R=4, pool_mask="altparity", block_b=256,
-                                       interleave=2, reorder="select", e_dtype="int8")),
-    ],
+    512: [Rung(f"seqbeam_int8e_{tag}_d512", SEQBEAM, 3, dict(_INT8E, **beam), dict(_KNOBS, **knobs))
+          for tag, beam, knobs in (
+              ("fi", dict(init_precision="default"), {}), ("bound", dict(requant="bound"), {}),
+              ("bound_fi", dict(requant="bound", init_precision="default"), {}),
+              ("lazy", dict(lazy_r1=True), dict(zip_skew=1)))],
+    256: [Rung("seqbeam_int8e_d256", SEQBEAM, 2, _INT8E, dict(_KNOBS, block_b=256))],
     1280: [],
 }
 # the Gram-table beam (K3) at auto's beam shape, M=8 and R=4: each table
 # dtype, all-pool and altparity, 3-5 passes, named gramv3_<g>_<pool><passes>_d<dim>
 GRAMV3_CANDIDATES = {
-    dim: [(f"gramv3_{g}_{'alt' if mask else 'pool'}{passes}_d{dim}", passes,
-           dict(M=8, R=4, pool_mask=mask, g_dtype=g))
+    dim: [Rung(f"gramv3_{g}_{'alt' if mask else 'pool'}{passes}_d{dim}", GRAMV3, passes,
+               dict(M=8, R=4, pool_mask=mask, g_dtype=g))
           for g in ("bf16", "int8") for mask in ("altparity", None) for passes in (3, 4, 5)]
     for dim in TRAINED
 }
-# the seqbeam_problem and gramv3_problem arguments; the rest are the TPU's
-# scheduling knobs
-SEMANTIC_KEYS = ("M", "R", "pool_mask", "e_dtype", "init_precision", "impl", "requant",
-                 "lazy_r1", "g_dtype")
 
 
 def eval_frames(dim: int, device) -> dict:
@@ -100,21 +91,18 @@ def sse(centers: torch.Tensor, indexes: torch.Tensor, x: torch.Tensor) -> float:
 
 
 @torch.no_grad()
-def against_plain(problem: Union[SeqbeamProblem, Gramv3Problem], centers: torch.Tensor,
-                  got: Optional[torch.Tensor] = None) -> dict:
+def against_plain(problem, centers: torch.Tensor, got: Optional[torch.Tensor] = None) -> dict:
     """Hold a search kernel's (B, nc) indexes on ``problem`` (``got``, else
     a new launch) against its plain version on the same inputs, with the f32
-    ``centers`` (nc, cs, D) scoring both: seqbeam for a
-    :class:`SeqbeamProblem`, gramv3 for a :class:`Gramv3Problem`.  Returns
+    ``centers`` (nc, cs, D) scoring both: the problem's own kernel
+    (``problem.kernel``, K2's or K3's descriptor).  Returns
     the share of equal indexes, the summed squared errors and their relative
     difference, the largest per-frame difference of squared error
     (``max_abs_err``), and ``ok``: agreement >= MIN_AGREEMENT and |relative
     difference| <= MAX_SSE_REL."""
-    kernel, plain_fn = ((gramv3_cuda, gramv3_plain) if isinstance(problem, Gramv3Problem)
-                        else (seqbeam_cuda, seqbeam_plain))
     if got is None:
-        got = kernel(problem)
-    plain = plain_fn(problem)
+        got = problem.kernel.cuda(problem)
+    plain = problem.kernel.plain(problem)
     x = problem.x
     err = ((decode_indexes(centers, got) - x) ** 2).sum(-1)
     err_plain = ((decode_indexes(centers, plain) - x) ** 2).sum(-1)
@@ -140,19 +128,15 @@ def guard_dim(dim: int, device) -> tuple:
     beam5 = {k: sse(centers, search.compute_indexes(params, config, x, 5, "beam"), x)
              / denom[k] for k, x in xs.items()}
     smoke, quality = {}, {}
-    for name, passes, kw in _auto_candidates(config) + CANDIDATES[dim] + GRAMV3_CANDIDATES[dim]:
-        name = name.rstrip("!")
+    for rung in ladder.rungs(config) + tuple(CANDIDATES[dim] + GRAMV3_CANDIDATES[dim]):
+        name, kernel = rung.name, rung.kernel
         if name in smoke:  # a ladder's rung among the candidates
             continue
-        kw = {k: v for k, v in kw.items() if k in SEMANTIC_KEYS}
-        gram = name.startswith("gramv3_")
-        make, run, counter = ((gramv3_problem, gramv3_cuda, GRAMV3_KERNEL) if gram
-                              else (seqbeam_problem, seqbeam_cuda, SEQBEAM_KERNEL))
-        t0, launches = time.perf_counter(), counter.launches
+        t0, launches = time.perf_counter(), kernel.entry.launches
         deltas = {}
         for k, x in xs.items():
-            problem = make(params, config, x, passes=passes, **kw)
-            idx = run(problem)
+            problem = kernel.problem(params, config, x, passes=rung.passes, **rung.beam)
+            idx = kernel.cuda(problem)
             e = sse(centers, idx, x)
             deltas[str(k)] = round(100.0 * (e / denom[k] / beam5[k] - 1.0), 4)
             if k == KEYS[0]:
@@ -163,7 +147,7 @@ def guard_dim(dim: int, device) -> tuple:
                     "detail": (f"err {e_init:.1f} -> {e:.1f} (plain {chk['sse_plain']:.1f}), "
                                f"index agreement with plain {chk['index_agreement']:.5f}"),
                 }
-        smoke[name]["launches"] = counter.launches - launches
+        smoke[name]["launches"] = kernel.entry.launches - launches
         smoke[name]["elapsed_s"] = round(time.perf_counter() - t0, 2)
         quality[name] = {
             "dim": dim, "bpf": config.bytes_per_frame, "frames_per_key": FRAMES,

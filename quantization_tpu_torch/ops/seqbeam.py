@@ -53,28 +53,23 @@ except that a combination the TPU wrapper asserts against raises ValueError
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
-import functools
-import threading
-import weakref
 from typing import Optional, Tuple
 
 import torch
 
-from ..core import search as _search
-from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
+from ..core.types import QuantizerConfig, QuantizerParams
 from ..utils.device import dispatch
 from ..utils.spans import span
 from . import cuda_build
+from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, TablesCache, as_float,
+                          initial_indexes, normalize_pool_mask, on_one_device, packed_keys,
+                          pool_bits)
 from .cuda_build import CudaKernel
 
-LANE_BITS = 8
-LANE_MASK = (1 << LANE_BITS) - 1
 E_DTYPES = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16), "int8": (2, torch.int8)}
 REQUANTS = {"step": 0, "pass": 1, "bound": 2}
-MAX_PASSES = 64
 SM_SHARED_BYTES = 233472  # an H100 SM's shared memory, blocks' 1 KB reserves included
 
 # the spill layout's arguments: scratch slots, their claim flags, their count
@@ -108,8 +103,6 @@ STAGES = ("root", "load_srow", "rescore", "selection", "pool", "reorder", "exten
 LAYOUT = cuda_build.CFunction("seqbeam", "qtt_seqbeam_layout",
                               [ctypes.c_int] * 6 + [ctypes.c_void_p])
 LAYOUT_KINDS = ("full", "compact", "spill")
-# the kernels' launches (v1, v2 and the stage-timed builds) by layout kind
-LAYOUT_LAUNCHES = dict.fromkeys(LAYOUT_KINDS, 0)
 # the widest dim every beam runs at on the card; above it, up to 1280, the
 # kernel's wide instantiations run auto's rungs only (see _check_wide)
 NARROW_DIM = 1024
@@ -127,50 +120,11 @@ def SEQBEAM_SUPPORTED(config: QuantizerConfig) -> bool:
     )
 
 
-def _normalize_pool_mask(pool_mask, nc: int, passes: int):
-    """Normalize a pool/R1 step schedule to a per-pass tuple of
-    per-codebook bool tuples.  ``None`` passes through (all-pool).  Accepts
-    named schedules ("altparity" — pool even codebooks on even passes / odd
-    on odd; "allfirst"/"alllast" — one all-pool pass first/last,
-    parity-masked otherwise), one per-codebook tuple (applied to every
-    pass), or explicit per-pass tuples."""
-    if pool_mask is None:
-        return None
-    if isinstance(pool_mask, str):
-        even = tuple(t % 2 == 0 for t in range(nc))
-        odd = tuple(t % 2 == 1 for t in range(nc))
-        alt = tuple(even if p % 2 == 0 else odd for p in range(passes))
-        if pool_mask == "altparity":
-            return alt
-        if pool_mask == "allfirst":
-            return ((True,) * nc,) + alt[: passes - 1]
-        if pool_mask == "alllast":
-            return alt[: passes - 1] + ((True,) * nc,)
-        raise ValueError(f"unknown pool_mask schedule {pool_mask!r}")
-    if isinstance(pool_mask[0], (tuple, list)):
-        pm = tuple(tuple(bool(b) for b in m) for m in pool_mask)
-        if len(pm) != passes or any(len(m) != nc for m in pm):
-            raise ValueError(f"pool_mask {pm} does not match passes={passes}, nc={nc}")
-        return pm
-    pm = tuple(bool(b) for b in pool_mask)
-    if len(pm) != nc:
-        raise ValueError(f"pool_mask {pm} does not match nc={nc}")
-    return (pm,) * passes
-
-
-def pool_bits(pool_mask, nc: int, passes: int) -> Tuple[int, ...]:
-    """Per-pass bit words: bit t set where step t of that pass is a pool
-    step (step 0 is always the fan-out)."""
-    pm = _normalize_pool_mask(pool_mask, nc, passes)
-    if pm is None:
-        return ((1 << nc) - 1,) * passes
-    return tuple(sum(1 << t for t in range(nc) if m[t]) for m in pm)
-
-
 @dataclasses.dataclass
 class SeqbeamTables:
     """The kernel's codebook inputs, prepared from the scaled centers; each
-    optional table is made only for the variant that reads it."""
+    optional table is made only for the variant that reads it; their types
+    are checked here (TypeError), once a parameter version, not at a launch."""
 
     centers_bf16: torch.Tensor  # (nc, cs, D) bf16
     gmod_bf16: Optional[torch.Tensor] = None  # (nc, cs, cs) bf16: csq[t, j] - 2 c_t(i).c_t(j) (v2)
@@ -184,6 +138,18 @@ class SeqbeamTables:
     chunks_bf16: Optional[torch.Tensor] = None
     chunks_i8: Optional[torch.Tensor] = None
 
+    def __post_init__(self):
+        if self.chunks_bf16 is None or (self.centers_i8 is not None and self.chunks_i8 is None):
+            raise TypeError("seqbeam tables must hold the ring chunks")
+        bf16, f32 = torch.bfloat16, torch.float32
+        for f, want in dict(centers_bf16=bf16, gmod_bf16=bf16, gx_bf16=bf16, centers_i8=torch.int8,
+                            csc=f32, cmax=f32, cs_sumsq=f32, q_gram=f32).items():
+            if getattr(self, f) is not None and getattr(self, f).dtype != want:
+                raise TypeError(f"seqbeam tables must hold {f} in {want}")
+        if not all(t is None or t.is_contiguous()
+                   for t in (getattr(self, f.name) for f in dataclasses.fields(self))):
+            raise TypeError("seqbeam tables must be contiguous")
+
 
 def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2",
                    requant: str = "step", lazy_r1: bool = False) -> SeqbeamTables:
@@ -195,110 +161,33 @@ def seqbeam_tables(centers: torch.Tensor, e_dtype: str = "f32", impl: str = "v2"
     E: and the int8 ones) rearranged as the kernels' ring chunks
     (:func:`_ring_chunks`).  v1 takes the f32 squared norms of the f32
     centers and the f32 Gram of the bf16 centers (its ``q`` rows)."""
-    centers = centers.float()
+    centers = centers.float().contiguous()
     cs_sumsq = (centers * centers).sum(dim=-1)  # (nc, cs)
-    tables = SeqbeamTables(centers_bf16=centers.to(torch.bfloat16))
-    tables.chunks_bf16 = _ring_chunks(tables.centers_bf16)
+    cb = centers.to(torch.bfloat16)
+    t = dict(centers_bf16=cb, chunks_bf16=_ring_chunks(cb))
     if impl == "v1":
-        cb = tables.centers_bf16.float()
-        tables.cs_sumsq = cs_sumsq
-        tables.q_gram = torch.bmm(cb, cb.transpose(1, 2))
-        return tables
+        cbf = cb.float()
+        return SeqbeamTables(**t, cs_sumsq=cs_sumsq, q_gram=torch.bmm(cbf, cbf.transpose(1, 2)))
     gram = torch.bmm(centers, centers.transpose(1, 2))  # (nc, cs, cs)
-    tables.gmod_bf16 = (cs_sumsq[:, None, :] - 2.0 * gram).to(torch.bfloat16)
+    t["gmod_bf16"] = (cs_sumsq[:, None, :] - 2.0 * gram).to(torch.bfloat16)
     if e_dtype == "int8":
         amax = centers.abs().amax(dim=(1, 2))
-        csc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-        tables.centers_i8 = torch.round(centers / csc[:, None, None]).to(torch.int8)
-        tables.csc = csc
+        t["csc"] = csc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        t["centers_i8"] = ci8 = torch.round(centers / csc[:, None, None]).to(torch.int8)
         if requant == "bound":
-            ci = tables.centers_i8.float()
-            tables.cmax = (ci.amax(dim=1) - ci.amin(dim=1)).amax(dim=1)
-        tables.chunks_i8 = _ring_chunks(tables.centers_i8)
+            ci = ci8.float()
+            t["cmax"] = (ci.amax(dim=1) - ci.amin(dim=1)).amax(dim=1)
+        t["chunks_i8"] = _ring_chunks(ci8)
     if lazy_r1:
         gx = torch.bmm(centers[:-1], centers[1:].transpose(1, 2))  # (nc-1, cs, cs)
-        tables.gx_bf16 = torch.cat([torch.zeros_like(gx[:1]), gx]).to(torch.bfloat16)
-    return tables
-
-
-class TablesCache:
-    """A kernel's codebook tables for the last ``size`` parameter versions
-    and variants, so that an encode with frozen parameters builds them once.
-    ``build(params, scale_speed, variant)`` makes the tables of a miss; the
-    seqbeam and gramv3 kernels each keep one cache with a builder of their
-    own, under this one key rule.
-
-    An entry is keyed by the centers and their log-scale (the tensor
-    objects, held weakly: an entry keeps no parameter alive and goes when
-    either is freed), the scale speed and the variant (a tuple of the
-    kernel's table options).  It stands while both tensors keep the version
-    counters, storage, device and dtype they had at its build.  In-place
-    writes bump the counters (an optimiser's step, ``copy_``,
-    ``load_state_dict``); a write through ``.data``, through another
-    library's view of the same memory or by a collective bumps nothing and
-    is not seen.  Inference tensors keep no counter, so under
-    ``torch.inference_mode`` the tables are built each call.  Every hit
-    shares the entry's tables: no consumer writes into them.  The builder
-    opens its kernel's ``<kernel>.tables`` span, so a build, and only a
-    build, is recorded; ``hits`` and ``misses`` count the lookups."""
-
-    def __init__(self, size: int, build):
-        self.size, self.build = size, build
-        self.hits = self.misses = 0
-        self._entries: collections.OrderedDict = collections.OrderedDict()
-        # reentrant: a weakref callback can run inside a locked block
-        self._lock = threading.RLock()
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._entries.clear()
-
-    def get(self, params: QuantizerParams, scale_speed: float, *variant):
-        """The tables of ``params`` for the variant, from the cache or
-        built and stored."""
-        c, s = params.centers, params.centers_scale
-        if torch.is_inference_mode_enabled() or c.is_inference() or s.is_inference():
-            return self.build(params, scale_speed, variant)
-        key = (id(c), id(s), float(scale_speed), variant)
-        state = (c._version, s._version, c.data_ptr(), s.data_ptr(), c.device, c.dtype, s.dtype)
-        with self._lock:
-            entry = self._entries.get(key)
-            if entry is not None and entry[0]() is c and entry[1]() is s and entry[2] == state:
-                self._entries.move_to_end(key)
-                self.hits += 1
-                return entry[3]
-            self.misses += 1
-        tables = self.build(params, scale_speed, variant)
-        drop = functools.partial(self._drop, key)
-        with self._lock:
-            self._entries[key] = (weakref.ref(c, drop), weakref.ref(s, drop), state, tables)
-            self._entries.move_to_end(key)
-            while len(self._entries) > self.size:
-                self._entries.popitem(last=False)
-        return tables
-
-    def _drop(self, key, ref) -> None:
-        """A weakref's callback: remove ``key``'s entry if ``ref`` is one of
-        its references (a newer entry under the key has its own)."""
-        with self._lock:
-            entry = self._entries.get(key)
-            if entry is not None and (entry[0] is ref or entry[1] is ref):
-                del self._entries[key]
-
-
-@torch.no_grad()  # tables with a graph would keep the parameters alive
-def _build_tables(params: QuantizerParams, scale_speed: float, variant) -> SeqbeamTables:
-    with span("seqbeam.tables"):
-        return seqbeam_tables(scaled_centers(params, scale_speed), *variant)
+        t["gx_bf16"] = torch.cat([torch.zeros_like(gx[:1]), gx]).to(torch.bfloat16)
+    return SeqbeamTables(**t)
 
 
 # 8 entries hold the four d512 variants ops/quality_guard.py runs on one
 # quantizer, with room to spare; an int8 E entry at d512 is about 7 MB.
 # The variant: (e_dtype, impl, requant, lazy_r1)
-TABLES_CACHE = TablesCache(8, _build_tables)
+TABLES_CACHE = TablesCache(8, "seqbeam", seqbeam_tables)
 
 
 @dataclasses.dataclass
@@ -320,18 +209,9 @@ class SeqbeamProblem:
     requant: str = "step"
     lazy_r1: bool = False
 
-
-def _keys(s: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Packed selection keys as int32: the score clamped at 0 with its 8 low
-    mantissa bits replaced by ``ids``.  Non-negative float bit patterns order
-    like the values, so the smallest key is the smallest (truncated) score,
-    lowest id on ties."""
-    bits = torch.where(s > 0, s, torch.zeros_like(s)).view(torch.int32)
-    return (bits & ~LANE_MASK) | ids
-
-
-def _as_float(bits: torch.Tensor) -> torch.Tensor:
-    return bits.contiguous().view(torch.float32)
+    @property
+    def kernel(self) -> SearchKernel:
+        return SEQBEAM
 
 
 def _requant_rows(ef: torch.Tensor):
@@ -392,9 +272,9 @@ def seqbeam_plain(problem: SeqbeamProblem) -> torch.Tensor:
         ccn = shared[fr, i0]
         cross0 = _bf16_cross(e, C[0])
         S0 = ((ss0 - 2.0 * cross0[fr, i0]) - ccn)[:, None] + shared + 2.0 * cross0
-        top = torch.topk(_keys(S0, lanes), M, dim=-1, largest=False, sorted=True).values
+        top = torch.topk(packed_keys(S0, lanes), M, dim=-1, largest=False, sorted=True).values
         j = (top & LANE_MASK).long()  # (B, M)
-        ss = _as_float(top & ~LANE_MASK)  # (B, M)
+        ss = as_float(top & ~LANE_MASK)  # (B, M)
         chosen = sol[:, None, :].repeat(1, M, 1)
         chosen[:, :, 0] = j
         ef = e[:, None, :] + (C[0][j] - C[0][i0][:, None, :])
@@ -428,7 +308,7 @@ def seqbeam_plain(problem: SeqbeamProblem) -> torch.Tensor:
                 cross = cross + (GX[t][pending] - GX[t][ip][:, None, :])
             Ec = torch.gather(cross, 2, it[:, None, None].expand(B, M, 1))[..., 0]
             S = ((ss - 2.0 * Ec) - ccn[:, None])[..., None] + shared[:, None, :] + 2.0 * cross
-            keys = _keys(S, lanes)
+            keys = packed_keys(S, lanes)
             if not pool:
                 w = keys.min(dim=-1).values  # (B, M)
                 parent = slots.expand(B, M)
@@ -440,7 +320,7 @@ def seqbeam_plain(problem: SeqbeamProblem) -> torch.Tensor:
                 parent = ((w >> LANE_BITS) & (M - 1)).long()
                 chosen = torch.gather(chosen, 1, parent[..., None].expand(B, M, nc))
             j = (w & LANE_MASK).long()
-            ss = _as_float(w & ~(mbits | LANE_MASK) if pool else w & ~LANE_MASK)
+            ss = as_float(w & ~(mbits | LANE_MASK) if pool else w & ~LANE_MASK)
             chosen[:, :, t] = j
             if last:
                 continue
@@ -478,7 +358,7 @@ def seqbeam_plain(problem: SeqbeamProblem) -> torch.Tensor:
                     delta = delta + (C[t - 1][jp] - C[t - 1][ip][:, None, :])
                 E = (src.float() + delta).to(ED)
         # ---- pass end: the smallest packed (ss, m) becomes the root
-        best = torch.argmin(_keys(ss, slots.to(torch.int32)), dim=-1)
+        best = torch.argmin(packed_keys(ss, slots.to(torch.int32)), dim=-1)
         sol = chosen[fr, best]
     return sol.to(torch.int32)
 
@@ -512,7 +392,7 @@ def seqbeam_v1_plain(problem: SeqbeamProblem) -> torch.Tensor:
             cross = _bf16_cross(E, C[t])  # (B, rows, cs)
             Ec = torch.gather(cross, 2, it[:, None, None].expand(B, E.shape[1], 1))[..., 0]
             S = (((ss - 2.0 * Ec) + cc[:, None])[..., None] + csq[t]) + 2.0 * (cross - q[:, None, :])
-            keys = _keys(S, lanes)
+            keys = packed_keys(S, lanes)
             if t == 0:
                 # the root fans out to its M best children
                 w = torch.topk(keys[:, 0], M, dim=-1, largest=False, sorted=True).values
@@ -526,21 +406,15 @@ def seqbeam_v1_plain(problem: SeqbeamProblem) -> torch.Tensor:
                 pos = (w & LANE_MASK).long()
                 parent = torch.div(pos, R, rounding_mode="floor")
                 j = (torch.gather(rk.reshape(B, M * R), 1, pos) & LANE_MASK).long()
-            ss = _as_float(w & ~LANE_MASK)
+            ss = as_float(w & ~LANE_MASK)
             chosen = torch.gather(chosen, 1, parent[..., None].expand(B, M, nc)).clone()
             chosen[:, :, t] = j
             if t < nc - 1:
                 src = torch.gather(E, 1, parent[..., None].expand(B, M, D))
                 E = src + (C[t][j] - C[t][it][:, None, :])
-        best = torch.argmin(_keys(ss, slots.to(torch.int32)), dim=-1)
+        best = torch.argmin(packed_keys(ss, slots.to(torch.int32)), dim=-1)
         sol = chosen[fr, best]
     return sol.to(torch.int32)
-
-
-def _on_device(x: torch.Tensor, *tensors) -> None:
-    for t in tensors:
-        if t is not None and t.device != x.device:
-            raise ValueError("seqbeam_cuda needs all tensors on one device")
 
 
 def seqbeam_cuda(problem: SeqbeamProblem) -> torch.Tensor:
@@ -621,9 +495,9 @@ def _spill_scratch(layout: dict, device: torch.device):
 
 
 def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor:
-    """Check the problem's tensors and launch ``kernel`` (v1's entry point
-    or one of v2's, by ``problem.impl``) on them with ``extra`` arguments
-    before the stream; returns the (B, nc) indexes."""
+    """Check the call's frames and initial indexes and launch ``kernel`` (v1's
+    entry point or one of v2's, by ``problem.impl``) on them and the tables
+    with ``extra`` arguments before the stream; returns the (B, nc) indexes."""
     with span("seqbeam.launch") as sp:
         x, idx0, tables = problem.x, problem.idx0, problem.tables
         M, R, passes, masks, e_dtype = (
@@ -632,45 +506,30 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
         B = x.shape[0]
         if not x.is_cuda:
             raise ValueError("seqbeam_cuda needs CUDA tensors")
-        if x.dtype != torch.float32 or x.shape != (B, D):
+        if x.dtype != torch.float32 or x.shape != (B, D) or not x.is_contiguous():
             raise ValueError(f"expected (B, {D}) float32 frames, got {x.dtype} {tuple(x.shape)}")
-        if idx0.shape != (B, nc) or len(masks) != passes:
-            raise ValueError(f"expected ({B}, {nc}) initial indexes and {passes} pool masks, "
-                             f"got {tuple(idx0.shape)} and {len(masks)}")
+        if idx0.shape != (B, nc) or idx0.dtype != torch.int32 or len(masks) != passes:
+            raise ValueError(f"expected ({B}, {nc}) int32 initial indexes and {passes} pool masks, "
+                             f"got {idx0.dtype} {tuple(idx0.shape)} and {len(masks)}")
         layout = seqbeam_layout(problem)
         sp.set(layout=layout["kind"], chunks=D // 128, smem_bytes=layout["smem_bytes"])
         spill, slots, nslots = _spill_scratch(layout, x.device)
-        x = x.contiguous()
-        idx0 = idx0.to(torch.int32).contiguous()
-        centers = tables.centers_bf16.contiguous()
-        if centers.dtype != torch.bfloat16:
-            raise TypeError("seqbeam tables must hold bf16 centers")
+        centers, cpb = tables.centers_bf16, tables.chunks_bf16
         out = torch.empty(B, nc, dtype=torch.int32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the kernels stream the codebooks through their rings of chunks
-        cpb = tables.chunks_bf16
-        if cpb is None or (e_dtype == "int8" and tables.chunks_i8 is None):
-            raise TypeError("seqbeam tables must hold the ring chunks")
         if problem.impl == "v1":
-            qg = tables.q_gram.float().contiguous()
-            csq = tables.cs_sumsq.float().contiguous()
-            _on_device(x, idx0, centers, qg, csq, cpb)
+            qg, csq = tables.q_gram, tables.cs_sumsq
+            on_one_device("seqbeam_cuda", x, idx0, centers, qg, csq, cpb)
             kernel(x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), qg.data_ptr(), csq.data_ptr(),
                    cpb.data_ptr(), out.data_ptr(), B, D, nc, M, R, passes, _ptr(spill), _ptr(slots),
                    nslots, *extra, stream)
-            LAYOUT_LAUNCHES[layout["kind"]] += 1
             return out
         int8 = e_dtype == "int8"
-        gmod = tables.gmod_bf16.contiguous()
-        ci8 = tables.centers_i8.contiguous() if int8 else None
-        csc = tables.csc.float().contiguous() if int8 else None
-        cmax = tables.cmax.float().contiguous() if problem.requant == "bound" else None
-        gx = tables.gx_bf16.contiguous() if problem.lazy_r1 else None
-        if gmod.dtype != torch.bfloat16 or (int8 and ci8.dtype != torch.int8) or (
-                gx is not None and gx.dtype != torch.bfloat16):
-            raise TypeError("seqbeam tables must be bf16 Gram blocks (int8 centers)")
-        cpi = tables.chunks_i8 if int8 else None
-        _on_device(x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
+        gmod = tables.gmod_bf16
+        ci8, csc, cpi = (tables.centers_i8, tables.csc, tables.chunks_i8) if int8 else (None,) * 3
+        cmax = tables.cmax if problem.requant == "bound" else None
+        gx = tables.gx_bf16 if problem.lazy_r1 else None
+        on_one_device("seqbeam_cuda", x, idx0, centers, gmod, ci8, csc, cmax, gx, cpb, cpi)
         words = (ctypes.c_uint32 * max(passes, 1))(*masks)
         kernel(
             x.data_ptr(), idx0.data_ptr(), centers.data_ptr(), gmod.data_ptr(), _ptr(ci8),
@@ -678,7 +537,6 @@ def _launch(problem: SeqbeamProblem, kernel: CudaKernel, *extra) -> torch.Tensor
             R, passes, ctypes.addressof(words), E_DTYPES[e_dtype][0], REQUANTS[problem.requant],
             int(problem.lazy_r1), _ptr(spill), _ptr(slots), nslots, *extra, stream,
         )
-        LAYOUT_LAUNCHES[layout["kind"]] += 1
         return out
 
 
@@ -695,26 +553,6 @@ def _ring_chunks(c: torch.Tensor) -> torch.Tensor:
     nc, cs, _ = c.shape
     b = c.contiguous().view(torch.uint8).reshape(nc, cs, -1, 8, 16)
     return b.permute(0, 2, 3, 1, 4).contiguous()
-
-
-def init_indexes_from_logits(
-    params: QuantizerParams, config: QuantizerConfig, x: torch.Tensor,
-    init_precision: str = "highest",
-) -> torch.Tensor:
-    """argmax of the prediction logits: in full f32 ("highest"), or with
-    bf16-rounded operands and f32 sums ("default", the single-pass matmul
-    of the TPU); lowest index on ties."""
-    if init_precision == "highest":
-        logits = _search.compute_logits(params, config, x)
-    elif init_precision == "default":
-        scale = torch.exp(params.logits_scale * config.scale_speed)
-        a = (scale * x).to(torch.bfloat16).float()
-        w = params.to_logits_w.to(torch.bfloat16).float()
-        logits = (torch.matmul(a, w.t()) + params.to_logits_b).reshape(
-            x.shape[0], config.num_codebooks, config.codebook_size)
-    else:
-        raise ValueError(f"unknown init_precision {init_precision!r}")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def seqbeam_encode_indexes(
@@ -810,7 +648,7 @@ def _check_variant(M: int, R: int, nc: int, passes: int, pool_mask, e_dtype: str
     if lazy_r1:
         if pool_mask is None or requant != "step":
             raise ValueError("lazy_r1 needs a static pool_mask and requant='step'")
-        for m in _normalize_pool_mask(pool_mask, nc, passes):
+        for m in normalize_pool_mask(pool_mask, nc, passes):
             if any(not (m[t] or m[t + 1]) for t in range(1, nc - 1)):
                 raise ValueError(f"lazy_r1: a deferring R1 step must be followed by a pool "
                                  f"step, got {m}")
@@ -845,15 +683,13 @@ def seqbeam_problem(
                    lazy_r1)
     x = x.float().contiguous()
     with span("seqbeam.init"):
-        if init_indexes is None:
-            idx0 = init_indexes_from_logits(params, config, x, init_precision)
-        else:
-            idx0 = init_indexes.to(device=x.device, dtype=torch.int32)
-            if idx0.shape != (x.shape[0], config.num_codebooks) or bool(
-                    ((idx0 < 0) | (idx0 >= config.codebook_size)).any()):
-                raise ValueError(
-                    "init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
+        idx0 = initial_indexes(params, config, x, init_indexes, init_precision)
     tables = TABLES_CACHE.get(params, config.scale_speed, e_dtype, impl, requant, bool(lazy_r1))
     masks = pool_bits(pool_mask, config.num_codebooks, passes)
-    return SeqbeamProblem(x, idx0.contiguous(), tables, M, R, passes, masks, e_dtype, impl,
-                          requant, bool(lazy_r1))
+    return SeqbeamProblem(x, idx0, tables, M, R, passes, masks, e_dtype, impl, requant,
+                          bool(lazy_r1))
+
+
+SEQBEAM = SearchKernel(
+    "seqbeam", SEQBEAM_SUPPORTED, seqbeam_problem, seqbeam_cuda, seqbeam_plain, SEQBEAM_KERNEL,
+    TABLES_CACHE, lambda *a, **kw: seqbeam_encode_indexes(*a, **kw))

@@ -11,8 +11,8 @@ the host and set before each step (`test_train_hdf5.py:108-133`).
 
 The targets come from ``quantizer.encode(..., as_bytes=False)`` with its
 default ``search_method="auto"``, which on the card runs one search kernel
-a step: K2 at the reference's 512-frame minibatch, K3 from
-``core.codec.GRAMV3_MIN_FRAMES`` frames at d512 and d1280.
+a step: K2 at the reference's 512-frame minibatch, K3 from its rung's
+``min_frames`` (``ops/ladder.py``) at d512 and d1280.
 """
 
 from __future__ import annotations

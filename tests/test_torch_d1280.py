@@ -17,7 +17,9 @@ from quantization_tpu_torch.core import codec
 from quantization_tpu_torch.core.types import QuantizerConfig, scaled_centers
 from quantization_tpu_torch.data import synthetic
 from quantization_tpu_torch.experiments.head_to_head import save_int8
+from quantization_tpu_torch.ops import beam_common as tbeam
 from quantization_tpu_torch.ops import gramv3 as tg3
+from quantization_tpu_torch.ops import ladder
 from quantization_tpu_torch.ops import quality_guard
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
@@ -36,26 +38,31 @@ def test_kernel_gate_admits_dim_1280_and_no_wider():
 
 def test_auto_ladder_of_d1280_and_d512():
     # the Gram-table rung first, then K2's rungs behind it
-    names = [n for n, _, _ in codec._auto_candidates(D1280)]
-    assert names == ["gramv3_bf16_alt3_d1280!", "seqbeam_int8e_d1280!", "seqbeam_hl_d1280"]
-    assert all(n.rstrip("!").endswith("_d1280") for n in names)
-    d512 = [n for n, _, _ in codec._auto_candidates(QuantizerConfig(512, 256, 8))]
-    assert d512 == ["gramv3_bf16_alt3_d512!", "seqbeam_int8e_d512!", "seqbeam_hl_d512",
-                    "seqbeam_m16_d512"]
+    rungs = ladder.rungs(D1280)
+    assert [(r.name, r.kernel, r.needs_quality) for r in rungs] == [
+        ("gramv3_bf16_alt3_d1280", tg3.GRAMV3, True), ("seqbeam_int8e_d1280", tseq.SEQBEAM, True),
+        ("seqbeam_hl_d1280", tseq.SEQBEAM, False)]
+    assert all(r.name.endswith("_d1280") for r in rungs)
+    d512 = ladder.rungs(QuantizerConfig(512, 256, 8))
+    assert [(r.name, r.needs_quality) for r in d512] == [
+        ("gramv3_bf16_alt3_d512", True), ("seqbeam_int8e_d512", True),
+        ("seqbeam_hl_d512", False), ("seqbeam_m16_d512", False)]
     # no other configuration above dim 1024 has a measured rung: the exact beam
     for dim, nc in ((1152, 8), (1280, 4), (1280, 16)):
-        assert codec._auto_candidates(QuantizerConfig(dim, 256, nc)) == []
+        assert ladder.rungs(QuantizerConfig(dim, 256, nc)) == ()
     # both Gram-table rungs run the beam of the K2 rung beside them, with as
     # many passes (the benchmark records auto's choice from one frame)
     for config in (D1280, QuantizerConfig(512, 256, 8)):
-        (_, gram_passes, gram), (_, k2_passes, k2) = codec._auto_candidates(config)[:2]
-        assert gram == dict(M=8, R=4, pool_mask="altparity", g_dtype="bf16")
-        assert gram_passes == k2_passes == 3
-        assert {k: k2[k] for k in ("M", "R", "pool_mask")} == {k: gram[k] for k in
-                                                                 ("M", "R", "pool_mask")}
+        gram, k2 = ladder.rungs(config)[:2]
+        assert gram.beam == dict(M=8, R=4, pool_mask="altparity", g_dtype="bf16")
+        assert gram.knobs == {}
+        assert gram.passes == k2.passes == 3
+        assert {k: k2.beam[k] for k in ("M", "R", "pool_mask")} == {
+            k: gram.beam[k] for k in ("M", "R", "pool_mask")}
     # the card's wide instantiations take both seqbeam rungs' beams
-    for _, passes, kw in codec._auto_candidates(D1280)[1:]:
-        assert (kw["M"], passes, kw["e_dtype"]) in ((8, 3, "int8"), (8, 3, "bf16"))
+    for rung in rungs[1:]:
+        kw = rung.beam
+        assert (kw["M"], rung.passes, kw["e_dtype"]) in ((8, 3, "int8"), (8, 3, "bf16"))
         assert "requant" not in kw and "lazy_r1" not in kw
 
 
@@ -83,13 +90,9 @@ def _seeded_d1280(seed, frames=48, noise=8.0):
 def test_plain_seqbeam_at_d1280_against_the_reference(seed, rung):
     # each rung of auto's d1280 ladder, K3's Gram-table rung among them
     params, ref, x = _seeded_d1280(seed)
-    passes, kw = next((p, kw) for n, p, kw in codec._auto_candidates(D1280)
-                      if n.rstrip("!") == rung)
-    if rung.startswith("gramv3_"):
-        idx = tg3.gramv3_plain(tg3.gramv3_problem(params, D1280, x, passes=passes, **kw))
-    else:
-        sem = {k: kw[k] for k in ("M", "R", "pool_mask", "e_dtype")}
-        idx = tseq.seqbeam_plain(tseq.seqbeam_problem(params, D1280, x, passes=passes, **sem))
+    rung = next(r for r in ladder.rungs(D1280) if r.name == rung)
+    kernel = rung.kernel
+    idx = kernel.plain(kernel.problem(params, D1280, x, passes=rung.passes, **rung.beam))
     assert idx.shape == (x.shape[0], 8) and idx.dtype == torch.int32
     # the port's error of those indexes is the reference's
     port = ((codec.decode_indexes(scaled_centers(params, D1280.scale_speed), idx) - x) ** 2).sum()
@@ -97,7 +100,7 @@ def test_plain_seqbeam_at_d1280_against_the_reference(seed, rung):
     assert float(port) == pytest.approx(float(err), rel=1e-5)
     # and within the bar of the reference's exact beam-5, which beats the init
     beam5 = R.frame_sse(ref, x, R.encode_indexes(ref, x, passes=5)).sum()
-    init = R.frame_sse(ref, x, tseq.init_indexes_from_logits(params, D1280, x)).sum()
+    init = R.frame_sse(ref, x, tbeam.initial_indexes(params, D1280, x)).sum()
     assert float(err) <= BAR * float(beam5)
     assert float(beam5) < float(init)
 

@@ -26,6 +26,7 @@ from quantization_tpu_torch.experiments import int8_mxu_probe as tprobe
 from quantization_tpu_torch.experiments import prim_bench as tprim
 from quantization_tpu_torch.ops import decode as tdecode
 from quantization_tpu_torch.ops import gramv3 as tg3
+from quantization_tpu_torch.ops import ladder as tladder
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops import verify as tverify
 from quantization_tpu_torch.ops.quality_guard import against_plain
@@ -60,26 +61,23 @@ def cuda():
     return torch.device("cuda")
 
 
-# the search kernels auto's rungs launch: a name's prefix -> its launch count
-# and its tables cache
-SEARCH_KERNELS = {"gramv3": (tg3.GRAMV3_KERNEL, tg3.TABLES_CACHE),
-                  "seqbeam": (tseq.SEQBEAM_KERNEL, tseq.TABLES_CACHE)}
+# the search kernels auto's rungs launch, by name
+SEARCH_KERNELS = {k.name: k for k in (tg3.GRAMV3, tseq.SEQBEAM)}
 
 
 def _rung(config, kernel):
-    """(name, passes, kwargs) of auto's first ``kernel`` rung for ``config``."""
-    name, passes, kw = next(r for r in tcodec._auto_candidates(config) if r[0].startswith(kernel))
-    return name.rstrip("!"), passes, kw
+    """Auto's first rung of the kernel named ``kernel`` for ``config``."""
+    return next(r for r in tladder.rungs(config) if r.kernel.name == kernel)
 
 
 def _auto_takes(monkeypatch, kernel):
     """Make auto take its first ``kernel`` rung, whatever the gate would take."""
-    monkeypatch.setattr(tcodec, "auto_choice", lambda config, x, iters: _rung(config, kernel))
+    monkeypatch.setattr(tladder, "pick", lambda config, x, iters: _rung(config, kernel))
 
 
 def _auto_kernel(q, x):
-    """The prefix of the kernel that ``q.encode(x)`` runs."""
-    return tcodec.auto_choice(q.config, x, 5)[0].split("_")[0]
+    """The name of the kernel that ``q.encode(x)`` runs."""
+    return tladder.pick(q.config, x, 5).kernel.name
 
 
 @pytest.mark.gpu
@@ -179,16 +177,18 @@ def test_cuda_seqbeam_b3_matches_plain(cuda, nc, dim, kw):
     assert chk["ok"], chk
 
 
-# the auto ladder's two rungs on the committed trained quantizers
-AUTO_RUNGS = {"int8": (Q512, 3, dict(M=8, R=4, pool_mask="altparity", e_dtype="int8")),
-              "bf16": (Q256, 2, dict(M=8, R=4, pool_mask="altparity", e_dtype="bf16"))}
+# the auto ladder's two K2 rungs on the committed trained quantizers
+K2_RUNGS = {"int8": (Q512, tladder.LADDERS[(512, 8)][1]),
+            "bf16": (Q256, tladder.LADDERS[(256, 4)][0])}
 
 
 def _auto_problem(cuda, e_dtype, B, **kw):
-    path, passes, sem = AUTO_RUNGS[e_dtype]
+    path, rung = K2_RUNGS[e_dtype]
+    assert rung.beam["e_dtype"] == e_dtype
     q = qtt.load_quantizer(path, device=cuda)
     x = make_mlp_sampler(q.dim, device=cuda)(torch.Generator().manual_seed(3), B)
-    problem = tseq.seqbeam_problem(q.params, q.config, x, passes=passes, **dict(sem, **kw))
+    problem = tseq.seqbeam_problem(q.params, q.config, x, passes=rung.passes,
+                                   **dict(rung.beam, **kw))
     return problem, q.get_centers().detach()
 
 
@@ -355,12 +355,12 @@ def test_d1280_main_path_runs_the_int8_rung_and_records_its_layout(cuda, monkeyp
     _auto_takes(monkeypatch, "seqbeam")
     assert qtt.core.codec.auto_choice(q.config, x, 5)[0] == "seqbeam_int8e_d1280"
     q.encode(x)  # the kernel's build and the tables, outside the recording
-    k2, full = tseq.SEQBEAM_KERNEL.launches, tseq.LAYOUT_LAUNCHES["full"]
+    k2 = tseq.SEQBEAM_KERNEL.launches
     spans.start()
     codes = q.encode(x)
     records = spans.stop()
     torch.cuda.synchronize()
-    assert tseq.SEQBEAM_KERNEL.launches == k2 + 1 and tseq.LAYOUT_LAUNCHES["full"] == full + 1
+    assert tseq.SEQBEAM_KERNEL.launches == k2 + 1
     launch = [r for r in records if r.name == "seqbeam.launch"]
     assert len(launch) == 1
     assert launch[0].attrs == {"layout": "full", "chunks": 10, "smem_bytes": 225248}
@@ -395,7 +395,7 @@ def test_cuda_seqbeam_v1_stage_timed_build_same_indexes(cuda, nc, dim):
 def test_main_path_on_card_launches_both_kernels(cuda):
     q = qtt.load_quantizer(Q256, device=cuda)
     x = make_mlp_sampler(256, device=cuda)(torch.Generator().manual_seed(7), 2048)
-    search = SEARCH_KERNELS[_auto_kernel(q, x)][0]
+    search = SEARCH_KERNELS[_auto_kernel(q, x)].entry
     k, k1 = search.launches, tdecode.DECODE_KERNEL.launches
     codes = q.encode(x)  # search_method="auto"
     recon = q.decode(codes, use_kernel=True)
@@ -413,7 +413,7 @@ def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda, kernel, m
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(7), 512)
     qtt.load_quantizer(Q512, device=cuda).encode(x)  # the kernel's build, outside the recording
     q = qtt.load_quantizer(Q512, device=cuda)  # its tables are not cached yet
-    counter = SEARCH_KERNELS[kernel][0]
+    counter = SEARCH_KERNELS[kernel].entry
     before = counter.launches
     spans.start()
     for _ in range(3):
@@ -438,7 +438,7 @@ def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda, kernel, m
         search = [init, *built] if kernel == "seqbeam" else [*built, init]
         assert [r.name for r in inner] == ["codec.choose", "codec.search", *search, launch,
                                            "codec.pack"]
-        assert inner[0].attrs == {"rung": _rung(q.config, kernel)[0]}
+        assert inner[0].attrs == {"rung": _rung(q.config, kernel).name}
         for r in inner:
             assert by_id[r.parent_id].name == parent[r.name]
             assert call.start_ns <= r.start_ns <= r.end_ns <= call.end_ns
@@ -455,7 +455,7 @@ def test_auto_encode_on_card_reuses_its_tables_with_fewer_device_ops(cuda, kerne
     _auto_takes(monkeypatch, kernel)
     q = qtt.load_quantizer(Q512, device=cuda)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(8), 512)
-    cache = SEARCH_KERNELS[kernel][1]
+    cache = SEARCH_KERNELS[kernel].tables
 
     def build_and_encode():
         cache.clear()
@@ -480,7 +480,7 @@ def test_auto_encode_on_card_after_an_adam_step_equals_a_fresh_build(cuda, kerne
     xs = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(9), 600)
     for _ in range(2):  # phase one, then the product quantizer (256 x 8)
         t.step(xs)
-    cache = SEARCH_KERNELS[kernel][1]
+    cache = SEARCH_KERNELS[kernel].tables
 
     def encode():
         with torch.no_grad():
@@ -502,7 +502,7 @@ def test_auto_gramv3_rung_equals_plain_at_8192_frames(cuda, path):
     q = qtt.load_quantizer(path, device=cuda)
     x = make_mlp_sampler(q.dim, device=cuda)(torch.Generator().manual_seed(10), 8192)
     name, passes, kw = tcodec.auto_choice(q.config, x, 5)
-    assert name == _rung(q.config, "gramv3")[0]
+    assert name == _rung(q.config, "gramv3").name
     got = _launched_once(tg3.GRAMV3_KERNEL, lambda: q.encode(x, as_bytes=False))
     problem = tg3.gramv3_problem(q.params, q.config, x, passes=passes, **kw)
     # the same f32 sums of the bf16 table in the same order
@@ -863,7 +863,7 @@ def test_cli_encode_equals_quantizer_encode_bit_for_bit(cuda, tmp_path):
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(5), 5000)
     write_shards(tmp_path / "corpus", [x.cpu().numpy()], frames_per_shard=3000)
     q = qtt.load_quantizer(Q512, device=cuda)
-    before = {k: c.launches for k, (c, _) in SEARCH_KERNELS.items()}
+    before = {k: s.entry.launches for k, s in SEARCH_KERNELS.items()}
     cli.main(["encode", "--quantizer", str(Q512), "--data", str(tmp_path / "corpus"),
               "--out", str(tmp_path / "codes.npy"), "--batch", "2048"])
     torch.cuda.synchronize()
@@ -871,7 +871,7 @@ def test_cli_encode_equals_quantizer_encode_bit_for_bit(cuda, tmp_path):
     want = dict.fromkeys(SEARCH_KERNELS, 0)
     for n in (2048, 2048, 904):
         want[_auto_kernel(q, torch.empty(n, 512, device=cuda))] += 1
-    assert {k: c.launches - before[k] for k, (c, _) in SEARCH_KERNELS.items()} == want
+    assert {k: s.entry.launches - before[k] for k, s in SEARCH_KERNELS.items()} == want
     codes = np.load(tmp_path / "codes.npy")
     want = [q.encode(torch.from_numpy(b).to(cuda).float()).cpu().numpy()
             for b in iter_shards_sequential(tmp_path / "corpus", 2048, dtype=np.float16)]
@@ -947,7 +947,7 @@ def test_cuda_predictor_trainer_step_launches_k2_once(cuda):
     q = qtt.load_quantizer(Q512, device=cuda)
     trainer = PredictorTrainer(q, predictor_channels=512, seed=0)
     x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(2), 512)
-    assert _auto_kernel(q, x) == "seqbeam"  # 512 frames: under GRAMV3_MIN_FRAMES
+    assert _auto_kernel(q, x) == "seqbeam"  # 512 frames: under the K3 rung's min_frames
     before = tseq.SEQBEAM_KERNEL.launches
     loss = trainer.step(x)
     torch.cuda.synchronize()

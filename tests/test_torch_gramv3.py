@@ -23,6 +23,7 @@ from quantization_tpu.core import search as jsearch
 from quantization_tpu.ops import gramv3 as jg3
 from quantization_tpu_torch import core as tcore
 from quantization_tpu_torch.core import codec as tcodec
+from quantization_tpu_torch.ops import beam_common as tbeam
 from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
@@ -94,7 +95,7 @@ def _jax_problem(jp, jc, x, g_dtype, M, R, passes, pool_mask):
     return tg3.Gramv3Problem(
         torch.from_numpy(np.array(x)), torch.from_numpy(np.array(xc * inv)),
         torch.from_numpy(np.array(init)), torch.from_numpy(np.array(ss0 * inv)), gt,
-        M, R, passes, tseq.pool_bits(pool_mask, nc, passes), g_dtype)
+        M, R, passes, tbeam.pool_bits(pool_mask, nc, passes), g_dtype)
 
 
 def _sse(centers, idx, x):
@@ -151,7 +152,7 @@ def test_supported_gate_matches_jax_and_any_dim_works():
                                                 block_b=64, **kw))
     got = tg3.gramv3_encode_indexes(tp, tc, torch.from_numpy(x), **kw).numpy()
     assert (got == want).mean() >= 0.99
-    init = tseq.init_indexes_from_logits(tp, tc, torch.from_numpy(x)).numpy()
+    init = tbeam.initial_indexes(tp, tc, torch.from_numpy(x)).numpy()
     assert _sse(arrays["centers"], got, x) <= _sse(arrays["centers"], init, x)
 
 

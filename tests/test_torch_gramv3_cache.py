@@ -3,7 +3,7 @@
 ``gramv3_problem`` takes what depends on the parameters alone (the f32
 scaled centers, their bf16 copy, the laid-out Gram table and int8's
 ``inv``) from the cache, under the seqbeam cache's key rule
-(``ops/seqbeam.py::TablesCache``).  A lookup on unchanged parameters
+(``ops/beam_common.py::TablesCache``).  A lookup on unchanged parameters
 returns the stored tables; after a change of the parameters, the table
 dtype or the scale speed it builds them again, equal to a fresh
 ``gramv3_tables(scaled_centers(...))``; and a problem made from the cache
@@ -19,8 +19,8 @@ import torch
 
 import quantization_tpu_torch as qtt
 from quantization_tpu_torch.core import scaled_centers
+from quantization_tpu_torch.ops import beam_common as tbeam
 from quantization_tpu_torch.ops import gramv3 as tg3
-from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.utils import spans
 
 DIM, NC, B = 96, 4, 12
@@ -64,12 +64,12 @@ def _uncached_problem(params, config, g_dtype, x):
     centers = scaled_centers(params, config.scale_speed).detach().float()
     ctab = centers.reshape(NC * 256, DIM).to(torch.bfloat16)
     gtil, inv = tg3.gram_table(ctab, NC, g_dtype)
-    idx0 = tseq.init_indexes_from_logits(params, config, x)
+    idx0 = tbeam.initial_indexes(params, config, x)
     xc, ss0 = tg3.cross_terms(x, ctab), tg3.root_scores(centers, idx0, x)
     if inv is not None:
         xc, ss0 = xc * inv, ss0 * inv
     return tg3.Gramv3Problem(x, xc, idx0, ss0, tg3.table_layout(gtil, NC), 8, 4, 2,
-                             tseq.pool_bits("altparity", NC, 2), g_dtype)
+                             tbeam.pool_bits("altparity", NC, 2), g_dtype)
 
 
 def _assert_fields_equal(got, want, cls):
@@ -83,6 +83,21 @@ def _assert_fields_equal(got, want, cls):
 
 def _counts():
     return CACHE.hits, CACHE.misses
+
+
+@pytest.mark.parametrize("g_dtype", G_DTYPES)
+def test_hand_built_tables_of_another_type_raise_at_construction(g_dtype):
+    # checked once, where they are made; no launch checks them again
+    q = _quantizer()
+    tables = _fresh(q.params, q.config, g_dtype)
+    other = {"bf16": torch.int8, "int8": torch.bfloat16}[g_dtype]
+    for change in (dict(gt=tables.gt.to(other)), dict(gt=tables.gt.float()),
+                   dict(ctab=tables.ctab.float()), dict(centers=tables.centers.double()),
+                   dict(inv=None if tables.inv is not None else torch.tensor(1.0))):
+        with pytest.raises(TypeError, match="gramv3 tables"):
+            dataclasses.replace(tables, **change)
+    with pytest.raises(TypeError, match="contiguous"):
+        dataclasses.replace(tables, gt=tables.gt.transpose(1, 2))
 
 
 @pytest.mark.parametrize("g_dtype", G_DTYPES)

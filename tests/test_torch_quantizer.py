@@ -27,6 +27,8 @@ from quantization_tpu.utils.serialization import load_quantizer as jax_load
 from quantization_tpu_torch.core import codec as tcodec
 from quantization_tpu_torch.data import synthetic as tsynth
 from quantization_tpu_torch.ops import decode as tdecode
+from quantization_tpu_torch.ops import gramv3 as tg3
+from quantization_tpu_torch.ops import ladder as tladder
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops import verify as tverify
 
@@ -145,7 +147,7 @@ def test_auto_ladder_and_gate(monkeypatch):
     d256 = qtt.core.QuantizerConfig(dim=256, codebook_size=256, num_codebooks=4)
     on_card = types.SimpleNamespace(is_cuda=True, shape=(8192, 512))  # a bulk call's frames
     ok = {"ok": True}
-    gram = tcodec._GRAMV3_RUNGS[(512, 8)][0].rstrip("!")
+    gram = tladder.LADDERS[(512, 8)][0].name
     names = (gram, "seqbeam_int8e_d512", "seqbeam_hl_d512", "seqbeam_m16_d512",
              "seqbeam_hl_d256")
     quality = {"train_ratio_vs_torch": 1.000109,
@@ -154,9 +156,10 @@ def test_auto_ladder_and_gate(monkeypatch):
     # the Gram-table rung first: M=8, R=4, altparity, as the seqbeam rung it displaces
     name, passes, kw = tcodec.auto_choice(d512, on_card, 5)
     assert (name, kw["M"], kw["R"], kw["pool_mask"]) == (gram, 8, 4, "altparity")
-    assert tcodec._auto_candidates(d512)[0][0] == gram + "!"  # it needs its quality row
+    first = tladder.rungs(d512)[0]
+    assert (first.name, first.kernel, first.needs_quality) == (gram, tg3.GRAMV3, True)
     # below the frames it pays off at, the K2 rung beside it, with as many passes
-    least = tcodec.GRAMV3_MIN_FRAMES[(512, 8)]
+    least = first.min_frames
     for frames, want in ((1, "seqbeam_int8e_d512"), (least - 1, "seqbeam_int8e_d512"),
                          (least, gram)):
         got = tcodec.auto_choice(d512, types.SimpleNamespace(is_cuda=True, shape=(frames, 512)), 5)
@@ -170,8 +173,8 @@ def test_auto_ladder_and_gate(monkeypatch):
     quality["results"][gram]["max_delta_pct"] = 0.995
     name, passes, kw = tcodec.auto_choice(d512, on_card, 5)
     assert (name, passes, kw["e_dtype"], kw["M"]) == ("seqbeam_int8e_d512", 3, "int8", 8)
-    # "!" needs a quality entry: without its row the Gram-table rung is
-    # passed over, even with a smoke entry
+    # needs_quality: without its row the Gram-table rung is passed over,
+    # even with a smoke entry
     del quality["results"][gram]
     assert tcodec.auto_choice(d512, on_card, 5)[0] == "seqbeam_int8e_d512"
     quality["results"]["seqbeam_int8e_d512"]["max_delta_pct"] = 0.995
@@ -184,19 +187,62 @@ def test_auto_ladder_and_gate(monkeypatch):
     assert tcodec.auto_choice(d512, on_card, 5) is None
 
 
+# auto's choice on the card with the committed gate tables, recorded from the
+# ladder's output before it became one table of rung records, so that the
+# table is held to the choices it replaced: (passes, kwargs) of each rung...
+PINNED_RUNGS = {
+    "gramv3_bf16_alt3_d512": (3, {"M": 8, "R": 4, "pool_mask": "altparity", "g_dtype": "bf16"}),
+    "gramv3_bf16_alt3_d1280": (3, {"M": 8, "R": 4, "pool_mask": "altparity", "g_dtype": "bf16"}),
+    "seqbeam_int8e_d512": (3, {"M": 8, "R": 4, "pool_mask": "altparity", "block_b": 512,
+                               "interleave": 2, "reorder": "select", "e_dtype": "int8",
+                               "zip_skew": 1}),
+    "seqbeam_int8e_d1280": (3, {"M": 8, "R": 4, "pool_mask": "altparity", "block_b": 512,
+                                "interleave": 2, "reorder": "select", "e_dtype": "int8",
+                                "zip_skew": 1}),
+    "seqbeam_hl_d256": (2, {"M": 8, "R": 4, "pool_mask": "altparity", "block_b": 256,
+                            "interleave": 2, "reorder": "select", "e_dtype": "bf16"}),
+}
+PINNED_FRAMES = (1, 767, 768, 1535, 1536, 8192)
+# ...and its name at each of PINNED_FRAMES with 5 refinement iterations (with
+# 2, None everywhere), by (dim, num_codebooks)
+_I8, _G3 = "seqbeam_int8e_d512", "gramv3_bf16_alt3_d512"
+PINNED_AUTO = {
+    (128, 2): (_I8,) * 6,
+    (256, 4): ("seqbeam_hl_d256",) * 6,
+    (256, 8): (_I8,) * 6,
+    (512, 8): (_I8,) * 4 + (_G3,) * 2,
+    (512, 16): (_I8,) * 6,
+    (1024, 16): (_I8,) * 6,
+    (1152, 8): (None,) * 6,
+    (1280, 4): (None,) * 6,
+    (1280, 8): ("seqbeam_int8e_d1280",) * 2 + ("gramv3_bf16_alt3_d1280",) * 4,
+}
+
+
+@pytest.mark.parametrize("iters", [2, 5])
+@pytest.mark.parametrize("frames", PINNED_FRAMES)
+@pytest.mark.parametrize("dim,nc", list(PINNED_AUTO))
+def test_auto_choice_is_pinned_over_configs_and_call_sizes(dim, nc, frames, iters):
+    config = qtt.core.QuantizerConfig(dim=dim, codebook_size=256, num_codebooks=nc)
+    x = types.SimpleNamespace(is_cuda=True, shape=(frames, dim))
+    name = PINNED_AUTO[(dim, nc)][PINNED_FRAMES.index(frames)] if iters >= 3 else None
+    want = None if name is None else (name, *PINNED_RUNGS[name])
+    assert tcodec.auto_choice(config, x, iters) == want
+
+
 @pytest.mark.parametrize("as_bytes", [True, False])
 def test_auto_routes_a_gramv3_rung_to_the_gram_table_kernel(monkeypatch, as_bytes):
-    """encode(auto) on a ``gramv3_...`` choice runs gramv3_encode_indexes with
-    the rung's passes and kwargs (on the CPU, its plain version), counts the
-    rung and names it on the codec.choose span."""
-    from quantization_tpu_torch.ops import gramv3 as tg3
+    """encode(auto) on a rung of the Gram-table kernel runs
+    gramv3_encode_indexes with the rung's passes and kwargs (on the CPU, its
+    plain version) and names the rung on the codec.choose span."""
     from quantization_tpu_torch.utils import spans
 
     config = qtt.core.QuantizerConfig(dim=128, codebook_size=256, num_codebooks=4)
     q = qtt.Quantizer(128, 256, 4, generator=torch.Generator().manual_seed(0), device="cpu")
     x = torch.randn(24, 128, generator=torch.Generator().manual_seed(1))
-    rung = ("gramv3_int8_pool3_d128", 3, dict(M=8, R=4, pool_mask=None, g_dtype="int8"))
-    monkeypatch.setattr(tcodec, "auto_choice", lambda c, xx, iters: rung)
+    rung = tladder.Rung("gramv3_int8_pool3_d128", tg3.GRAMV3, 3,
+                        dict(M=8, R=4, pool_mask=None, g_dtype="int8"))
+    monkeypatch.setattr(tladder, "pick", lambda c, xx, iters: rung)
     seen = []
     real = tg3.gramv3_encode_indexes
 
@@ -206,7 +252,6 @@ def test_auto_routes_a_gramv3_rung_to_the_gram_table_kernel(monkeypatch, as_byte
 
     monkeypatch.setattr(tg3, "gramv3_encode_indexes", recording)
     plain = tg3.GRAMV3_KERNEL.launches
-    before = tcodec.AUTO_RUNGS[rung[0]]
     spans.start()
     got = tcodec.encode(q.params, config, x, as_bytes=as_bytes, search_method="auto")
     records = spans.stop()
@@ -216,8 +261,7 @@ def test_auto_routes_a_gramv3_rung_to_the_gram_table_kernel(monkeypatch, as_byte
     if as_bytes:
         want = tcodec.pack_indexes(want, 256)
     assert torch.equal(got, want)
-    assert tcodec.AUTO_RUNGS[rung[0]] == before + 1
-    assert [r.attrs for r in records if r.name == "codec.choose"] == [{"rung": rung[0]}]
+    assert [r.attrs for r in records if r.name == "codec.choose"] == [{"rung": rung.name}]
 
 
 def test_committed_gate_tables_hold_card_runs():
@@ -235,10 +279,13 @@ def test_committed_gate_tables_hold_card_runs():
     # every Gram-table candidate of the guard, auto's rungs among them, on seeds 7-9
     from quantization_tpu_torch.ops.quality_guard import GRAMV3_CANDIDATES
 
-    rows = [n for c in GRAMV3_CANDIDATES.values() for n, _, _ in c]
+    rows = [r.name for c in GRAMV3_CANDIDATES.values() for r in c]
     for name in rows:
         assert set(quality[name]["delta_pct_by_key"]) == {"7", "8", "9"}, name
         assert quality[name]["max_delta_pct"] == max(quality[name]["delta_pct_by_key"].values())
         assert name in smoke, name
-    for gram, _, _ in tcodec._GRAMV3_RUNGS.values():
-        assert gram.rstrip("!") in rows and smoke[gram.rstrip("!")]["ok"], gram
+    grams = [r.name for ladder in tladder.LADDERS.values() for r in ladder
+             if r.kernel is tg3.GRAMV3]
+    assert len(grams) == 2
+    for gram in grams:
+        assert gram in rows and smoke[gram]["ok"], gram

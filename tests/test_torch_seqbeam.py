@@ -17,6 +17,7 @@ import torch
 from quantization_tpu import core as jcore
 from quantization_tpu.ops import seqbeam as jseq
 from quantization_tpu_torch import core as tcore
+from quantization_tpu_torch.ops import beam_common as tbeam
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops.quality_guard import MAX_SSE_REL, MIN_AGREEMENT, against_plain
 from quantization_tpu_torch.utils.torch_interop import params_from_numpy
@@ -94,12 +95,12 @@ def test_plain_matches_jax_interpret_logits_init(nc, kw):
     "altparity", "allfirst", "alllast", (True, False, True, False),
     ((True, True, False, False), (False, True, True, True), (True,) * 4)])
 def test_pool_mask_normalizes_like_jax(pool_mask):
-    assert tseq._normalize_pool_mask(pool_mask, 4, 3) == jseq._normalize_pool_mask(
+    assert tbeam.normalize_pool_mask(pool_mask, 4, 3) == jseq._normalize_pool_mask(
         pool_mask, 4, 3)
-    bits = tseq.pool_bits(pool_mask, 4, 3)
+    bits = tbeam.pool_bits(pool_mask, 4, 3)
     for word, mask in zip(bits, jseq._normalize_pool_mask(pool_mask, 4, 3)):
         assert word == sum(1 << t for t in range(4) if mask[t])
-    assert tseq.pool_bits(None, 4, 2) == (15, 15)
+    assert tbeam.pool_bits(None, 4, 2) == (15, 15)
 
 
 def test_unported_options_raise():

@@ -23,6 +23,7 @@ from quantization_tpu.ops import seqbeam as jseq
 from quantization_tpu_torch import core as tcore
 from quantization_tpu_torch.core import codec as tcodec
 from quantization_tpu_torch.ops import gramv3 as tg3
+from quantization_tpu_torch.ops import ladder as tladder
 from quantization_tpu_torch.ops import quality_guard as tguard
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops import verify as tverify
@@ -157,11 +158,11 @@ def test_knobs_refused_where_jax_refuses(search, kw):
 def test_guard_candidates_leave_auto_unchanged(monkeypatch):
     # the quality guard measures the promotion candidates beside the ladder;
     # auto's ladder, and so its choice, is the ladder alone
-    gram = {dim: [r[0] for r in [tcodec._GRAMV3_RUNGS.get((dim, nc))] if r]
-            for dim, nc in ((512, 8), (256, 4))}
-    ladder = {512: gram[512] + ["seqbeam_int8e_d512!", "seqbeam_hl_d512", "seqbeam_m16_d512"],
-              256: gram[256] + ["seqbeam_hl_d256"]}
-    first = {dim: names[0].rstrip("!") for dim, names in ladder.items()}
+    # (name, needs a quality row) of each rung
+    ladder = {512: [("gramv3_bf16_alt3_d512", True), ("seqbeam_int8e_d512", True),
+                    ("seqbeam_hl_d512", False), ("seqbeam_m16_d512", False)],
+              256: [("seqbeam_hl_d256", False)]}
+    first = {dim: rungs[0][0] for dim, rungs in ladder.items()}
     names = {"seqbeam_int8e_fi_d512", "seqbeam_int8e_bound_d512",
              "seqbeam_int8e_bound_fi_d512", "seqbeam_int8e_lazy_d512", "seqbeam_int8e_d256"}
     configs = {dim: tcore.QuantizerConfig(dim=dim, codebook_size=CS, num_codebooks=nc)
@@ -174,19 +175,21 @@ def test_guard_candidates_leave_auto_unchanged(monkeypatch):
     assert tcodec.auto_choice(configs[256], on_card, 5)[0] == first[256]
     seen = set()
     for dim, config in configs.items():
-        assert [n for n, _, _ in tcodec._auto_candidates(config)] == ladder[dim]
-        for name, passes, kw in tguard.CANDIDATES[dim]:
-            seen.add(name)
+        assert [(r.name, r.needs_quality) for r in tladder.rungs(config)] == ladder[dim]
+        for rung in tguard.CANDIDATES[dim]:
+            seen.add(rung.name)
+            assert rung.kernel is tseq.SEQBEAM
             # every candidate is a problem the port takes
-            tseq._check_variant(kw["M"], kw["R"], config.num_codebooks, passes,
+            kw, knobs = rung.beam, rung.knobs
+            tseq._check_variant(kw["M"], kw["R"], config.num_codebooks, rung.passes,
                                 kw.get("pool_mask"), kw["e_dtype"], "v2",
                                 kw.get("requant", "step"), kw.get("lazy_r1", False))
             tseq._check_knobs("v2", kw["e_dtype"], kw.get("lazy_r1", False), kw.get("pool_mask"),
-                              kw["block_b"], kw["interleave"], kw.get("zip_skew", 0), False,
-                              kw["reorder"], "lohi")
+                              knobs["block_b"], knobs["interleave"], knobs.get("zip_skew", 0),
+                              False, knobs["reorder"], "lohi")
     assert seen == names
     # even passing and better than the ladder, no candidate is chosen
-    rows = {n.rstrip("!"): 0.9 for n in ladder[512] + ladder[256]}
+    rows = {n: 0.9 for n, _ in ladder[512] + ladder[256]}
     rows.update({n: 0.1 for n in names})
     tables = {tverify.VERIFIED: {"results": {n: {"ok": True} for n in rows}},
               tverify.QUALITY: {"train_ratio_vs_torch": 1.0,

@@ -75,6 +75,29 @@ def _counts():
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
+def test_hand_built_tables_of_another_type_raise_at_construction(variant):
+    # the tables are checked once, where they are made, and no launch
+    # checks them again: a wrong dtype, a missing ring or a strided table
+    # raises TypeError at construction
+    q = _quantizer()
+    tables = _fresh(q.params, q.config, variant)
+    for f in dataclasses.fields(tseq.SeqbeamTables):
+        t = getattr(tables, f.name)
+        if t is None:
+            continue
+        if not f.name.startswith("chunks_"):
+            with pytest.raises(TypeError, match="seqbeam tables"):
+                dataclasses.replace(tables, **{f.name: t.double()})
+        if t.ndim > 1:
+            with pytest.raises(TypeError, match="contiguous"):
+                dataclasses.replace(tables, **{f.name: t.transpose(-2, -1)})
+    ring = ["chunks_bf16"] + (["chunks_i8"] if tables.centers_i8 is not None else [])
+    for name in ring:
+        with pytest.raises(TypeError, match="ring chunks"):
+            dataclasses.replace(tables, **{name: None})
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
 def test_unchanged_parameters_hit(variant):
     q = _quantizer()
     first = _problem(q.params, q.config, variant).tables
