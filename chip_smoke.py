@@ -3,7 +3,7 @@
 
 Phases, each of which raises (and exits nonzero) when its check fails:
 
-1. build the five CUDA sources of ``quantization_tpu_torch/csrc``, one
+1. build the six CUDA sources of ``quantization_tpu_torch/csrc``, one
    ``nvcc`` per source, started together;
 2. decode (K1) at B=65,536, d512: bit-exact against its plain PyTorch
    version on the card; kernel, plain and ``F.embedding_bag`` times;
@@ -25,7 +25,16 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    its reconstruction against the plain decode of those indexes
    (bit-exact).  The squared error on 8,192 of the frames must be within
    1.012 x the port's beam-5 on the same frames; encode and decode
-   vectors/s;
+   vectors/s.  The call launches the initial indexes' kernel
+   (``ops.logits_argmax``) once a search, counted apart.  Then that kernel
+   alone (``[logits_argmax ...]`` lines) at the bulk calls' 8,192 frames
+   (d512, d1280, d256) and the stream's 512 (d512): its tables' kernel
+   equal to their plain build bit for bit; its indexes and its
+   plain version's equal the f64 argmax wherever its top-two gap is decided
+   (``f64_argmax``), and each at least 99.95% of the other's and of the f32
+   GEMM's it replaced; its time beside its bound (the split product's TF32
+   operations), its plain version's and the library chain's (f32
+   ``torch.matmul``, bias, argmax);
 5. the Gram-table encode (K3) on the serving path: ``Quantizer.encode(x,
    search_method="gramv3")`` (5 passes, M=8, R=4) on the same 32,768 frames
    of both trained quantizers, with bf16 and int8 tables, and at d512 also
@@ -204,13 +213,14 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # dense tensor-core rates for bf16 and int8; "f32" is the rate of a plain
 # FP32 add outside the tensor cores: the 67e12/s of the data sheet counts an
 # FMA as two operations, so one add a cycle is half of it
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 33.5e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 33.5e12}
 ROOT = pathlib.Path(__file__).resolve().parent
 TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz",
            1280: ROOT / "quantization_tpu_torch/experiments/q1280_8_full.npz"}
 # auto's rungs: the timed build
 STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256", "seqbeam_int8e_d1280")
 PRED_DIMS = (512, 256)  # the predictor's quantizers (phase 10)
+LOGITS_SHAPES = ((512, 8192), (1280, 8192), (256, 8192), (512, 512))  # (dim, B): each cell's call
 DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
@@ -309,6 +319,7 @@ def main() -> int:
     from quantization_tpu_torch.ops import cuda_build
     from quantization_tpu_torch.ops import decode as K1
     from quantization_tpu_torch.ops import gramv3 as K3
+    from quantization_tpu_torch.ops import logits_argmax as LA
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.ladder import LADDERS
     from quantization_tpu_torch.ops.quality_guard import against_plain
@@ -320,7 +331,7 @@ def main() -> int:
           f" | {smi}", flush=True)
 
     # ---- 1. build
-    sources = ("decode", "seqbeam", "gramv3", "prim_bench", "int8_mxu_probe")
+    sources = ("decode", "seqbeam", "gramv3", "logits_argmax", "prim_bench", "int8_mxu_probe")
     build_s = cuda_build.build(sources)
     print(f"[build] {build_s:.1f} s", flush=True)
     for name in sources:
@@ -395,7 +406,7 @@ def main() -> int:
     # kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one)
     paths = []
     main_frames = {}  # dim -> (frames, beam-5 squared error on the first CHECK_B)
-    launches = {"decode": 0, "seqbeam_v2": 0, "gramv3": 0}
+    launches = {"decode": 0, "seqbeam_v2": 0, "gramv3": 0, "logits_argmax": 0}
     k1_checks = [{"where": "phase 2", "shape": k1["shape"], "max_abs_err": k1["max_abs_err"]}]
     k2_checks, main_k3_checks, main_bounds = [], [], {}
     for dim, qq in quantizers.items():
@@ -404,14 +415,18 @@ def main() -> int:
         kernel, counter, gram = auto["kernel"], auto["counter"], auto["kernel"] == "gramv3"
         K1.DECODE_KERNEL.launches = 0
         counter.launches = 0
+        n_init = LA.LOGITS_ARGMAX_KERNEL.launches
         codes = qq.encode(x)
         recon = qq.decode(codes, use_kernel=True)
         torch.cuda.synchronize()
         n_dec, n_enc = K1.DECODE_KERNEL.launches, counter.launches
+        n_init = LA.LOGITS_ARGMAX_KERNEL.launches - n_init
         check(n_enc > 0, f"d{dim}: encode(auto) did not launch the {kernel} kernel")
+        check(n_init == n_enc, f"d{dim}: {n_init} initial-index launches for {n_enc} searches")
         check(n_dec > 0, f"d{dim}: decode(use_kernel=True) did not launch the decode kernel")
         launches["decode"] += n_dec
         launches[kernel] += n_enc
+        launches["logits_argmax"] += n_init
         check(codes.dtype == torch.uint8 and codes.shape == (TIME_B, qq.config.bytes_per_frame),
               f"d{dim}: codes {codes.dtype} {tuple(codes.shape)}")
         check(recon.shape == x.shape and bool(torch.isfinite(recon).all()),
@@ -471,6 +486,9 @@ def main() -> int:
               f"{path['quality_delta_pct']:+.3f}% vs beam-5 on {CHECK_B} frames; "
               f"encode {path['encode_ms']:.3f} ms = init+tables {prep_ms:.3f} + kernel "
               f"{kernel_ms:.3f} + rest; launches {path['launches']}", flush=True)
+
+    # the initial indexes' kernel alone
+    k_init = logits_phase(quantizers, frames)
 
     # ---- 5. K3 on the serving path; 6. training at full width
     gram_paths, k3_configs, k3_checks, n_k3, k3_stages = gram_phase(quantizers, main_frames)
@@ -564,7 +582,8 @@ def main() -> int:
              for c in train_checks + aux["checks"]]
     runs += [(k, n, p["encode_kernel_ms"], bounds[p["config"]])
              for p in rest["paths"] for k, n in p["launches"].items()]
-    kernels = [k1, k2, k3, k_v1, *probes]
+    k_init["launches"] = launches["logits_argmax"]
+    kernels = [k1, k2, k3, k_v1, k_init, *probes]
     for k in kernels:
         k["launches_x_excess_ms"] = (
             sum(n * (ms - b) for name, n, ms, b in runs if name == k["name"])
@@ -585,6 +604,90 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+@torch.no_grad()
+def logits_phase(quantizers: dict, frames) -> dict:
+    """The initial indexes' kernel (``ops.logits_argmax``) at
+    :data:`LOGITS_SHAPES`, on the trained quantizers' frames: its indexes
+    and its plain version's equal the f64 argmax wherever that is decided,
+    and each at least 99.95% of the other's and of the f32 GEMM chain's it
+    replaced; its time, its plain version's, the chain's (``library_ms``:
+    f32 ``torch.matmul``, bias, argmax, cast), its tables' build (one kernel,
+    equal to their plain build bit for bit) and its bound (3 x 2 B D K
+    TF32 operations, or the frames, both weight halves, the bias and the
+    indexes at the memory rate).  ``max_abs_err`` is the largest difference
+    of the f64 logits at the kernel's and at the plain version's index.
+    Returns its ``kernels`` entry, the times those of the first shape; its
+    launches are counted by the caller, from the main path's runs."""
+    from quantization_tpu_torch.core import search
+    from quantization_tpu_torch.ops import logits_argmax as LA
+    from quantization_tpu_torch.utils.device import device_ms
+
+    configs, checks = [], []
+    for dim, B in LOGITS_SHAPES:
+        q = quantizers[dim]
+        x = frames(dim, 14, B)
+        nc, K = q.num_codebooks, q.num_codebooks * q.codebook_size
+        inputs = LA.table_inputs(q.params, q.config.scale_speed)
+        tables, tables_plain = LA.logits_tables(*inputs), LA.logits_tables_plain(*inputs)
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in (
+            (tables.w_hi, tables_plain.w_hi), (tables.w_lo, tables_plain.w_lo))),
+              f"logits_argmax d{dim}: the tables' kernel differs from their plain build")
+        got = LA.logits_argmax_cuda(x, tables)
+        plain = LA.logits_argmax_plain(x, tables)
+        want, decided = LA.f64_argmax(q.params, q.config, x)
+        shape = f"B={B} D={dim} nc={nc}"
+        check(bool(torch.equal(got[decided], want[decided])),
+              f"logits_argmax {shape}: differs from the f64 argmax where decided")
+        check(bool(torch.equal(plain[decided], want[decided])),
+              f"logits_argmax {shape}: the plain version differs from the f64 argmax where "
+              f"decided")
+
+        def chain():
+            return search.compute_logits(q.params, q.config, x).argmax(-1).to(torch.int32)
+
+        agreement = float((got == chain()).float().mean())
+        check(agreement >= 0.9995, f"logits_argmax {shape}: {agreement} equal to the f32 GEMM")
+        plain_agreement = float((got == plain).float().mean())
+        check(plain_agreement >= 0.9995,
+              f"logits_argmax {shape}: {plain_agreement} equal to its plain version")
+        w, b = LA.scaled_logits(q.params, q.config.scale_speed)
+        logits = (x.double() @ w.double().t() + b.double()).reshape(B, nc, -1)
+        err = float((logits.gather(2, got.long()[..., None])
+                     - logits.gather(2, plain.long()[..., None])).abs().max())
+        del logits
+        entry = {
+            "config": f"d{dim}", "shape": shape, "decided": float(decided.float().mean()),
+            "gemm_agreement": agreement, "plain_agreement": plain_agreement,
+            "max_abs_err": err,
+            "ms": device_ms(lambda: LA.logits_argmax_cuda(x, tables), 20),
+            "plain_ms": device_ms(lambda: LA.logits_argmax_plain(x, tables), 3),
+            "library_ms": device_ms(chain, 20),
+            "tables_ms": device_ms(lambda: LA.logits_tables(*inputs), 20),
+            "tables_plain_ms": device_ms(lambda: LA.logits_tables_plain(*inputs), 20),
+            **_bound(B * dim * 4 + 2 * K * tables.padded_dim * 4 + K * 4 + B * nc * 4,
+                     {"tf32": 3 * 2 * B * dim * K}),
+        }
+        configs.append(entry)
+        checks.append({"where": "logits_argmax", "shape": shape, "frames": B,
+                       "index_agreement": plain_agreement, "max_abs_err": err})
+        print(f"[logits_argmax d{dim}] {shape}: kernel and plain equal to the f64 argmax where "
+              f"decided ({entry['decided']:.6f} of entries); kernel {agreement:.6f} equal to "
+              f"the f32 GEMM, {plain_agreement:.6f} to plain (f64 logit gap {err:.3g}); kernel "
+              f"{entry['ms']:.4f} ms, library chain {entry['library_ms']:.4f} ms, plain "
+              f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}); tables built {entry['tables_ms']:.4f} ms (equal to the "
+              f"plain build's, {entry['tables_plain_ms']:.4f} ms)", flush=True)
+    return {
+        "name": "logits_argmax", "route": "cuda",
+        "source": "quantization_tpu_torch/csrc/logits_argmax.cu",
+        "replaces": "none (the f32 GEMM, bias and argmax chain of the initial indexes)",
+        **{k: configs[0][k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")},
+        "max_abs_err": max(c["max_abs_err"] for c in checks), "checks": checks,
+        "configs": configs,
+    }
 
 
 @torch.no_grad()
@@ -1705,6 +1808,7 @@ def parallel_phase(q, x, sampler, dev) -> dict:
     import torch.distributed as dist
 
     from quantization_tpu_torch import QuantizerTrainer
+    from quantization_tpu_torch.ops import logits_argmax as LA
     from quantization_tpu_torch.parallel import (decode_sharded, encode_sharded,
                                                  init_distributed, make_mesh)
     from quantization_tpu_torch.utils.torch_interop import PARAM_FIELDS
@@ -1742,6 +1846,7 @@ def parallel_phase(q, x, sampler, dev) -> dict:
         mesh = make_mesh(device=dev)
         for c in counters.values():
             c.launches = 0
+        n_init = LA.LOGITS_ARGMAX_KERNEL.launches
         codes = encode_sharded(q.params, q.config, x, mesh)
         recon = decode_sharded(q.params, q.config, codes, mesh, use_kernel=True)
         t = QuantizerTrainer(mesh=mesh, **PARALLEL_TRAIN, **searches["gramv3"])
@@ -1750,6 +1855,9 @@ def parallel_phase(q, x, sampler, dev) -> dict:
         check(launches_as_expected(got, auto_kernel),
               f"phase 11 (a): launches {got}: auto's {auto_kernel} and K1, and K3 once a "
               f"phase-2 step")
+        n_init = LA.LOGITS_ARGMAX_KERNEL.launches - n_init
+        check(n_init == got["seqbeam_v2"] + got["gramv3"],
+              f"phase 11 (a): {n_init} initial-index launches, not one a search ({got})")
         check(bool(torch.equal(codes, codes_ref)), "phase 11 (a): encode_sharded codes differ")
         check(bool(torch.equal(recon, recon_ref)), "phase 11 (a): decode_sharded differs")
         diffs = {f: float((getattr(t.params, f) - getattr(ref["gramv3"].params, f)).detach().abs().max())
@@ -1761,6 +1869,7 @@ def parallel_phase(q, x, sampler, dev) -> dict:
         dist.destroy_process_group()
     for k, v in got.items():
         launches[k] += v
+    launches["logits_argmax"] = n_init
     out["nccl_1_rank"] = {"launches": got, "codes_equal": True, "decode_equal": True,
                           "trainer_params_equal": True, "encode_s": enc_s,
                           "train_steps_s": train_s}

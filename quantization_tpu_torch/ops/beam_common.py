@@ -3,19 +3,16 @@
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import functools
-import threading
-import weakref
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..core import search as _search
-from ..core.types import QuantizerConfig, QuantizerParams, scaled_centers
-from ..utils.spans import span
+from ..core.types import QuantizerConfig, QuantizerParams
 from .cuda_build import CudaKernel
+from .logits_argmax import logits_argmax
+from .tables_cache import TablesCache
 
 LANE_BITS = 8
 LANE_MASK = (1 << LANE_BITS) - 1
@@ -75,84 +72,16 @@ def pool_bits(pool_mask, nc: int, passes: int) -> Tuple[int, ...]:
     return tuple(sum(1 << t for t in range(nc) if m[t]) for m in pm)
 
 
-class TablesCache:
-    """A kernel's codebook tables for the last ``size`` parameter versions
-    and variants, so that an encode with frozen parameters builds them once.
-    A miss builds ``tables(scaled centers, *variant)`` in the kernel's
-    ``<name>.tables`` span.
-
-    An entry is keyed by the centers and their log-scale (the tensor
-    objects, held weakly: an entry keeps no parameter alive and goes when
-    either is freed), the scale speed and the variant (a tuple of the
-    kernel's table options).  It stands while both tensors keep the version
-    counters, storage, device and dtype they had at its build.  In-place
-    writes bump the counters (an optimiser's step, ``copy_``,
-    ``load_state_dict``); a write through ``.data``, through another
-    library's view of the same memory or by a collective bumps nothing and
-    is not seen.  Inference tensors keep no counter, so under
-    ``torch.inference_mode`` the tables are built each call.  Every hit
-    shares the entry's tables: no consumer writes into them.  Only a build
-    is recorded by the span; ``hits`` and ``misses`` count the lookups."""
-
-    def __init__(self, size: int, name: str, tables):
-        self.size, self.name, self.tables = size, name, tables
-        self.hits = self.misses = 0
-        self._entries: collections.OrderedDict = collections.OrderedDict()
-        # reentrant: a weakref callback can run inside a locked block
-        self._lock = threading.RLock()
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._entries.clear()
-
-    def get(self, params: QuantizerParams, scale_speed: float, *variant):
-        """The tables of ``params`` for the variant, from the cache or
-        built and stored."""
-        c, s = params.centers, params.centers_scale
-        if torch.is_inference_mode_enabled() or c.is_inference() or s.is_inference():
-            return self.build(params, scale_speed, variant)
-        key = (id(c), id(s), float(scale_speed), variant)
-        state = (c._version, s._version, c.data_ptr(), s.data_ptr(), c.device, c.dtype, s.dtype)
-        with self._lock:
-            entry = self._entries.get(key)
-            if entry is not None and entry[0]() is c and entry[1]() is s and entry[2] == state:
-                self._entries.move_to_end(key)
-                self.hits += 1
-                return entry[3]
-            self.misses += 1
-        tables = self.build(params, scale_speed, variant)
-        drop = functools.partial(self._drop, key)
-        with self._lock:
-            self._entries[key] = (weakref.ref(c, drop), weakref.ref(s, drop), state, tables)
-            self._entries.move_to_end(key)
-            while len(self._entries) > self.size:
-                self._entries.popitem(last=False)
-        return tables
-
-    @torch.no_grad()  # tables with a graph would keep the parameters alive
-    def build(self, params: QuantizerParams, scale_speed: float, variant):
-        with span(f"{self.name}.tables"):
-            return self.tables(scaled_centers(params, scale_speed), *variant)
-
-    def _drop(self, key, ref) -> None:
-        """A weakref's callback: remove ``key``'s entry if ``ref`` is one of
-        its references (a newer entry under the key has its own)."""
-        with self._lock:
-            entry = self._entries.get(key)
-            if entry is not None and (entry[0] is ref or entry[1] is ref):
-                del self._entries[key]
-
-
 def initial_indexes(params: QuantizerParams, config: QuantizerConfig, x: torch.Tensor,
                     init_indexes: Optional[torch.Tensor] = None,
                     init_precision: str = "highest") -> torch.Tensor:
     """(B, nc) int32 initial indexes of (B, dim) f32 frames: the caller's
     ``init_indexes`` (shape and range checked, one host sync), or the logits
     argmax in f32 ("highest") or of bf16-rounded operands with f32 sums
-    ("default", the TPU's single-pass matmul), lowest index on ties."""
+    ("default", the TPU's single-pass matmul), lowest index on ties.
+    "highest" on the card is one kernel (``ops/logits_argmax.py``:
+    split-TF32 products, f32-faithful); on the CPU it is
+    ``compute_logits``' argmax."""
     if init_indexes is not None:
         idx0 = init_indexes.to(device=x.device, dtype=torch.int32).contiguous()
         if idx0.shape != (x.shape[0], config.num_codebooks) or bool(
@@ -160,6 +89,8 @@ def initial_indexes(params: QuantizerParams, config: QuantizerConfig, x: torch.T
             raise ValueError("init_indexes must be (B, nc) codeword ids in [0, codebook_size)")
         return idx0
     if init_precision == "highest":
+        if x.is_cuda:
+            return logits_argmax(params, config, x)
         logits = _search.compute_logits(params, config, x)
     elif init_precision == "default":
         scale = torch.exp(params.logits_scale * config.scale_speed)

@@ -54,9 +54,10 @@ import torch
 from ..core.types import QuantizerConfig, QuantizerParams
 from ..utils.device import dispatch
 from ..utils.spans import span
-from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, TablesCache, as_float,
+from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, as_float,
                           initial_indexes, on_one_device, packed_keys, pool_bits)
 from .cuda_build import CFunction, CudaKernel
+from .tables_cache import TablesCache
 
 G_DTYPES = {"bf16": 0, "int8": 1}
 CS = 256

@@ -63,10 +63,11 @@ from ..core.types import QuantizerConfig, QuantizerParams
 from ..utils.device import dispatch
 from ..utils.spans import span
 from . import cuda_build
-from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, TablesCache, as_float,
+from .beam_common import (LANE_BITS, LANE_MASK, MAX_PASSES, SearchKernel, as_float,
                           initial_indexes, normalize_pool_mask, on_one_device, packed_keys,
                           pool_bits)
 from .cuda_build import CudaKernel
+from .tables_cache import TablesCache
 
 E_DTYPES = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16), "int8": (2, torch.int8)}
 REQUANTS = {"step": 0, "pass": 1, "bound": 2}

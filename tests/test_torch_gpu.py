@@ -21,12 +21,15 @@ import torch
 import quantization_tpu_torch as qtt
 from quantization_tpu_torch.core import QuantizerConfig
 from quantization_tpu_torch.core import codec as tcodec
+from quantization_tpu_torch.core import search as tsearch
 from quantization_tpu_torch.data.synthetic import make_mlp_sampler
 from quantization_tpu_torch.experiments import int8_mxu_probe as tprobe
 from quantization_tpu_torch.experiments import prim_bench as tprim
 from quantization_tpu_torch.ops import decode as tdecode
+from quantization_tpu_torch.ops import beam_common as tbeam
 from quantization_tpu_torch.ops import gramv3 as tg3
 from quantization_tpu_torch.ops import ladder as tladder
+from quantization_tpu_torch.ops import logits_argmax as tla
 from quantization_tpu_torch.ops import seqbeam as tseq
 from quantization_tpu_torch.ops import verify as tverify
 from quantization_tpu_torch.ops.quality_guard import against_plain
@@ -427,15 +430,17 @@ def test_auto_encode_on_card_records_the_seven_spans_once_a_call(cuda, kernel, m
     init, tables, launch = (f"{kernel}.{s}" for s in ("init", "tables", "launch"))
     parent = {"codec.choose": "quantizer.encode", "codec.search": "quantizer.encode",
               init: "codec.search", tables: "codec.search", launch: "codec.search",
-              "codec.pack": "quantizer.encode"}
+              "logits_argmax.tables": init, "codec.pack": "quantizer.encode"}
     for i, call in enumerate(calls):
         inner = sorted((r for r in records if r.call_id == call.span_id and r is not call),
                        key=lambda r: r.start_ns)
-        # the first call builds the tables; the later ones find them cached.
-        # seqbeam's init (the logits argmax) comes before its tables; gramv3's
-        # init (argmax, cross terms, root scores) reads its tables
+        # the first call builds the tables (the init's split weights inside
+        # the init); the later ones find them cached.  seqbeam's init (the
+        # logits argmax) comes before its tables; gramv3's init (argmax,
+        # cross terms, root scores) reads its tables
         built = [tables] if i == 0 else []
-        search = [init, *built] if kernel == "seqbeam" else [*built, init]
+        init_built = [init, "logits_argmax.tables"] if i == 0 else [init]
+        search = [*init_built, *built] if kernel == "seqbeam" else [*built, *init_built]
         assert [r.name for r in inner] == ["codec.choose", "codec.search", *search, launch,
                                            "codec.pack"]
         assert inner[0].attrs == {"rung": _rung(q.config, kernel).name}
@@ -507,6 +512,85 @@ def test_auto_gramv3_rung_equals_plain_at_8192_frames(cuda, path):
     problem = tg3.gramv3_problem(q.params, q.config, x, passes=passes, **kw)
     # the same f32 sums of the bf16 table in the same order
     assert torch.equal(got, tg3.gramv3_plain(problem))
+
+
+# the initial indexes' kernel (ops/logits_argmax.py) on the trained quantizers
+LOGITS_QUANTIZERS = {256: Q256, 512: Q512, 1280: Q1280}
+
+
+def _logits_case(cuda, dim, B, seed=11):
+    q = qtt.load_quantizer(LOGITS_QUANTIZERS[dim], device=cuda)
+    x = make_mlp_sampler(dim, device=cuda)(torch.Generator().manual_seed(seed), B)
+    return q, x, tla.TABLES_CACHE.get(q.params, q.config.scale_speed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 63, 512, 8192, 8193])  # the 64-frame tile, a ragged last one
+@pytest.mark.parametrize("dim", list(LOGITS_QUANTIZERS))
+def test_cuda_logits_argmax_equals_the_f64_argmax_wherever_decided(cuda, dim, B):
+    q, x, tables = _logits_case(cuda, dim, B)
+    got = _launched_once(tla.LOGITS_ARGMAX_KERNEL, lambda: tla.logits_argmax_cuda(x, tables))
+    want, decided = tla.f64_argmax(q.params, q.config, x)
+    assert torch.equal(got[decided], want[decided])
+    assert torch.equal(tla.logits_argmax_plain(x, tables)[decided], want[decided])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", list(LOGITS_QUANTIZERS))
+def test_cuda_logits_argmax_agrees_with_the_f32_gemm_it_replaced(cuda, dim):
+    q, x, _ = _logits_case(cuda, dim, 8192, seed=12)
+    got = tbeam.initial_indexes(q.params, q.config, x)
+    gemm = tsearch.compute_logits(q.params, q.config, x).argmax(-1).to(torch.int32)
+    assert float((got == gemm).float().mean()) >= 0.9995
+
+
+@pytest.mark.gpu
+def test_cuda_logits_argmax_ties_and_nans_follow_torch_argmax(cuda):
+    q = qtt.Quantizer(64, 256, 2, generator=torch.Generator().manual_seed(0), device=cuda)
+    x = torch.randn(300, 64, generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.no_grad():
+        w, b = q.params.to_logits_w, q.params.to_logits_b
+        w[9] = w[5]  # codebook 0: columns 5 and 9 tie, above the rest
+        b[5] = b[9] = 1e3
+        w[256:512] = 0.0  # codebook 1: every column 0, but two NaN columns
+        b[256:512] = 0.0
+        b[256 + 200] = b[256 + 100] = float("nan")
+    x[3, 7] = float("nan")  # a frame of NaN logits
+    got = tbeam.initial_indexes(q.params, q.config, x)
+    rest = torch.arange(300, device=cuda) != 3
+    assert got[rest, 0].eq(5).all() and got[rest, 1].eq(100).all() and got[3].eq(0).all()
+    tables = tla.TABLES_CACHE.get(q.params, q.config.scale_speed)
+    assert torch.equal(got, tla.logits_argmax_plain(x, tables))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [*LOGITS_QUANTIZERS, 80])  # 80: dims padded to 96
+def test_cuda_logits_tables_equal_the_plain_build_bit_for_bit(cuda, dim):
+    if dim in LOGITS_QUANTIZERS:
+        q = qtt.load_quantizer(LOGITS_QUANTIZERS[dim], device=cuda)
+    else:
+        q = qtt.Quantizer(dim, 256, 4, generator=torch.Generator().manual_seed(2), device=cuda)
+    inputs = tla.table_inputs(q.params, q.config.scale_speed)
+    with torch.no_grad():
+        got = _launched_once(tla.LOGITS_TABLES_KERNEL, lambda: tla.logits_tables(*inputs))
+        want = tla.logits_tables_plain(*inputs)
+    for a, b in ((got.w_hi, want.w_hi), (got.w_lo, want.w_lo), (got.bias, want.bias)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert got.dim == want.dim == dim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", list(SEARCH_KERNELS))
+def test_auto_encode_on_card_launches_the_init_kernel_once_a_call(cuda, kernel, monkeypatch):
+    _auto_takes(monkeypatch, kernel)
+    q = qtt.load_quantizer(Q512, device=cuda)
+    x = make_mlp_sampler(512, device=cuda)(torch.Generator().manual_seed(13), 2048)
+    init, search = tla.LOGITS_ARGMAX_KERNEL.launches, SEARCH_KERNELS[kernel].entry.launches
+    for _ in range(3):
+        q.encode(x)
+    torch.cuda.synchronize()
+    assert tla.LOGITS_ARGMAX_KERNEL.launches == init + 3
+    assert SEARCH_KERNELS[kernel].entry.launches == search + 3
 
 
 def _gramv3_case(cuda, nc, dim, B, seed=5, **kw):
