@@ -15,11 +15,16 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    E) the stage-timed build (``ops.seqbeam.seqbeam_stages``) gives the
    same indexes and prints the ``[seqbeam stages]`` line: each stage's
    share of the warps' cycles and its microseconds a block-step;
-4. the main path, for the three committed trained quantizers:
+4. the main path, for the four committed trained quantizers (d512 / 8 B,
+   d256 / 4 B, d1280 / 8 B and d1280 / 16 B):
    ``load_quantizer`` -> ``Quantizer.encode(x)`` (``search_method="auto"``)
    -> ``decode(codes, use_kernel=True)`` on 32,768 frames, with the launch
    counts set to 0 just before and read just after, of whichever search
-   kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one).  The path's
+   kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one); on a gramv3
+   rung its launches by codebooks (``ops.gramv3.NC_LAUNCHES``) and its
+   ``gramv3.launch`` spans (``g_dtype``, ``nc``) must count them, and at
+   d1280 / 16 B (K3 at 16 codebooks) the stage-timed build prints its
+   ``[gramv3 stages]`` entry.  The path's
    own outputs are held against the plain versions on its own inputs: its
    indexes against that kernel's plain version (the bars of phase 3) and
    its reconstruction against the plain decode of those indexes
@@ -28,7 +33,7 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    vectors/s.  The call launches the initial indexes' kernel
    (``ops.logits_argmax``) once a search, counted apart.  Then that kernel
    alone (``[logits_argmax ...]`` lines) at the bulk calls' 8,192 frames
-   (d512, d1280, d256) and the stream's 512 (d512): its tables' kernel
+   (d512, d1280, d256, d1280 / 16 B) and the stream's 512 (d512): its tables' kernel
    equal to their plain build bit for bit; its indexes and its
    plain version's equal the f64 argmax wherever its top-two gap is decided
    (``f64_argmax``), and each at least 99.95% of the other's and of the f32
@@ -215,12 +220,18 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # FMA as two operations, so one add a cycle is half of it
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 33.5e12}
 ROOT = pathlib.Path(__file__).resolve().parent
-TRAINED = {512: ROOT / "experiments/q512_8_full.npz", 256: ROOT / "experiments/q256_4_full.npz",
-           1280: ROOT / "quantization_tpu_torch/experiments/q1280_8_full.npz"}
+# the committed trained quantizers by (dim, num_codebooks), and each dim's first
+TRAINED = {(512, 8): ROOT / "experiments/q512_8_full.npz",
+           (256, 4): ROOT / "experiments/q256_4_full.npz",
+           (1280, 8): ROOT / "quantization_tpu_torch/experiments/q1280_8_full.npz",
+           (1280, 16): ROOT / "quantization_tpu_torch/experiments/q1280_16_full.npz"}
+FIRST = {512: (512, 8), 256: (256, 4), 1280: (1280, 8)}
 # auto's rungs: the timed build
 STAGE_CONFIGS = ("seqbeam_int8e_d512", "seqbeam_hl_d256", "seqbeam_int8e_d1280")
 PRED_DIMS = (512, 256)  # the predictor's quantizers (phase 10)
-LOGITS_SHAPES = ((512, 8192), (1280, 8192), (256, 8192), (512, 512))  # (dim, B): each cell's call
+# (quantizer, B): each cell's call
+LOGITS_SHAPES = (((512, 8), 8192), ((1280, 8), 8192), ((256, 4), 8192), ((512, 8), 512),
+                 ((1280, 16), 8192))
 DECODE_B = 65536
 CHECK_B = 8192
 TIME_B = 32768
@@ -229,6 +240,8 @@ V1 = dict(impl="v1", M=16, R=8)  # the JAX wrapper's defaults
 V1_PASSES = 3
 GRAM_CONFIGS = ((512, "bf16", None), (512, "int8", None), (512, "bf16", "altparity"),
                 (256, "bf16", None), (256, "int8", None))  # (dim, g_dtype, pool_mask)
+# auto's K3 rungs whose stage-timed build phase 4 runs on the main path
+GRAM_STAGE_RUNGS = ("gramv3_bf16_alt4_d1280_b16",)
 GRAM_PASSES = 5  # encode's default refine_indexes_iters
 TRAIN_BATCH = 600  # the CLI's default batch (quantization_tpu/cli.py:243)
 TRAIN = dict(dim=512, bytes_per_frame=8, phase_one_iters=4, phase_two_iters=6, seed=0,
@@ -323,6 +336,7 @@ def main() -> int:
     from quantization_tpu_torch.ops import seqbeam as K2
     from quantization_tpu_torch.ops.ladder import LADDERS
     from quantization_tpu_torch.ops.quality_guard import against_plain
+    from quantization_tpu_torch.utils import spans
     from quantization_tpu_torch.utils.device import device_ms, nvidia_smi_line
 
     dev = torch.device("cuda")
@@ -338,14 +352,14 @@ def main() -> int:
         regs = [l.strip() for l in cuda_build.build_log(name).splitlines() if "registers" in l]
         print(f"[build] {name}: {len(regs)} kernels; {regs[0] if regs else ''}", flush=True)
 
-    quantizers = {dim: load_quantizer(path, device=dev) for dim, path in TRAINED.items()}
-    samplers = {dim: make_mlp_sampler(dim, device=dev) for dim in TRAINED}
+    quantizers = {key: load_quantizer(path, device=dev) for key, path in TRAINED.items()}
+    samplers = {dim: make_mlp_sampler(dim, device=dev) for dim, _ in TRAINED}
 
     def frames(dim, seed, n):
         return samplers[dim](torch.Generator().manual_seed(seed), n)
 
     # ---- 2. decode, K1
-    q = quantizers[512]
+    q = quantizers[FIRST[512]]
     nc, cs, D = q.num_codebooks, q.codebook_size, q.dim
     cb = scaled_centers(q.params, q.config.scale_speed).detach().to(torch.bfloat16).contiguous()
     idx = torch.randint(0, cs, (DECODE_B, nc), dtype=torch.int32,
@@ -375,9 +389,9 @@ def main() -> int:
 
     # ---- 3. encode, K2, at every K2 rung of auto's ladder
     k2_configs, stage_lines = [], []
-    for dim, rung in [(dim, r) for (dim, _), rungs in LADDERS.items() for r in rungs
+    for key, rung in [(key, r) for key, rungs in LADDERS.items() for r in rungs
                       if r.kernel is K2.SEQBEAM]:
-        qq = quantizers[dim]
+        qq, dim = quantizers[key], key[0]
         name, passes, sem = rung.name, rung.passes, rung.beam
         pt = K2.seqbeam_problem(qq.params, qq.config, frames(dim, 8, TIME_B), passes=passes,
                                 **sem)
@@ -405,23 +419,33 @@ def main() -> int:
     # ---- 4. the main path, per trained quantizer, through whichever search
     # kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one)
     paths = []
-    main_frames = {}  # dim -> (frames, beam-5 squared error on the first CHECK_B)
+    main_frames = {}  # quantizer -> (frames, beam-5 squared error on the first CHECK_B)
     launches = {"decode": 0, "seqbeam_v2": 0, "gramv3": 0, "logits_argmax": 0}
     k1_checks = [{"where": "phase 2", "shape": k1["shape"], "max_abs_err": k1["max_abs_err"]}]
-    k2_checks, main_k3_checks, main_bounds = [], [], {}
-    for dim, qq in quantizers.items():
+    k2_checks, main_k3_checks, main_bounds, main_stage_lines = [], [], {}, []
+    for key, qq in quantizers.items():
+        dim, nc = key
         x = frames(dim, 9, TIME_B)
         auto = auto_search(qq.config, x)
         kernel, counter, gram = auto["kernel"], auto["counter"], auto["kernel"] == "gramv3"
         K1.DECODE_KERNEL.launches = 0
         counter.launches = 0
         n_init = LA.LOGITS_ARGMAX_KERNEL.launches
+        n_nc = K3.NC_LAUNCHES[nc]
+        spans.start()
         codes = qq.encode(x)
+        records = spans.stop()
         recon = qq.decode(codes, use_kernel=True)
         torch.cuda.synchronize()
         n_dec, n_enc = K1.DECODE_KERNEL.launches, counter.launches
         n_init = LA.LOGITS_ARGMAX_KERNEL.launches - n_init
         check(n_enc > 0, f"d{dim}: encode(auto) did not launch the {kernel} kernel")
+        if gram:  # the kernel's launches by codebooks, and its span's attributes
+            launch_attrs = [r.attrs for r in records if r.name == "gramv3.launch"]
+            check(K3.NC_LAUNCHES[nc] - n_nc == n_enc and launch_attrs == [
+                {"g_dtype": auto["kw"]["g_dtype"], "nc": nc}] * n_enc,
+                f"d{dim} nc={nc}: NC_LAUNCHES {K3.NC_LAUNCHES} and gramv3.launch spans "
+                f"{launch_attrs} for {n_enc} launches")
         check(n_init == n_enc, f"d{dim}: {n_init} initial-index launches for {n_enc} searches")
         check(n_dec > 0, f"d{dim}: decode(use_kernel=True) did not launch the decode kernel")
         launches["decode"] += n_dec
@@ -449,13 +473,13 @@ def main() -> int:
               f"d{dim}: decode(use_kernel=True) is not bit-exact against the plain decode")
         k1_checks.append({"where": f"main path d{dim}", "max_abs_err": dec_err,
                           "shape": f"B={TIME_B} nc={qq.num_codebooks} cs={qq.codebook_size} D={dim}"})
-        print(f"[main d{dim}] vs plain on the path's own inputs ({shape}): {kernel} agreement "
+        print(f"[main d{dim}_b{nc}] vs plain on the path's own inputs ({shape}): {kernel} agreement "
               f"{chk['index_agreement']:.6f}, sse rel diff {chk['sse_rel_diff']:+.2e}; "
               f"decode bit-exact", flush=True)
         xs, cs_ = x[:CHECK_B], codes[:CHECK_B]
         beam5 = qq.encode(xs, search_method="beam")
         sse_beam = float(((qq.decode(beam5) - xs) ** 2).sum())
-        main_frames[dim] = (x, sse_beam)
+        main_frames[key] = (x, sse_beam)
         sse_auto = float(((qq.decode(cs_) - xs) ** 2).sum())
         sse_auto_k1 = float(((recon[:CHECK_B] - xs) ** 2).sum())
         ratio = sse_auto / sse_beam
@@ -468,6 +492,12 @@ def main() -> int:
         # Python)
         prep_ms = device_ms(lambda: make(qq.params, qq.config, x, passes=passes, **sem), 3)
         kernel_ms = device_ms(lambda: run(problem), 3)
+        if auto["name"] in GRAM_STAGE_RUNGS:
+            from quantization_tpu_torch.experiments.gramv3_times import \
+                stage_breakdown as gram_stages
+
+            st = gram_stages(problem)
+            main_stage_lines.append(f"{auto['name']} ({st['summary']})")
         path = {
             "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": auto["name"],
             "batch": TIME_B, "launches": {kernel: n_enc, "decode": n_dec},
@@ -493,6 +523,7 @@ def main() -> int:
     # ---- 5. K3 on the serving path; 6. training at full width
     gram_paths, k3_configs, k3_checks, n_k3, k3_stages = gram_phase(quantizers, main_frames)
     k3_checks = main_k3_checks + k3_checks
+    k3_stages = k3_stages + main_stage_lines
     print("[gramv3 stages] share of the warps' cycles, us a frame-step: " + "; ".join(k3_stages),
           flush=True)
     train_paths, train_checks = train_phase(samplers[512], dev)
@@ -519,7 +550,7 @@ def main() -> int:
     # ---- 8. the primitive probes
     probes = probe_phase(dev)
     # ---- 9. the CLI at full width, and traces of training steps
-    cli = cli_phase(quantizers[512], samplers[512], paths[0], dev)
+    cli = cli_phase(quantizers[FIRST[512]], samplers[512], paths[0], dev)
     # ---- 10. the aux models at full width (its CLI run is in phase 9's corpus)
     aux = aux_phase(samplers, dev)
     for c in aux["checks"]:
@@ -529,7 +560,7 @@ def main() -> int:
           f"({cli['train_multi_kmeans']['train_s']:.1f} s of it the CLI's train in phase 9)",
           flush=True)
     # ---- 11. multi-device runs: one rank over NCCL, two ranks over gloo
-    par = parallel_phase(quantizers[512], main_frames[512][0], samplers[512], dev)
+    par = parallel_phase(quantizers[FIRST[512]], main_frames[FIRST[512]][0], samplers[512], dev)
     for kernel, n in par["launches"].items():
         launches[kernel] += n
     # ---- 12. the quality-parity run
@@ -625,8 +656,8 @@ def logits_phase(quantizers: dict, frames) -> dict:
     from quantization_tpu_torch.utils.device import device_ms
 
     configs, checks = [], []
-    for dim, B in LOGITS_SHAPES:
-        q = quantizers[dim]
+    for key, B in LOGITS_SHAPES:
+        q, dim = quantizers[key], key[0]
         x = frames(dim, 14, B)
         nc, K = q.num_codebooks, q.num_codebooks * q.codebook_size
         inputs = LA.table_inputs(q.params, q.config.scale_speed)
@@ -658,7 +689,7 @@ def logits_phase(quantizers: dict, frames) -> dict:
                      - logits.gather(2, plain.long()[..., None])).abs().max())
         del logits
         entry = {
-            "config": f"d{dim}", "shape": shape, "decided": float(decided.float().mean()),
+            "config": f"d{dim}_b{nc}", "shape": shape, "decided": float(decided.float().mean()),
             "gemm_agreement": agreement, "plain_agreement": plain_agreement,
             "max_abs_err": err,
             "ms": device_ms(lambda: LA.logits_argmax_cuda(x, tables), 20),
@@ -672,7 +703,7 @@ def logits_phase(quantizers: dict, frames) -> dict:
         configs.append(entry)
         checks.append({"where": "logits_argmax", "shape": shape, "frames": B,
                        "index_agreement": plain_agreement, "max_abs_err": err})
-        print(f"[logits_argmax d{dim}] {shape}: kernel and plain equal to the f64 argmax where "
+        print(f"[logits_argmax d{dim}_b{nc}] {shape}: kernel and plain equal to the f64 argmax where "
               f"decided ({entry['decided']:.6f} of entries); kernel {agreement:.6f} equal to "
               f"the f32 GEMM, {plain_agreement:.6f} to plain (f64 logit gap {err:.3g}); kernel "
               f"{entry['ms']:.4f} ms, library chain {entry['library_ms']:.4f} ms, plain "
@@ -740,9 +771,9 @@ def gram_phase(quantizers: dict, main_frames: dict):
 
     paths, configs, checks, launches, stage_lines = [], [], [], 0, []
     for dim, g_dtype, pool_mask in GRAM_CONFIGS:
-        qq = quantizers[dim]
+        qq = quantizers[FIRST[dim]]
         nc = qq.num_codebooks
-        x, sse_beam = main_frames[dim]
+        x, sse_beam = main_frames[FIRST[dim]]
         kw = dict(g_dtype=g_dtype, pool_mask=pool_mask)
         name = f"gramv3_{g_dtype}{'_' + pool_mask if pool_mask else ''}_d{dim}"
         K3.GRAMV3_KERNEL.launches = 0
@@ -1173,7 +1204,7 @@ def rest_phase(quantizers: dict, main_frames: dict) -> dict:
     from quantization_tpu_torch.ops.quality_guard import CANDIDATES, against_plain
     from quantization_tpu_torch.utils.device import device_ms
 
-    cand = {r.name: r for r in CANDIDATES[512]}
+    cand = {r.name: r for r in CANDIDATES[FIRST[512]]}
     _, int8e, hl, _ = LADDERS[(512, 8)]
     # (dim, rung, what it is held to)
     configs = [
@@ -1192,9 +1223,9 @@ def rest_phase(quantizers: dict, main_frames: dict) -> dict:
            "launches": {"seqbeam_v1": 0, "seqbeam_v2": 0}, "stage_lines": []}
     for dim, rung, twin in configs:
         name, passes, sem, kw = rung.name, rung.passes, rung.beam, rung.kwargs()
-        qq = quantizers[dim]
+        qq = quantizers[FIRST[dim]]
         nc = qq.num_codebooks
-        x, sse_beam = main_frames[dim]
+        x, sse_beam = main_frames[FIRST[dim]]
         centers = qq.get_centers().detach()
         kernel = "seqbeam_v1" if sem.get("impl") == "v1" else "seqbeam_v2"
         counter, other = ((K2.SEQBEAM_V1_KERNEL, K2.SEQBEAM_KERNEL) if kernel == "seqbeam_v1"
@@ -1369,7 +1400,7 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
             codes_path = d / "codes.npy"
             auto = auto_search(q.config, torch.empty(CLI_BATCH, q.dim, device=dev))
             auto["counter"].launches = 0
-            cli.main(["encode", "--quantizer", str(TRAINED[512]), "--data", str(corpus),
+            cli.main(["encode", "--quantizer", str(TRAINED[FIRST[512]]), "--data", str(corpus),
                       "--out", str(codes_path)])
             torch.cuda.synchronize()
             n_k2 = auto["counter"].launches
@@ -1442,7 +1473,7 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
 
             def encode_16():
                 t = time.perf_counter()
-                cli.main(["encode", "--quantizer", str(TRAINED[512]), "--data", str(corpus),
+                cli.main(["encode", "--quantizer", str(TRAINED[FIRST[512]]), "--data", str(corpus),
                           "--out", str(d / "codes_p.npy"), "--limit", str(CLI_PROFILE_LIMIT)])
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t)
@@ -1466,7 +1497,7 @@ def cli_phase(q, sampler, main_path: dict, dev) -> dict:
             recon_path = d / "recon.npy"
             run = subprocess.run(
                 [sys.executable, "-m", "quantization_tpu_torch", "decode", "--quantizer",
-                 str(TRAINED[512]), "--codes", str(codes_path), "--out", str(recon_path)],
+                 str(TRAINED[FIRST[512]]), "--codes", str(codes_path), "--out", str(recon_path)],
                 cwd=ROOT, capture_output=True, text=True, timeout=600)
             check(run.returncode == 0, f"cli decode exited {run.returncode}: {run.stderr[-3000:]}")
             m = re.search(r"decoded (\d+) frames .*\((\d+) vec/s", run.stderr)
@@ -1640,7 +1671,7 @@ def aux_phase(samplers: dict, dev) -> dict:
 
     # (c) the predictor against the d512 and d256 quantizers
     for dim in PRED_DIMS:
-        q = load_quantizer(TRAINED[dim], device=dev)
+        q = load_quantizer(TRAINED[FIRST[dim]], device=dev)
         tr = PredictorTrainer(q, predictor_channels=dim, seed=0)
         xp = samplers[dim](torch.Generator().manual_seed(13), AUX_PRED_STEPS * 512).reshape(
             AUX_PRED_STEPS, 512, dim)
@@ -1673,7 +1704,7 @@ def aux_phase(samplers: dict, dev) -> dict:
                        "ms": device_ms(lambda: auto["cuda"](problem), 20),
                        "plain_ms": device_ms(lambda: auto["plain"](problem), 3),
                        **auto["bound"](512)})
-        entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": TRAINED[dim].name,
+        entry = {"path": "PredictorTrainer.step", "dim": dim, "quantizer": TRAINED[FIRST[dim]].name,
                  "batch": 512, "hidden_channels": 512, "steps": AUX_PRED_STEPS,
                  "launches": {auto["kernel"]: n_k2}, "steps_per_s": AUX_PRED_STEPS / s,
                  "mean_ce_first10": first, "mean_ce_last10": last}
@@ -1884,7 +1915,7 @@ def parallel_phase(q, x, sampler, dev) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         inputs = pathlib.Path(d) / "inputs.pt"
         torch.save({"x": x.cpu(), "xs": xs.cpu(), "codes": codes_ref.cpu(),
-                    "recon": recon_ref.cpu(), "quantizer": str(TRAINED[512])}, inputs)
+                    "recon": recon_ref.cpu(), "quantizer": str(TRAINED[FIRST[512]])}, inputs)
         port = _free_port()
         procs = [ctx.Process(target=_parallel_rank,
                              args=(r, 2, port, str(inputs), str(dev), results))

@@ -35,8 +35,15 @@
 //   them once, in 16-bit lanes of codewords XORed by 0x80 (unsigned, at
 //   most 8 x 255, no carry), and a candidate adds that sum to its own rows'
 //   in one IADD a pair; the bias nc x 128 goes when the sum becomes a float.
-// - A candidate's index row is 8 bytes in its lane's registers; the pool's
-//   reorder is a shuffle from the parent's lane.
+// - A candidate's index row is one byte a codebook in its lane's registers
+//   (one 64-bit word up to 8 codebooks, two at 16); the pool's reorder is a
+//   shuffle from the parent's lane.
+// - At 16 codebooks bf16's shared rows take 60 KB a block, past the 48 KB
+//   of static shared memory: they live in dynamic shared memory, 3 blocks
+//   an SM.  Measured on the H100 at d1280, 8,192 frames, 3 passes: 2.49 ms
+//   (114 registers), against 2.99 ms (72 registers, 7 blocks) and 3.43 ms
+//   (114 registers, 4 blocks) for rows kept packed as bf16 in 30 KB of
+//   static shared memory and unpacked as they are added.
 // - The pool: each parent's keys are taken smallest first (a warp minimum
 //   of the lanes' minima; the winner's lane then finds its next) while
 //   they can still enter the pool's top M (after w, no key of the parent
@@ -60,9 +67,13 @@ constexpr int kCS = 256;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // resident blocks an SM: at most 64 registers a thread for int8, 73 for
-// bf16 (whose shared rows take 3.5 KB of shared memory a warp at nc = 8)
-template <bool I8>
-constexpr int kMinBlocks = I8 ? 8 : 7;
+// bf16 up to 8 codebooks (whose shared rows take 3.5 KB of shared memory a
+// warp at nc = 8); bf16 at 16 codebooks is held to 3 by its shared rows
+template <bool I8, int NC>
+constexpr int kMinBlocks = I8 ? 8 : NC <= 8 ? 7 : 3;
+// dynamic shared memory a block: bf16's shared rows above 8 codebooks
+template <bool I8, int NC>
+constexpr int kDynSmem = !I8 && NC > 8 ? kWarps * (NC - 1) * 2 * 32 * (int)sizeof(float4) : 0;
 constexpr int kMaxPool = 256;     // M * R
 constexpr int kMaxPasses = 64;
 constexpr uint32_t kLaneMask = 0xFFu;
@@ -174,12 +185,52 @@ __device__ __forceinline__ uint32_t pop_min(uint32_t (&k)[8]) {
   return w;
 }
 
+// A candidate's index row, byte s for codebook s: one word up to 8
+// codebooks, two at 16 (codebooks 0-7 in lo, 8-15 in hi).
+struct Ids2 {
+  uint64_t lo, hi;
+};
+template <int NC>
+using Ids = typename std::conditional<(NC <= 8), uint64_t, Ids2>::type;
+
 __device__ __forceinline__ uint32_t byte_of(uint64_t row, int s) {
   return (uint32_t)(row >> (8 * s)) & kLaneMask;
 }
 
+__device__ __forceinline__ uint32_t byte_of(const Ids2& row, int s) {
+  return s < 8 ? byte_of(row.lo, s) : byte_of(row.hi, s - 8);
+}
+
 __device__ __forceinline__ uint64_t with_byte(uint64_t row, int s, uint32_t v) {
   return (row & ~(0xFFull << (8 * s))) | ((uint64_t)v << (8 * s));
+}
+
+__device__ __forceinline__ Ids2 with_byte(Ids2 row, int s, uint32_t v) {
+  if (s < 8)
+    row.lo = with_byte(row.lo, s, v);
+  else
+    row.hi = with_byte(row.hi, s - 8, v);
+  return row;
+}
+
+// byte s of a row whose byte s is 0 set to v
+__device__ __forceinline__ void or_byte(uint64_t& row, int s, uint32_t v) {
+  row |= (uint64_t)v << (8 * s);
+}
+
+__device__ __forceinline__ void or_byte(Ids2& row, int s, uint32_t v) {
+  if (s < 8)
+    or_byte(row.lo, s, v);
+  else
+    or_byte(row.hi, s - 8, v);
+}
+
+__device__ __forceinline__ uint64_t shfl_ids(uint64_t row, int src) {
+  return __shfl_sync(kFull, row, src);
+}
+
+__device__ __forceinline__ Ids2 shfl_ids(const Ids2& row, int src) {
+  return {__shfl_sync(kFull, row.lo, src), __shfl_sync(kFull, row.hi, src)};
 }
 
 __device__ __forceinline__ void unpack8(const uint4 w, float (&v)[8]) {
@@ -227,29 +278,57 @@ __device__ __forceinline__ RowWord<I8> load_row(const char* gt_t, int s, uint32_
 }
 
 // Step t's shared rows s = t .. nc-1 of target block gt_t, with the root's
-// ids `sol` (row t is the diagonal: any id gives it).
+// ids `sol` (row t is the diagonal: any id gives it).  Above 8 codebooks
+// the rows are loaded in groups, as sg_row's, to keep to the registers.
 template <bool I8, int NC>
-__device__ __forceinline__ void load_shared(const char* gt_t, uint64_t sol, int t, int lane,
+__device__ __forceinline__ void load_shared(const char* gt_t, Ids<NC> sol, int t, int lane,
                                             Shared<I8, NC>& sh) {
-  RowWord<I8> w[NC];
-#pragma unroll
-  for (int s = 1; s < NC; ++s)
-    if (s >= t) w[s] = load_row<I8>(gt_t, s, byte_of(sol, s), lane);
-  if constexpr (I8) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
+  if constexpr (NC <= 8) {
+    RowWord<I8> w[NC];
 #pragma unroll
     for (int s = 1; s < NC; ++s)
-      if (s >= t) add_u8(w[s], sh.sum);
+      if (s >= t) w[s] = load_row<I8>(gt_t, s, byte_of(sol, s), lane);
+    if constexpr (I8) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
+#pragma unroll
+      for (int s = 1; s < NC; ++s)
+        if (s >= t) add_u8(w[s], sh.sum);
+    } else {
+#pragma unroll
+      for (int s = 1; s < NC; ++s)
+        if (s >= t) {
+          float v[8];
+          unpack8(w[s], v);
+          sh.f[s - 1][0][lane] = make_float4(v[0], v[1], v[2], v[3]);
+          sh.f[s - 1][1][lane] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+    }
   } else {
+    constexpr int G = I8 ? 8 : 4;
+    if constexpr (I8) {
 #pragma unroll
-    for (int s = 1; s < NC; ++s)
-      if (s >= t) {
-        float v[8];
-        unpack8(w[s], v);
-        sh.f[s - 1][0][lane] = make_float4(v[0], v[1], v[2], v[3]);
-        sh.f[s - 1][1][lane] = make_float4(v[4], v[5], v[6], v[7]);
-      }
+      for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
+    }
+#pragma unroll
+    for (int g0 = 1; g0 < NC; g0 += G) {
+      RowWord<I8> w[G];
+#pragma unroll
+      for (int s = g0; s < g0 + G && s < NC; ++s)
+        if (s >= t) w[s - g0] = load_row<I8>(gt_t, s, byte_of(sol, s), lane);
+#pragma unroll
+      for (int s = g0; s < g0 + G && s < NC; ++s)
+        if (s >= t) {
+          if constexpr (I8) {
+            add_u8(w[s - g0], sh.sum);
+          } else {
+            float v[8];
+            unpack8(w[s - g0], v);
+            sh.f[s - 1][0][lane] = make_float4(v[0], v[1], v[2], v[3]);
+            sh.f[s - 1][1][lane] = make_float4(v[4], v[5], v[6], v[7]);
+          }
+        }
+    }
   }
 }
 
@@ -259,7 +338,7 @@ __device__ __forceinline__ void load_shared(const char* gt_t, uint64_t sol, int 
 // groups (all of them for int8, 4 for bf16), each group's loads issued
 // before any of its sums; the timed build waits for a group to land.
 template <bool I8, int NC, int T, class Clock>
-__device__ __forceinline__ void sg_row(const char* gt_t, uint64_t row, int lane,
+__device__ __forceinline__ void sg_row(const char* gt_t, Ids<NC> row, int lane,
                                        const Shared<I8, NC>& sh, float (&v)[8], Clock& clk) {
   constexpr int G = I8 ? 8 : 4;
   uint32_t acc[4];
@@ -315,16 +394,37 @@ __device__ __forceinline__ void sg_row(const char* gt_t, uint64_t row, int lane,
 }
 
 template <bool I8, int NC, class Clock>
-__device__ __forceinline__ void sg_step(int t, const char* gt_t, uint64_t row, int lane,
+__device__ __forceinline__ void sg_step(int t, const char* gt_t, Ids<NC> row, int lane,
                                         const Shared<I8, NC>& sh, float (&v)[8], Clock& clk) {
-  switch (t) {
-    case 1: sg_row<I8, NC, 1>(gt_t, row, lane, sh, v, clk); break;
-    case 2: if constexpr (NC > 2) sg_row<I8, NC, 2>(gt_t, row, lane, sh, v, clk); break;
-    case 3: if constexpr (NC > 3) sg_row<I8, NC, 3>(gt_t, row, lane, sh, v, clk); break;
-    case 4: if constexpr (NC > 4) sg_row<I8, NC, 4>(gt_t, row, lane, sh, v, clk); break;
-    case 5: if constexpr (NC > 5) sg_row<I8, NC, 5>(gt_t, row, lane, sh, v, clk); break;
-    case 6: if constexpr (NC > 6) sg_row<I8, NC, 6>(gt_t, row, lane, sh, v, clk); break;
-    default: if constexpr (NC > 7) sg_row<I8, NC, 7>(gt_t, row, lane, sh, v, clk); break;
+  if constexpr (NC <= 8) {
+    switch (t) {
+      case 1: sg_row<I8, NC, 1>(gt_t, row, lane, sh, v, clk); break;
+      case 2: if constexpr (NC > 2) sg_row<I8, NC, 2>(gt_t, row, lane, sh, v, clk); break;
+      case 3: if constexpr (NC > 3) sg_row<I8, NC, 3>(gt_t, row, lane, sh, v, clk); break;
+      case 4: if constexpr (NC > 4) sg_row<I8, NC, 4>(gt_t, row, lane, sh, v, clk); break;
+      case 5: if constexpr (NC > 5) sg_row<I8, NC, 5>(gt_t, row, lane, sh, v, clk); break;
+      case 6: if constexpr (NC > 6) sg_row<I8, NC, 6>(gt_t, row, lane, sh, v, clk); break;
+      default: if constexpr (NC > 7) sg_row<I8, NC, 7>(gt_t, row, lane, sh, v, clk); break;
+    }
+  } else {
+    static_assert(NC == 16, "gramv3 takes 2, 4, 8 or 16 codebooks");
+    switch (t) {
+      case 1: sg_row<I8, NC, 1>(gt_t, row, lane, sh, v, clk); break;
+      case 2: sg_row<I8, NC, 2>(gt_t, row, lane, sh, v, clk); break;
+      case 3: sg_row<I8, NC, 3>(gt_t, row, lane, sh, v, clk); break;
+      case 4: sg_row<I8, NC, 4>(gt_t, row, lane, sh, v, clk); break;
+      case 5: sg_row<I8, NC, 5>(gt_t, row, lane, sh, v, clk); break;
+      case 6: sg_row<I8, NC, 6>(gt_t, row, lane, sh, v, clk); break;
+      case 7: sg_row<I8, NC, 7>(gt_t, row, lane, sh, v, clk); break;
+      case 8: sg_row<I8, NC, 8>(gt_t, row, lane, sh, v, clk); break;
+      case 9: sg_row<I8, NC, 9>(gt_t, row, lane, sh, v, clk); break;
+      case 10: sg_row<I8, NC, 10>(gt_t, row, lane, sh, v, clk); break;
+      case 11: sg_row<I8, NC, 11>(gt_t, row, lane, sh, v, clk); break;
+      case 12: sg_row<I8, NC, 12>(gt_t, row, lane, sh, v, clk); break;
+      case 13: sg_row<I8, NC, 13>(gt_t, row, lane, sh, v, clk); break;
+      case 14: sg_row<I8, NC, 14>(gt_t, row, lane, sh, v, clk); break;
+      default: sg_row<I8, NC, 15>(gt_t, row, lane, sh, v, clk); break;
+    }
   }
 }
 
@@ -380,8 +480,17 @@ __device__ __forceinline__ V slot_of(const V (&a)[CPL], int c) {
 }
 
 template <bool I8, int NC, int M, bool TIMED>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const Args a) {
-  __shared__ float4 shared_rows[kWarps][I8 ? 1 : NC - 1][2][32];  // bf16: Shared::f
+__global__ void __launch_bounds__(kThreads, kMinBlocks<I8, NC>) gramv3_kernel(const Args a) {
+  // the warp's shared rows (bf16, Shared::f): static up to 8 codebooks,
+  // dynamic (kDynSmem) at 16
+  float4 (*rows)[2][32] = nullptr;
+  if constexpr (NC <= 8) {
+    __shared__ float4 shared_rows[kWarps][I8 ? 1 : NC - 1][2][32];
+    rows = shared_rows[threadIdx.x >> 5];
+  } else if constexpr (!I8) {
+    extern __shared__ float4 dyn_rows[];
+    rows = reinterpret_cast<float4 (*)[2][32]>(dyn_rows) + (threadIdx.x >> 5) * (NC - 1);
+  }
   constexpr int CPL = (M + 31) / 32;  // candidates a lane
   constexpr uint32_t mbits = (uint32_t)(M - 1) << 8;
   constexpr size_t kBlockBytes = (size_t)NC * kCS * kCS * (I8 ? 1 : 2);  // one target block
@@ -393,14 +502,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const 
   const char* gt = reinterpret_cast<const char*>(a.gt);
   const float* xcb = a.xc + (size_t)b * NC * kCS;
 
-  uint64_t sol = 0;  // the root's ids, byte s for codebook s
+  Ids<NC> sol{};  // the root's ids, byte s for codebook s
   {
     const int mine = lane < NC ? a.idx0[(size_t)b * NC + lane] : 0;
 #pragma unroll
-    for (int s = 0; s < NC; ++s) sol |= (uint64_t)(uint32_t)__shfl_sync(kFull, mine, s) << (8 * s);
+    for (int s = 0; s < NC; ++s) or_byte(sol, s, (uint32_t)__shfl_sync(kFull, mine, s));
   }
   float ss_root = a.ss0[b];
-  uint64_t crow[CPL];  // the beam: ids and squared error of candidate lane + 32 c
+  Ids<NC> crow[CPL];  // the beam: ids and squared error of candidate lane + 32 c
   float css[CPL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
@@ -436,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const 
       const char* gt_t = gt + (size_t)t * kBlockBytes;
       float x2[8];
       Shared<I8, NC> sh;
-      sh.f = shared_rows[threadIdx.x >> 5];
+      sh.f = rows;
       load_x2(xcb, t, lane, x2);
       load_shared<I8, NC>(gt_t, sol, t, lane, sh);
       clk.landed(0u);
@@ -447,7 +556,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const 
       int filled = 0;          // entries in the list while it can hold all of a parent's R
       const uint32_t it = byte_of(sol, t);  // every candidate's id at t is still the root's
       for (int m = 0; m < M; ++m) {
-        const uint64_t row = __shfl_sync(kFull, slot_of<CPL>(crow, m >> 5), m & 31);
+        const Ids<NC> row = shfl_ids(slot_of<CPL>(crow, m >> 5), m & 31);
         const float ss = __shfl_sync(kFull, slot_of<CPL>(css, m >> 5), m & 31);
         float sg[8];
         uint32_t keys[8];
@@ -510,13 +619,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const 
           css[c] = __uint_as_float(list[c] & ~(mbits | kLaneMask));
         }
         clk.lap(kStPool);
-        uint64_t nrow[CPL];
+        Ids<NC> nrow[CPL];
 #pragma unroll
         for (int c = 0; c < CPL; ++c) {
-          uint64_t r = 0;
+          Ids<NC> r{};
 #pragma unroll
           for (int k = 0; k < CPL; ++k) {
-            const uint64_t v = __shfl_sync(kFull, crow[k], par[c] & 31);
+            const Ids<NC> v = shfl_ids(crow[k], par[c] & 31);
             if ((par[c] >> 5) == k) r = v;
           }
           nrow[c] = with_byte(r, t, j[c]);
@@ -534,50 +643,74 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8>) gramv3_kernel(const 
     const uint32_t w = __reduce_min_sync(kFull, k);
     const int best = (int)(w & kLaneMask);
     ss_root = __uint_as_float(w & ~kLaneMask);
-    sol = __shfl_sync(kFull, slot_of<CPL>(crow, best >> 5), best & 31);
+    sol = shfl_ids(slot_of<CPL>(crow, best >> 5), best & 31);
     clk.lap(kStPassEnd);
   }
   if (lane < NC) a.out[(size_t)b * NC + lane] = (int32_t)byte_of(sol, lane);
   clk.finish(a.stages, lane);
 }
 
+// A kernel and the dynamic shared memory a block of it takes.
+struct Kernel {
+  const void* fn;
+  int smem;
+};
+
+template <bool I8, int NC, int M, bool TIMED>
+Kernel kernel_of() {
+  return {(const void*)gramv3_kernel<I8, NC, M, TIMED>, kDynSmem<I8, NC>};
+}
+
 // The kernel a launch with (nc, M, g_dtype) runs; the timed build is
-// instantiated for M = 8 only.
+// instantiated for M = 8 only, and 16 codebooks for M = 8 only (auto's
+// d1280 / 16 B rung; the timed build in bf16).
 template <bool TIMED, bool I8, int NC>
-const void* kernel_by_m(int M) {
-  if constexpr (TIMED) {
-    return M == 8 ? (const void*)gramv3_kernel<I8, NC, 8, true> : nullptr;
+Kernel kernel_by_m(int M) {
+  if constexpr (NC == 16) {
+    if constexpr (TIMED && I8) return {nullptr, 0};
+    else return M == 8 ? kernel_of<I8, NC, 8, TIMED>() : Kernel{nullptr, 0};
+  } else if constexpr (TIMED) {
+    return M == 8 ? kernel_of<I8, NC, 8, true>() : Kernel{nullptr, 0};
   } else {
     switch (M) {
-      case 8: return (const void*)gramv3_kernel<I8, NC, 8, false>;
-      case 16: return (const void*)gramv3_kernel<I8, NC, 16, false>;
-      case 32: return (const void*)gramv3_kernel<I8, NC, 32, false>;
-      case 64: return (const void*)gramv3_kernel<I8, NC, 64, false>;
+      case 8: return kernel_of<I8, NC, 8, false>();
+      case 16: return kernel_of<I8, NC, 16, false>();
+      case 32: return kernel_of<I8, NC, 32, false>();
+      case 64: return kernel_of<I8, NC, 64, false>();
     }
-    return nullptr;
+    return {nullptr, 0};
   }
 }
 
 template <bool TIMED, bool I8>
-const void* kernel_by_nc(int nc, int M) {
+Kernel kernel_by_nc(int nc, int M) {
   switch (nc) {
     case 2: return kernel_by_m<TIMED, I8, 2>(M);
     case 4: return kernel_by_m<TIMED, I8, 4>(M);
     case 8: return kernel_by_m<TIMED, I8, 8>(M);
+    case 16: return kernel_by_m<TIMED, I8, 16>(M);
   }
-  return nullptr;
+  return {nullptr, 0};
 }
 
 template <bool TIMED>
-const void* kernel_for(int nc, int M, int g_dtype) {
+Kernel kernel_for(int nc, int M, int g_dtype) {
   return g_dtype == 1 ? kernel_by_nc<TIMED, true>(nc, M)
-                      : g_dtype == 0 ? kernel_by_nc<TIMED, false>(nc, M) : nullptr;
+                      : g_dtype == 0 ? kernel_by_nc<TIMED, false>(nc, M) : Kernel{nullptr, 0};
 }
 
-int launch(const void* fn, const void* xc, const void* idx0, const void* ss0, const void* gt,
+// Allows the kernel its dynamic shared memory above the default 48 KB (on
+// the current device; a few host microseconds, so every launch sets it).
+int allow_smem(const Kernel& k) {
+  return k.smem ? (int)cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            k.smem)
+                : 0;
+}
+
+int launch(const Kernel& k, const void* xc, const void* idx0, const void* ss0, const void* gt,
            void* out, int B, int R, int passes, const void* pool_masks, long long* stages,
            cudaStream_t stream) {
-  if (!fn || passes > kMaxPasses || passes < 0 || R < 1) return (int)cudaErrorInvalidValue;
+  if (!k.fn || passes > kMaxPasses || passes < 0 || R < 1) return (int)cudaErrorInvalidValue;
   Args a;
   a.xc = (const float*)xc;
   a.idx0 = (const int32_t*)idx0;
@@ -590,8 +723,10 @@ int launch(const void* fn, const void* xc, const void* idx0, const void* ss0, co
   a.stages = stages;
   const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
   if (blocks == 0) return (int)cudaGetLastError();
+  const int err = allow_smem(k);
+  if (err) return err;
   void* args[] = {&a};
-  return (int)cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, 0, stream);
+  return (int)cudaLaunchKernel(k.fn, dim3(blocks), dim3(kThreads), args, (size_t)k.smem, stream);
 }
 
 }  // namespace
@@ -599,7 +734,8 @@ int launch(const void* fn, const void* xc, const void* idx0, const void* ss0, co
 // xc (B, nc * 256) f32; idx0 (B, nc) int32; ss0 (B,) f32; gt (nc, nc * 256,
 // 256) bf16 (g_dtype 0) or int8 (g_dtype 1); out (B, nc) int32.  pool_masks:
 // `passes` host words, bit t set where step t is a pool step.  The caller
-// checks shapes: nc in {2, 4, 8}, M in {8, 16, 32, 64}, 1 <= R, M * R <= 256.
+// checks shapes: nc in {2, 4, 8} with M in {8, 16, 32, 64}, or nc = 16 with
+// M = 8; 1 <= R, M * R <= 256.
 extern "C" int qtt_gramv3_launch(const void* xc, const void* idx0, const void* ss0,
                                  const void* gt, void* out, int B, int nc, int M, int R,
                                  int passes, const void* pool_masks, int g_dtype, void* stream) {
@@ -608,7 +744,8 @@ extern "C" int qtt_gramv3_launch(const void* xc, const void* idx0, const void* s
                 pool_masks, nullptr, (cudaStream_t)stream);
 }
 
-// The stage-timed build, at the serving path's beam only (M=8): the
+// The stage-timed build, at the serving path's beam only (M=8; bf16 only at
+// nc = 16): the
 // arguments of qtt_gramv3_launch, then stages, a zeroed (blocks, 9) int64
 // buffer (blocks of 4 frames).  Per block it receives the clock64() cycles
 // of each stage summed over the block's warps (root, load, score, topr,
@@ -627,13 +764,15 @@ extern "C" int qtt_gramv3_timed_launch(const void* xc, const void* idx0, const v
 // with (nc, M, g_dtype) runs, the timed build's where timed != 0: out[0]
 // registers, out[1] blocks an SM, out[2] threads a block.
 extern "C" int qtt_gramv3_occupancy(int nc, int M, int g_dtype, int timed, void* out) {
-  const void* fn = timed ? kernel_for<true>(nc, M, g_dtype) : kernel_for<false>(nc, M, g_dtype);
-  if (!fn) return (int)cudaErrorInvalidValue;
+  const Kernel k = timed ? kernel_for<true>(nc, M, g_dtype) : kernel_for<false>(nc, M, g_dtype);
+  if (!k.fn) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  int err = (int)cudaFuncGetAttributes(&attr, fn);
+  int err = (int)cudaFuncGetAttributes(&attr, k.fn);
+  if (err) return err;
+  err = allow_smem(k);
   if (err) return err;
   int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn, kThreads, (size_t)k.smem);
   if (err) return err;
   int* o = (int*)out;
   o[0] = attr.numRegs;

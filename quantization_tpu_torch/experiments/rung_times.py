@@ -12,7 +12,7 @@ rounds of ``--seconds`` each, so that a drift of the card or the host
 falls on every rung alike; the line of a rung gives the median call over
 all rounds and each round's median.
 
-    python -m quantization_tpu_torch.experiments.rung_times [--dims 512 1280]
+    python -m quantization_tpu_torch.experiments.rung_times [--configs 512x8 1280x16]
         [--sizes 8192 512] [--rungs seqbeam bf16_alt3] [--rounds 3] [--seconds 0.4]
         [--out chiprun_out/rung_times.json]
 """
@@ -38,11 +38,11 @@ SIZES = (8192, 512)
 
 
 def rungs(config, words=None) -> list:
-    """The rung records timed for ``config``: auto's first seqbeam rung,
-    then the gramv3 candidates; only those whose names hold one of
-    ``words``, where given."""
-    out = [next(r for r in ladder.rungs(config) if r.kernel is SEQBEAM),
-           *GRAMV3_CANDIDATES[config.dim]]
+    """The rung records timed for ``config``: auto's first seqbeam rung
+    (where its ladder has one), then the gramv3 candidates; only those whose
+    names hold one of ``words``, where given."""
+    out = [*[r for r in ladder.rungs(config) if r.kernel is SEQBEAM][:1],
+           *GRAMV3_CANDIDATES[(config.dim, config.num_codebooks)]]
     return [r for r in out if not words or any(w in r.name for w in words)]
 
 
@@ -59,8 +59,11 @@ def call_ms(encode, seconds: float) -> list:
 
 
 @torch.no_grad()
-def time_dim(dim: int, sizes, words, rounds: int, seconds: float) -> list:
-    q = load_quantizer(TRAINED[dim], device="cuda")
+def time_config(key: tuple, sizes, words, rounds: int, seconds: float) -> list:
+    """The rungs' call times for the trained quantizer ``TRAINED[key]``,
+    ``key`` its (dim, num_codebooks)."""
+    dim = key[0]
+    q = load_quantizer(TRAINED[key], device="cuda")
     sampler = make_mlp_sampler(dim, device="cuda")
     results = []
     for n in sizes:
@@ -92,7 +95,8 @@ def time_dim(dim: int, sizes, words, rounds: int, seconds: float) -> list:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dims", type=int, nargs="+", default=list(TRAINED))
+    ap.add_argument("--configs", nargs="+", default=[f"{d}x{n}" for d, n in TRAINED],
+                    metavar="DIMxNC", help="trained quantizers by dim and codebooks")
     ap.add_argument("--sizes", type=int, nargs="+", default=list(SIZES))
     ap.add_argument("--rungs", nargs="+", default=None)
     ap.add_argument("--rounds", type=int, default=3)
@@ -103,8 +107,9 @@ def main(argv=None) -> None:
         raise SystemExit("rung_times times the encode on a CUDA card; none is available")
     card = nvidia_smi_line()
     print(card, flush=True)
-    results = [e for dim in args.dims
-               for e in time_dim(dim, args.sizes, args.rungs, args.rounds, args.seconds)]
+    keys = [tuple(int(v) for v in c.split("x")) for c in args.configs]
+    results = [e for key in keys
+               for e in time_config(key, args.sizes, args.rungs, args.rounds, args.seconds)]
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"card": card, "results": results}, indent=1) + "\n")
 

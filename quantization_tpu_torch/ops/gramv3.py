@@ -44,6 +44,7 @@ scheduling knobs of the TPU wrapper and are accepted and ignored.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import warnings
@@ -71,12 +72,18 @@ OCCUPANCY = CFunction("gramv3", "qtt_gramv3_occupancy", [ctypes.c_int] * 4 + [ct
 # the timed build's stages, in the order of its buffer's columns
 STAGES = ("root", "load", "score", "topr", "pool", "reorder", "pass_end")
 FRAMES_PER_BLOCK = 4  # one warp a frame
+# the beam widths the kernel is built for, by codebooks: 16 codebooks only at
+# auto's beam (M=8; the TPU kernels stop at 8, whose Gram table fits VMEM)
+BUILT_M = {2: (8, 16, 32, 64), 4: (8, 16, 32, 64), 8: (8, 16, 32, 64), 16: (8,)}
+# the kernel's launches by codebooks, as ``GRAMV3_KERNEL.launches`` counts
+# them all
+NC_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def GRAMV3_SUPPORTED(config: QuantizerConfig) -> bool:
-    """The kernel's constraints: 256 codewords a codebook and at most 8
-    codebooks (the TPU's Gram table fits VMEM).  Any dim."""
-    return config.codebook_size == CS and config.num_codebooks in (2, 4, 8)
+    """The kernel's constraints: 256 codewords a codebook and 2, 4, 8 or
+    16 codebooks.  Any dim."""
+    return config.codebook_size == CS and config.num_codebooks in BUILT_M
 
 
 @dataclasses.dataclass
@@ -152,8 +159,10 @@ def gramv3_tables(centers: torch.Tensor, g_dtype: str = "bf16") -> Gramv3Tables:
     return Gramv3Tables(centers, ctab, table_layout(gtil, nc), inv)
 
 
-# the variant: (g_dtype,); an entry at d1280 is about 24 MB
-TABLES_CACHE = TablesCache(8, "gramv3", gramv3_tables)
+# the variant: (g_dtype,); an entry at d1280 is about 24 MB at 8 codebooks,
+# 47 MB at 16 (the bf16 table 33.5 MB); a build's span records the table's
+# bytes
+TABLES_CACHE = TablesCache(8, "gramv3", gramv3_tables, nbytes=lambda t: t.gt.nbytes)
 
 
 @torch.no_grad()
@@ -330,10 +339,12 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
 def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
     """Check the call's tensors of ``problem`` and launch ``kernel`` on them
     and its table (checked at its build) with the ``extra`` arguments before
-    the stream (the ``gramv3.launch`` span); returns the (B, nc) indexes."""
-    with span("gramv3.launch", g_dtype=problem.g_dtype):
+    the stream (the ``gramv3.launch`` span, with the table's dtype and the
+    codebooks); counts it in :data:`NC_LAUNCHES`; returns the (B, nc)
+    indexes."""
+    nc = problem.gt.shape[0]
+    with span("gramv3.launch", g_dtype=problem.g_dtype, nc=nc):
         xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
-        nc = gt.shape[0]
         K = nc * CS
         B = xc.shape[0]
         if not xc.is_cuda:
@@ -345,6 +356,9 @@ def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
                              "int32 and ss0 (B,) f32")
         if len(problem.masks) != problem.passes:
             raise ValueError(f"expected {problem.passes} pool masks, got {len(problem.masks)}")
+        if problem.M not in BUILT_M[nc]:
+            raise ValueError(f"the gramv3 kernel at {nc} codebooks is built for M in "
+                             f"{BUILT_M[nc]}, got M={problem.M}")
         on_one_device("gramv3_cuda", xc, idx0, ss0, gt)
         out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
         words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
@@ -353,6 +367,7 @@ def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
             B, nc, problem.M, problem.R, problem.passes, ctypes.addressof(words),
             G_DTYPES[problem.g_dtype], *extra, torch.cuda.current_stream(xc.device).cuda_stream,
         )
+        NC_LAUNCHES[nc] += 1
         return out
 
 
@@ -368,7 +383,8 @@ def gramv3_stages(problem: Gramv3Problem) -> Tuple[torch.Tensor, torch.Tensor]:
     :data:`FRAMES_PER_BLOCK` frames, the ``clock64()`` cycles of each of
     :data:`STAGES` summed over the block's warps (one a frame), then the
     longest warp's own cycles and nanoseconds.  Built for the serving
-    path's beam only (M=8, any R and schedule); CUDA tensors only."""
+    path's beam only (M=8, any R and schedule; at 16 codebooks bf16 only);
+    CUDA tensors only."""
     if problem.M != 8:
         raise ValueError("the stage-timed gramv3 takes M=8")
     if not problem.xc.is_cuda:

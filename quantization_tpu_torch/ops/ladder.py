@@ -33,14 +33,24 @@ class Rung(NamedTuple):
 
 _ALT = dict(M=8, R=4, pool_mask="altparity")
 _KNOBS = dict(block_b=256, interleave=2, reorder="select")
+# the configurations whose rows were measured before a rung's name carried
+# its codebooks: their names give the dim alone
+_DIM_TAGS = {(512, 8): "d512", (256, 4): "d256", (1280, 8): "d1280"}
 
 
-def _gram(dim: int, min_frames: int) -> Rung:
+def config_tag(dim: int, num_codebooks: int) -> str:
+    """The configuration's part of a rung's name: ``d<dim>`` for the
+    first three configurations, ``d<dim>_b<num_codebooks>`` for any other,
+    so that no configuration reads another's guard rows."""
+    return _DIM_TAGS.get((dim, num_codebooks), f"d{dim}_b{num_codebooks}")
+
+
+def _gram(dim: int, min_frames: int, num_codebooks: int = 8, passes: int = 3) -> Rung:
     # the beam of the K2 rungs behind it with the bf16 Gram table in place of
     # the per-candidate error; below min_frames K2 encodes as fast or faster
     # end to end on the H100 (whole calls, experiments/rung_times.py)
-    return Rung(f"gramv3_bf16_alt3_d{dim}", GRAMV3, 3, dict(_ALT, g_dtype="bf16"),
-                min_frames=min_frames, needs_quality=True)
+    return Rung(f"gramv3_bf16_alt{passes}_{config_tag(dim, num_codebooks)}", GRAMV3, passes,
+                dict(_ALT, g_dtype="bf16"), min_frames=min_frames, needs_quality=True)
 
 
 def _int8e(dim: int) -> Rung:
@@ -54,12 +64,17 @@ def _hl(dim: int, passes: int) -> Rung:
 
 # auto's rungs by (dim, num_codebooks), fastest first: K2's are the JAX ladder's
 # (quantization_tpu/core/codec.py:118-145) and d1280 / 8 B's own; K3's leads where
-# the card's guard rows hold it within the bar and it encodes faster
+# the card's guard rows hold it within the bar and it encodes faster.  d1280 /
+# 16 B has K3's rung alone, for every call size: K2 has never run 16 codebooks
+# above dim 1024, and a call the rung refuses runs the exact beam.  Its beam
+# takes 4 passes: at 3 its worst guard seed reads +1.10% (combined 1.11%,
+# past the 1% bar), at 4 +0.90%
 LADDERS = {
     (512, 8): (_gram(512, 1536), _int8e(512), _hl(512, 3),
                Rung("seqbeam_m16_d512", SEQBEAM, 2, dict(M=16, R=4, e_dtype="bf16"), _KNOBS)),
     (256, 4): (_hl(256, 2),),
     (1280, 8): (_gram(1280, 768), _int8e(1280), _hl(1280, 3)),
+    (1280, 16): (_gram(1280, 0, 16, passes=4),),
 }
 
 

@@ -20,6 +20,9 @@ Each file records the card's name, count and power limit.  The factor
 chip, and carries over from the JAX package with its source.
 
 Run on an H100:  python -m quantization_tpu_torch.ops.quality_guard [--out DIR]
+[--configs 1280x16 ...]; with ``--configs`` only those trained quantizers
+are measured, and their entries are added to the files beside this module,
+whose other entries are written back as they are.
 """
 
 from __future__ import annotations
@@ -45,10 +48,13 @@ from .seqbeam import SEQBEAM
 KEYS = (7, 8, 9)
 FRAMES = 8192
 EXPERIMENTS = pathlib.Path(__file__).resolve().parents[2] / "experiments"
-# the committed trained quantizers: the JAX package's d512 and d256, and the
-# port's d1280 / 8 B (compact int8 tables, experiments/head_to_head.py::save_int8)
-TRAINED = {512: EXPERIMENTS / "q512_8_full.npz", 256: EXPERIMENTS / "q256_4_full.npz",
-           1280: pathlib.Path(__file__).resolve().parents[1] / "experiments/q1280_8_full.npz"}
+PORT_EXPERIMENTS = pathlib.Path(__file__).resolve().parents[1] / "experiments"
+# the committed trained quantizers by (dim, num_codebooks): the JAX package's
+# d512 and d256, and the port's d1280 / 8 B and d1280 / 16 B (compact int8
+# tables, experiments/head_to_head.py::save_int8)
+TRAINED = {(512, 8): EXPERIMENTS / "q512_8_full.npz", (256, 4): EXPERIMENTS / "q256_4_full.npz",
+           (1280, 8): PORT_EXPERIMENTS / "q1280_8_full.npz",
+           (1280, 16): PORT_EXPERIMENTS / "q1280_16_full.npz"}
 TRAIN_RATIO = 1.0001091779448747
 TRAIN_RATIO_SOURCE = (
     "experiments/head_to_head_d512_b8_10000+10000.json (beam-trained flagship "
@@ -61,21 +67,23 @@ MAX_SSE_REL = 1e-3
 _INT8E = dict(M=8, R=4, pool_mask="altparity", e_dtype="int8")
 _KNOBS = dict(block_b=512, interleave=2, reorder="select")
 CANDIDATES = {
-    512: [Rung(f"seqbeam_int8e_{tag}_d512", SEQBEAM, 3, dict(_INT8E, **beam), dict(_KNOBS, **knobs))
+    (512, 8): [Rung(f"seqbeam_int8e_{tag}_d512", SEQBEAM, 3, dict(_INT8E, **beam), dict(_KNOBS, **knobs))
           for tag, beam, knobs in (
               ("fi", dict(init_precision="default"), {}), ("bound", dict(requant="bound"), {}),
               ("bound_fi", dict(requant="bound", init_precision="default"), {}),
               ("lazy", dict(lazy_r1=True), dict(zip_skew=1)))],
-    256: [Rung("seqbeam_int8e_d256", SEQBEAM, 2, _INT8E, dict(_KNOBS, block_b=256))],
-    1280: [],
+    (256, 4): [Rung("seqbeam_int8e_d256", SEQBEAM, 2, _INT8E, dict(_KNOBS, block_b=256))],
+    (1280, 8): [],
+    (1280, 16): [],
 }
 # the Gram-table beam (K3) at auto's beam shape, M=8 and R=4: each table
-# dtype, all-pool and altparity, 3-5 passes, named gramv3_<g>_<pool><passes>_d<dim>
+# dtype, all-pool and altparity, 3-5 passes, named
+# gramv3_<g>_<pool><passes>_<config tag> (ladder.config_tag)
 GRAMV3_CANDIDATES = {
-    dim: [Rung(f"gramv3_{g}_{'alt' if mask else 'pool'}{passes}_d{dim}", GRAMV3, passes,
-               dict(M=8, R=4, pool_mask=mask, g_dtype=g))
+    key: [Rung(f"gramv3_{g}_{'alt' if mask else 'pool'}{passes}_{ladder.config_tag(*key)}",
+               GRAMV3, passes, dict(M=8, R=4, pool_mask=mask, g_dtype=g))
           for g in ("bf16", "int8") for mask in ("altparity", None) for passes in (3, 4, 5)]
-    for dim in TRAINED
+    for key in TRAINED
 }
 
 
@@ -117,10 +125,12 @@ def against_plain(problem, centers: torch.Tensor, got: Optional[torch.Tensor] = 
 
 
 @torch.no_grad()
-def guard_dim(dim: int, device) -> tuple:
-    """(smoke entries, quality entries) of the ladder and the candidates at
-    ``dim``."""
-    q = load_quantizer(TRAINED[dim], device=device)
+def guard_config(key: tuple, device) -> tuple:
+    """(smoke entries, quality entries) of the ladder and the candidates of
+    the trained quantizer ``TRAINED[key]``, ``key`` its (dim,
+    num_codebooks)."""
+    dim = key[0]
+    q = load_quantizer(TRAINED[key], device=device)
     params, config = q.params, q.config
     centers, mean = q.get_centers(), q.get_data_mean()
     xs = eval_frames(dim, device)
@@ -128,7 +138,7 @@ def guard_dim(dim: int, device) -> tuple:
     beam5 = {k: sse(centers, search.compute_indexes(params, config, x, 5, "beam"), x)
              / denom[k] for k, x in xs.items()}
     smoke, quality = {}, {}
-    for rung in ladder.rungs(config) + tuple(CANDIDATES[dim] + GRAMV3_CANDIDATES[dim]):
+    for rung in ladder.rungs(config) + tuple(CANDIDATES[key] + GRAMV3_CANDIDATES[key]):
         name, kernel = rung.name, rung.kernel
         if name in smoke:  # a ladder's rung among the candidates
             continue
@@ -155,7 +165,7 @@ def guard_dim(dim: int, device) -> tuple:
             "delta_pct_by_key": deltas,
             "max_delta_pct": max(deltas.values()),
         }
-        print(f"{name:22s} {smoke[name]['detail']}  deltas {deltas}", flush=True)
+        print(f"{name:26s} {smoke[name]['detail']}  deltas {deltas}", flush=True)
     return smoke, quality
 
 
@@ -163,7 +173,15 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=verify.VERIFIED.parent,
                     help="directory for verified.json and quality.json")
+    ap.add_argument("--configs", nargs="+", default=None, metavar="DIMxNC",
+                    help="measure only these trained quantizers (e.g. 1280x16) and add their "
+                         "entries to the files beside this module")
     args = ap.parse_args(argv)
+    keys = list(TRAINED) if args.configs is None else [
+        tuple(int(v) for v in c.split("x")) for c in args.configs]
+    unknown = [k for k in keys if k not in TRAINED]
+    if unknown:
+        raise SystemExit(f"no trained quantizer for {unknown}; have {list(TRAINED)}")
     if not torch.cuda.is_available():
         raise SystemExit("quality_guard measures the kernels on a CUDA card; none is available")
     device = torch.device("cuda")
@@ -172,17 +190,21 @@ def main(argv=None) -> None:
     built_s = cuda_build.build(["seqbeam", "gramv3", "logits_argmax"])
     print(f"built the search kernels and their initial indexes' in {built_s:.1f} s", flush=True)
     smoke, quality = {}, {}
-    for dim in TRAINED:
-        s, q = guard_dim(dim, device)
+    for key in keys:
+        s, q = guard_config(key, device)
         smoke.update(s)
         quality.update(q)
     now = round(time.time(), 1)
+    verified = {"generated_unix": now, "device": dev, "results": smoke}
+    qual = {"generated_unix": now, "device": dev, "train_ratio_vs_torch": TRAIN_RATIO,
+            "train_ratio_source": TRAIN_RATIO_SOURCE, "results": quality}
+    if args.configs is not None:  # the other entries as the files hold them
+        verified, qual = (dict(old, results={**old["results"], **new["results"]})
+                          for old, new in ((json.loads(verify.VERIFIED.read_text()), verified),
+                                           (json.loads(verify.QUALITY.read_text()), qual)))
     args.out.mkdir(parents=True, exist_ok=True)
-    (args.out / verify.VERIFIED.name).write_text(json.dumps(
-        {"generated_unix": now, "device": dev, "results": smoke}, indent=1) + "\n")
-    (args.out / verify.QUALITY.name).write_text(json.dumps(
-        {"generated_unix": now, "device": dev, "train_ratio_vs_torch": TRAIN_RATIO,
-         "train_ratio_source": TRAIN_RATIO_SOURCE, "results": quality}, indent=1) + "\n")
+    (args.out / verify.VERIFIED.name).write_text(json.dumps(verified, indent=1) + "\n")
+    (args.out / verify.QUALITY.name).write_text(json.dumps(qual, indent=1) + "\n")
     if not all(e["ok"] for e in smoke.values()):
         raise SystemExit(f"a kernel configuration failed its smoke check: {smoke}")
 

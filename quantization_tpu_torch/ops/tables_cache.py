@@ -8,7 +8,7 @@ import collections
 import functools
 import threading
 import weakref
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -29,7 +29,8 @@ class TablesCache:
     ``fields`` names the parameters the tables are made from and
     ``inputs(params, scale_speed)`` what of them ``tables`` takes
     (by default the scaled centers); a miss builds ``tables(*inputs,
-    *variant)`` in the kernel's ``<name>.tables`` span.
+    *variant)`` in the kernel's ``<name>.tables`` span, which records
+    ``table_bytes=nbytes(tables)`` where ``nbytes`` is given.
 
     An entry is keyed by the named parameter tensors (the objects, held
     weakly: an entry keeps no parameter alive and goes when any of them is
@@ -45,9 +46,9 @@ class TablesCache:
     ``misses`` count the lookups."""
 
     def __init__(self, size: int, name: str, tables, fields: Tuple[str, ...] = CENTERS,
-                 inputs: Callable = centers_input):
+                 inputs: Callable = centers_input, nbytes: Optional[Callable] = None):
         self.size, self.name, self.tables = size, name, tables
-        self.fields, self.inputs = fields, inputs
+        self.fields, self.inputs, self.nbytes = fields, inputs, nbytes
         self.hits = self.misses = 0
         self._entries: collections.OrderedDict = collections.OrderedDict()
         # reentrant: a weakref callback can run inside a locked block
@@ -87,8 +88,11 @@ class TablesCache:
 
     @torch.no_grad()  # tables with a graph would keep the parameters alive
     def build(self, params: QuantizerParams, scale_speed: float, variant):
-        with span(f"{self.name}.tables"):
-            return self.tables(*self.inputs(params, scale_speed), *variant)
+        with span(f"{self.name}.tables") as sp:
+            tables = self.tables(*self.inputs(params, scale_speed), *variant)
+            if self.nbytes is not None:
+                sp.set(table_bytes=self.nbytes(tables))
+            return tables
 
     def _drop(self, key, ref) -> None:
         """A weakref's callback: remove ``key``'s entry if ``ref`` is one of

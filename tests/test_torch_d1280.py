@@ -47,8 +47,13 @@ def test_auto_ladder_of_d1280_and_d512():
     assert [(r.name, r.needs_quality) for r in d512] == [
         ("gramv3_bf16_alt3_d512", True), ("seqbeam_int8e_d512", True),
         ("seqbeam_hl_d512", False), ("seqbeam_m16_d512", False)]
-    # no other configuration above dim 1024 has a measured rung: the exact beam
-    for dim, nc in ((1152, 8), (1280, 4), (1280, 16)):
+    # d1280 / 16 B has K3's rung alone, named with its codebooks, for every
+    # call size; no other configuration above dim 1024 has a measured rung:
+    # the exact beam
+    b16 = ladder.rungs(QuantizerConfig(1280, 256, 16))
+    assert [(r.name, r.kernel, r.min_frames, r.needs_quality) for r in b16] == [
+        ("gramv3_bf16_alt4_d1280_b16", tg3.GRAMV3, 0, True)]
+    for dim, nc in ((1152, 8), (1280, 4), (1280, 2)):
         assert ladder.rungs(QuantizerConfig(dim, 256, nc)) == ()
     # both Gram-table rungs run the beam of the K2 rung beside them, with as
     # many passes (the benchmark records auto's choice from one frame)
@@ -158,7 +163,7 @@ def test_d1280_files_hold_the_benchmark_config_sums(asset):
     files that the benchmark's d1280 cell is defined by, byte for byte."""
     conf = json.loads(CONFIG.read_text())
     path = (CONFIG.parent / conf[asset]).resolve()
-    ours = {"quantizer": quality_guard.TRAINED[1280],
+    ours = {"quantizer": quality_guard.TRAINED[(1280, 8)],
             "sampler": synthetic.mlp_weights_path(1280)}[asset]
     assert path == pathlib.Path(ours).resolve()
     assert hashlib.sha256(path.read_bytes()).hexdigest() == conf["sha256"][asset]

@@ -41,6 +41,7 @@ from probe_inputs import above_inf
 Q256 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q256_4_full.npz"
 Q512 = pathlib.Path(__file__).resolve().parents[1] / "experiments" / "q512_8_full.npz"
 Q1280 = pathlib.Path(tseq.__file__).resolve().parents[1] / "experiments" / "q1280_8_full.npz"
+Q1280_16 = Q1280.with_name("q1280_16_full.npz")
 BAR = 1.012  # vs beam-5, as tests/test_kernel_quality.py
 
 
@@ -1057,3 +1058,74 @@ def test_profile_device_ops_holds_the_kernel_in_every_table(cuda, caplog):
             kernel = [r for r in rows if "decode_kernel" in r["source"]]
             assert len(kernel) == 1 and kernel[0]["count"] == 1, rows
     print(f"profile_device_ops: {len(caplog.records)} empty windows traced again in 40 traces")
+
+
+# d1280 / 16 B: K3 at 16 codebooks (its one beam width, M=8)
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 63, 8192, 8193])
+@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
+def test_cuda_gramv3_at_16_codebooks_equals_plain(cuda, g_dtype, B):
+    problem = _gramv3_case(cuda, 16, 1280, B, seed=16, M=8, R=4, passes=3,
+                           pool_mask="altparity", g_dtype=g_dtype)
+    before = tg3.NC_LAUNCHES[16]
+    got = _launched_once(tg3.GRAMV3_KERNEL, lambda: tg3.gramv3_cuda(problem))
+    assert tg3.NC_LAUNCHES[16] == before + 1
+    assert torch.equal(got, tg3.gramv3_plain(problem))
+
+
+@pytest.mark.gpu
+def test_cuda_gramv3_at_16_codebooks_refuses_other_beam_widths(cuda):
+    problem = _gramv3_case(cuda, 16, 256, 64, M=16, R=4, passes=1)
+    with pytest.raises(ValueError, match="M=16"):
+        tg3.gramv3_cuda(problem)
+
+
+@pytest.mark.gpu
+def test_cuda_gramv3_at_16_codebooks_stage_timed_build_same_indexes(cuda):
+    problem = _gramv3_case(cuda, 16, 1280, 1000, M=8, R=4, passes=2, pool_mask="altparity")
+    got, stages = _launched_once(tg3.GRAMV3_TIMED_KERNEL, lambda: tg3.gramv3_stages(problem))
+    assert torch.equal(got, tg3.gramv3_cuda(problem))
+    assert stages.shape == (1000 // tg3.FRAMES_PER_BLOCK, len(tg3.STAGES) + 2)
+    assert bool((stages > 0).all())
+    occ = tg3.gramv3_occupancy(problem)
+    assert occ["blocks_per_sm"] >= 1 and occ["threads_per_block"] == 128
+
+
+@pytest.mark.gpu
+def test_d1280_b16_main_path_runs_k3_at_16_codebooks(cuda):
+    q = qtt.load_quantizer(Q1280_16, device=cuda)
+    assert q.num_codebooks == 16
+    x = make_mlp_sampler(1280, device=cuda)(torch.Generator().manual_seed(10), 8192)
+    name, passes, kw = tcodec.auto_choice(q.config, x, 5)
+    assert name == "gramv3_bf16_alt4_d1280_b16"
+    tg3.TABLES_CACHE.clear()
+    before = tg3.NC_LAUNCHES[16]
+    spans.start()
+    got = _launched_once(tg3.GRAMV3_KERNEL, lambda: q.encode(x, as_bytes=False))
+    records = spans.stop()
+    assert tg3.NC_LAUNCHES[16] == before + 1
+    assert [r.attrs for r in records if r.name == "gramv3.launch"] == [
+        {"g_dtype": kw["g_dtype"], "nc": 16}]
+    # the bf16 table, 16 x 4,096 x 256 x 2 bytes
+    assert [r.attrs for r in records if r.name == "gramv3.tables"] == [
+        {"table_bytes": 16 * 4096 * 256 * 2}]
+    problem = tg3.gramv3_problem(q.params, q.config, x, passes=passes, **kw)
+    assert torch.equal(got, tg3.gramv3_plain(problem))
+    # within the bar of the port's beam-5 on the first 2,048 frames
+    xs, centers = x[:2048], q.get_centers()
+    err = float(((tcodec.decode_indexes(centers, got[:2048]) - xs) ** 2).sum())
+    beam5 = q.encode(xs, search_method="beam", as_bytes=False)
+    assert err <= BAR * float(((tcodec.decode_indexes(centers, beam5) - xs) ** 2).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 63, 8192, 8193])
+def test_cuda_logits_argmax_at_16_codebooks_equals_the_f64_argmax(cuda, B):
+    q = qtt.load_quantizer(Q1280_16, device=cuda)
+    x = make_mlp_sampler(1280, device=cuda)(torch.Generator().manual_seed(11), B)
+    tables = tla.TABLES_CACHE.get(q.params, q.config.scale_speed)
+    got = _launched_once(tla.LOGITS_ARGMAX_KERNEL, lambda: tla.logits_argmax_cuda(x, tables))
+    assert got.shape == (B, 16)
+    want, decided = tla.f64_argmax(q.params, q.config, x)
+    assert torch.equal(got[decided], want[decided])
+    assert torch.equal(tla.logits_argmax_plain(x, tables)[decided], want[decided])

@@ -143,7 +143,10 @@ def test_supported_gate_matches_jax_and_any_dim_works():
             for nc in (1, 2, 4, 8, 16):
                 jc = jcore.QuantizerConfig(dim=dim, codebook_size=cs, num_codebooks=nc)
                 tc = tcore.QuantizerConfig(dim=dim, codebook_size=cs, num_codebooks=nc)
-                assert tg3.GRAMV3_SUPPORTED(tc) == jg3.GRAMV3_SUPPORTED(jc), (dim, cs, nc)
+                # the JAX gate's, and 16 codebooks of 256 beside it (the card's
+                # kernel takes them; the TPU's Gram table stops at 8)
+                want = jg3.GRAMV3_SUPPORTED(jc) or (cs, nc) == (256, 16)
+                assert tg3.GRAMV3_SUPPORTED(tc) == want, (dim, cs, nc)
     # dim 96 is no multiple of 128: seqbeam refuses it, gramv3 takes it
     arrays, x, jc, jp, tc, tp = _both(2, 96, 32, 64)
     assert not tseq.SEQBEAM_SUPPORTED(tc)
@@ -175,9 +178,9 @@ def test_loop_fori_refuses_a_mixed_schedule_and_bad_shapes_raise():
                dict(loop="scan"), dict(init_indexes=torch.full((64, 4), CS))):
         with pytest.raises(ValueError):
             tg3.gramv3_encode_indexes(tp, tc, xt, **kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # 32 codebooks: past the kernel's 16
         tg3.gramv3_encode_indexes(
-            tp, tcore.QuantizerConfig(dim=128, codebook_size=256, num_codebooks=16),
+            tp, tcore.QuantizerConfig(dim=128, codebook_size=256, num_codebooks=32),
             torch.zeros(4, 128))
     with pytest.raises(ValueError, match="CUDA"):  # the kernel takes no CPU tensor
         tg3.gramv3_cuda(tg3.gramv3_problem(tp, tc, xt))

@@ -286,6 +286,6 @@ def test_committed_gate_tables_hold_card_runs():
         assert name in smoke, name
     grams = [r.name for ladder in tladder.LADDERS.values() for r in ladder
              if r.kernel is tg3.GRAMV3]
-    assert len(grams) == 2
+    assert len(grams) == 3
     for gram in grams:
         assert gram in rows and smoke[gram]["ok"], gram

@@ -176,7 +176,7 @@ def test_guard_candidates_leave_auto_unchanged(monkeypatch):
     seen = set()
     for dim, config in configs.items():
         assert [(r.name, r.needs_quality) for r in tladder.rungs(config)] == ladder[dim]
-        for rung in tguard.CANDIDATES[dim]:
+        for rung in tguard.CANDIDATES[(dim, config.num_codebooks)]:
             seen.add(rung.name)
             assert rung.kernel is tseq.SEQBEAM
             # every candidate is a problem the port takes
