@@ -22,7 +22,10 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    counts set to 0 just before and read just after, of whichever search
    kernel auto takes (K3 on a gramv3 rung, K2 on a seqbeam one); on a gramv3
    rung its launches by codebooks (``ops.gramv3.NC_LAUNCHES``) and its
-   ``gramv3.launch`` spans (``g_dtype``, ``nc``) must count them, and at
+   ``gramv3.launch`` spans (``g_dtype``, ``nc``, ``rows``) must count them,
+   the count of launches that load all rows a candidate
+   (``ops.gramv3.ALL_ROWS_LAUNCHES``) every bf16 launch at 16 codebooks and
+   none below, and at
    d1280 / 16 B (K3 at 16 codebooks) the stage-timed build prints its
    ``[gramv3 stages]`` entry.  The path's
    own outputs are held against the plain versions on its own inputs: its
@@ -52,7 +55,15 @@ Phases, each of which raises (and exits nonzero) when its check fails:
    d512 int8 and d256 bf16 the stage-timed build
    (``ops.gramv3.gramv3_stages``) gives the same indexes and prints the
    ``[gramv3 stages]`` line: each stage's share of the warps' cycles and
-   its microseconds a frame-step, with registers and blocks an SM;
+   its microseconds a frame-step, with registers and blocks an SM.  Then
+   K3 at 16 codebooks on seeded d1280 codebooks
+   (``experiments/gramv3_nc16.py``): every index against plain, its ms at
+   3, 4 and 5 passes in bf16 and int8, registers, blocks an SM and shared
+   memory, the stage split with load's share, and ptxas's lines of every
+   instantiation, each printed beside the committed figures of the build
+   that staged the shared rows at 16 codebooks in bf16 too (a comparison
+   that never raises); K3's entry holds only this run's numbers, and its
+   launches count only the checks';
 6. training at full width: ``QuantizerTrainer(dim=512, bytes_per_frame=8,
    phase_one_iters=4, phase_two_iters=6)`` on batches of 600 frames, driven
    with ``step_many`` across the phase switch, for ``train_search`` "auto"
@@ -431,7 +442,7 @@ def main() -> int:
         K1.DECODE_KERNEL.launches = 0
         counter.launches = 0
         n_init = LA.LOGITS_ARGMAX_KERNEL.launches
-        n_nc = K3.NC_LAUNCHES[nc]
+        n_nc, n_all = K3.NC_LAUNCHES[nc], K3.ALL_ROWS_LAUNCHES
         spans.start()
         codes = qq.encode(x)
         records = spans.stop()
@@ -440,12 +451,16 @@ def main() -> int:
         n_dec, n_enc = K1.DECODE_KERNEL.launches, counter.launches
         n_init = LA.LOGITS_ARGMAX_KERNEL.launches - n_init
         check(n_enc > 0, f"d{dim}: encode(auto) did not launch the {kernel} kernel")
-        if gram:  # the kernel's launches by codebooks, and its span's attributes
+        if gram:  # the kernel's launches by codebooks and by path, and its span's attributes
             launch_attrs = [r.attrs for r in records if r.name == "gramv3.launch"]
+            g_dtype = auto["kw"]["g_dtype"]
+            rows = K3.rows_path(g_dtype, nc)
             check(K3.NC_LAUNCHES[nc] - n_nc == n_enc and launch_attrs == [
-                {"g_dtype": auto["kw"]["g_dtype"], "nc": nc}] * n_enc,
-                f"d{dim} nc={nc}: NC_LAUNCHES {K3.NC_LAUNCHES} and gramv3.launch spans "
-                f"{launch_attrs} for {n_enc} launches")
+                {"g_dtype": g_dtype, "nc": nc, "rows": rows}] * n_enc
+                and K3.ALL_ROWS_LAUNCHES - n_all == (n_enc if rows == "all" else 0),
+                f"d{dim} nc={nc}: NC_LAUNCHES {K3.NC_LAUNCHES}, ALL_ROWS_LAUNCHES "
+                f"{K3.ALL_ROWS_LAUNCHES - n_all} and gramv3.launch spans {launch_attrs} for "
+                f"{n_enc} launches")
         check(n_init == n_enc, f"d{dim}: {n_init} initial-index launches for {n_enc} searches")
         check(n_dec > 0, f"d{dim}: decode(use_kernel=True) did not launch the decode kernel")
         launches["decode"] += n_dec
@@ -497,7 +512,11 @@ def main() -> int:
                 stage_breakdown as gram_stages
 
             st = gram_stages(problem)
-            main_stage_lines.append(f"{auto['name']} ({st['summary']})")
+            # the timed build takes the shipped bound too: its clock reads
+            # make each load group land, so at 16 codebooks its load share
+            # does not track the untimed kernel's time
+            main_stage_lines.append(f"{auto['name']} (timed build, not comparable to the "
+                                    f"untimed kernel's time: {st['summary']})")
         path = {
             "dim": dim, "bytes_per_frame": qq.config.bytes_per_frame, "config": auto["name"],
             "batch": TIME_B, "launches": {kernel: n_enc, "decode": n_dec},
@@ -821,6 +840,22 @@ def gram_phase(quantizers: dict, main_frames: dict):
               f"kernel {entry['ms']:.3f} + rest; precompute by part: " + ", ".join(
                   f"{k[:-3]} {v:.3f}" for k, v in split.items()) + f" ms; launches {n}",
               flush=True)
+    # K3 at 16 codebooks on seeded codebooks; its log lines print the build
+    # that staged the shared rows in bf16 too beside them, its entry holds
+    # this run's numbers, and only its checks' launches are counted
+    from quantization_tpu_torch.experiments import gramv3_nc16
+
+    nc16 = gramv3_nc16.report(log=lambda line: print(line, flush=True))
+    launches += nc16["check_launches"]
+    head = nc16["times"][0]
+    configs.append({"config": "gramv3_nc16_bf16_alt3_seeded_d1280",
+                    "shape": f"B={head['B']} D=1280 nc=16 passes=3 M=8 R=4",
+                    "g_dtype": "bf16", "pool_mask": "altparity", "bound_by": "operations",
+                    **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "registers",
+                                            "blocks_per_sm", "smem_bytes")},
+                    "times": [{k: t[k] for k in ("g_dtype", "passes", "ms", "bound_ms",
+                                                 "registers", "blocks_per_sm", "smem_bytes")}
+                              for t in nc16["times"]]})
     return paths, configs, checks, launches, stage_lines
 
 

@@ -24,26 +24,41 @@
 // Design: one warp owns one frame and runs its whole search with no
 // barrier; lane l owns codewords 8l .. 8l+7, so a table row is one 16-byte
 // (bf16) or 8-byte (int8) load a lane.  Latency holds it, so occupancy
-// counts: 8 blocks of 4 warps an SM for int8, 7 for bf16.
+// counts: 8 blocks of 4 warps an SM for int8, 7 for bf16 up to 8
+// codebooks, 6 for bf16 at 16.
 // - nc is a template parameter, and so is the step t of a candidate's
 //   score row (a switch), so its own table rows are loaded before their
 //   sums start (in groups of 4 for bf16, to keep to 64 registers).
 // - At step t the rows s >= t are the same for every candidate (s > t the
-//   root's, s = t the broadcast diagonal row), so they are loaded once a
-//   step: bf16 keeps them unpacked in the warp's shared memory and each
-//   candidate adds them in codebook order after its own t rows; int8 sums
-//   them once, in 16-bit lanes of codewords XORed by 0x80 (unsigned, at
-//   most 8 x 255, no carry), and a candidate adds that sum to its own rows'
-//   in one IADD a pair; the bias nc x 128 goes when the sum becomes a float.
+//   root's, s = t the broadcast diagonal row), so up to 8 codebooks they
+//   are staged once a step: bf16 keeps them unpacked in the warp's shared
+//   memory and each candidate adds them in codebook order after its own t
+//   rows; int8 sums them once, in 16-bit lanes of codewords XORed by 0x80
+//   (unsigned, at most 16 x 255, no carry), and a candidate adds that sum
+//   to its own rows' in one IADD a pair; the bias nc x 128 goes when the
+//   sum becomes a float.  int8 stages them at 16 codebooks too.
 // - A candidate's index row is one byte a codebook in its lane's registers
 //   (one 64-bit word up to 8 codebooks, two at 16); the pool's reorder is a
 //   shuffle from the parent's lane.
-// - At 16 codebooks bf16's shared rows take 60 KB a block, past the 48 KB
-//   of static shared memory: they live in dynamic shared memory, 3 blocks
-//   an SM.  Measured on the H100 at d1280, 8,192 frames, 3 passes: 2.49 ms
-//   (114 registers), against 2.99 ms (72 registers, 7 blocks) and 3.43 ms
-//   (114 registers, 4 blocks) for rows kept packed as bf16 in 30 KB of
-//   static shared memory and unpacked as they are added.
+// - bf16 at 16 codebooks stages nothing (kAllRows): a candidate loads all
+//   16 of its rows from the table, its own and the step's shared ones, and
+//   adds them in codebook order.  The L1 cache serves the repeats: the
+//   shared rows are the same for the step's 8 candidates, and a
+//   candidate's own rows are often its predecessor's.  With no shared
+//   memory the SM's 256 KB of L1 and shared memory can all be cache, and 6
+//   blocks fit (80 registers).  Measured on the H100 at d1280, 8,192 frames,
+//   altparity: 1.772 ms at 3 passes and 2.361 at 4, against 2.481 and
+//   3.293 for the shared rows staged as f32 in 60 KB of dynamic shared
+//   memory (114 registers, 3 blocks, the L1 60 KB).  Slower, each against
+//   the staged 2.48 ms at 3 passes: the rows brought into a per-warp ring
+//   in shared memory one candidate ahead, by bulk copies with an mbarrier
+//   a slot (2.98-3.57 ms over depths 2 and 3, shared rows as bf16 slots or
+//   f32; 2.61 copying only the rows whose id is new), or by cp.async
+//   (2.54 with that deduplication; 3.47 without); own rows held in
+//   registers a candidate ahead (2.61); more rows in flight a group (2.49,
+//   3.07); L1 prefetches (3.12, 3.46); 4 to 8 blocks (1.83, 1.79, 2.04,
+//   2.18 ms at 4, 5, 7 and 8).  int8 at 16 keeps its staged sum: every row
+//   a candidate took 1.69 ms against 1.45.
 // - The pool: each parent's keys are taken smallest first (a warp minimum
 //   of the lanes' minima; the winner's lane then finds its next) while
 //   they can still enter the pool's top M (after w, no key of the parent
@@ -68,12 +83,16 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // resident blocks an SM: at most 64 registers a thread for int8, 73 for
 // bf16 up to 8 codebooks (whose shared rows take 3.5 KB of shared memory a
-// warp at nc = 8); bf16 at 16 codebooks is held to 3 by its shared rows
+// warp at nc = 8), 80 for bf16 at 16 codebooks (no shared memory).  The
+// stage-timed build takes the same bound; at 16 codebooks its clock reads
+// make each load group land, so its split charges load more than the
+// untimed kernel waits
 template <bool I8, int NC>
-constexpr int kMinBlocks = I8 ? 8 : NC <= 8 ? 7 : 3;
-// dynamic shared memory a block: bf16's shared rows above 8 codebooks
+constexpr int kMinBlocks = I8 ? 8 : NC <= 8 ? 7 : 6;
+// every candidate adds all nc rows from the table, none staged: bf16 above
+// 8 codebooks
 template <bool I8, int NC>
-constexpr int kDynSmem = !I8 && NC > 8 ? kWarps * (NC - 1) * 2 * 32 * (int)sizeof(float4) : 0;
+constexpr bool kAllRows = !I8 && NC > 8;
 constexpr int kMaxPool = 256;     // M * R
 constexpr int kMaxPasses = 64;
 constexpr uint32_t kLaneMask = 0xFFu;
@@ -253,8 +272,8 @@ __device__ __forceinline__ void add_u8(const uint2 w, uint32_t (&sum)[4]) {
   sum[3] += __byte_perm(y, 0, 0x4342);
 }
 
-// The rows of a step that every candidate shares: bf16 keeps rows 1 ..
-// nc-1 as f32 in the warp's shared memory (f[s-1][h][lane] holds the
+// The rows of a step that every candidate shares, staged: bf16 keeps rows
+// 1 .. nc-1 as f32 in the warp's shared memory (f[s-1][h][lane] holds the
 // lane's codewords 4h .. 4h+3, which only that lane writes and reads),
 // int8 their one biased sum in registers.
 template <bool I8, int NC>
@@ -279,7 +298,8 @@ __device__ __forceinline__ RowWord<I8> load_row(const char* gt_t, int s, uint32_
 
 // Step t's shared rows s = t .. nc-1 of target block gt_t, with the root's
 // ids `sol` (row t is the diagonal: any id gives it).  Above 8 codebooks
-// the rows are loaded in groups, as sg_row's, to keep to the registers.
+// (int8 alone: kAllRows) the rows are loaded in groups, as sg_row's, to
+// keep to the registers.
 template <bool I8, int NC>
 __device__ __forceinline__ void load_shared(const char* gt_t, Ids<NC> sol, int t, int lane,
                                             Shared<I8, NC>& sh) {
@@ -305,11 +325,10 @@ __device__ __forceinline__ void load_shared(const char* gt_t, Ids<NC> sol, int t
         }
     }
   } else {
-    constexpr int G = I8 ? 8 : 4;
-    if constexpr (I8) {
+    static_assert(I8, "bf16 above 8 codebooks stages no rows");
+    constexpr int G = 8;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
-    }
+    for (int q = 0; q < 4; ++q) sh.sum[q] = 0;
 #pragma unroll
     for (int g0 = 1; g0 < NC; g0 += G) {
       RowWord<I8> w[G];
@@ -318,16 +337,7 @@ __device__ __forceinline__ void load_shared(const char* gt_t, Ids<NC> sol, int t
         if (s >= t) w[s - g0] = load_row<I8>(gt_t, s, byte_of(sol, s), lane);
 #pragma unroll
       for (int s = g0; s < g0 + G && s < NC; ++s)
-        if (s >= t) {
-          if constexpr (I8) {
-            add_u8(w[s - g0], sh.sum);
-          } else {
-            float v[8];
-            unpack8(w[s - g0], v);
-            sh.f[s - 1][0][lane] = make_float4(v[0], v[1], v[2], v[3]);
-            sh.f[s - 1][1][lane] = make_float4(v[4], v[5], v[6], v[7]);
-          }
-        }
+        if (s >= t) add_u8(w[s - g0], sh.sum);
     }
   }
 }
@@ -481,15 +491,11 @@ __device__ __forceinline__ V slot_of(const V (&a)[CPL], int c) {
 
 template <bool I8, int NC, int M, bool TIMED>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<I8, NC>) gramv3_kernel(const Args a) {
-  // the warp's shared rows (bf16, Shared::f): static up to 8 codebooks,
-  // dynamic (kDynSmem) at 16
+  // the warp's shared rows (bf16 up to 8 codebooks, Shared::f)
   float4 (*rows)[2][32] = nullptr;
   if constexpr (NC <= 8) {
     __shared__ float4 shared_rows[kWarps][I8 ? 1 : NC - 1][2][32];
     rows = shared_rows[threadIdx.x >> 5];
-  } else if constexpr (!I8) {
-    extern __shared__ float4 dyn_rows[];
-    rows = reinterpret_cast<float4 (*)[2][32]>(dyn_rows) + (threadIdx.x >> 5) * (NC - 1);
   }
   constexpr int CPL = (M + 31) / 32;  // candidates a lane
   constexpr uint32_t mbits = (uint32_t)(M - 1) << 8;
@@ -547,7 +553,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8, NC>) gramv3_kernel(co
       Shared<I8, NC> sh;
       sh.f = rows;
       load_x2(xcb, t, lane, x2);
-      load_shared<I8, NC>(gt_t, sol, t, lane, sh);
+      if constexpr (!kAllRows<I8, NC>) load_shared<I8, NC>(gt_t, sol, t, lane, sh);
       clk.landed(0u);
       uint32_t list[CPL];  // pool step: the smallest pool keys so far, entry lane + 32 c
 #pragma unroll
@@ -560,7 +566,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8, NC>) gramv3_kernel(co
         const float ss = __shfl_sync(kFull, slot_of<CPL>(css, m >> 5), m & 31);
         float sg[8];
         uint32_t keys[8];
-        sg_step<I8, NC>(t, gt_t, row, lane, sh, sg, clk);
+        if constexpr (kAllRows<I8, NC>)
+          sg_row<I8, NC, NC>(gt_t, row, lane, sh, sg, clk);  // rows s >= t: the root's
+        else
+          sg_step<I8, NC>(t, gt_t, row, lane, sh, sg, clk);
         row_keys(sg, x2, ss, it, lane, keys);
         clk.lap(kStScore);
         if (!pool) {
@@ -650,15 +659,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<I8, NC>) gramv3_kernel(co
   clk.finish(a.stages, lane);
 }
 
-// A kernel and the dynamic shared memory a block of it takes.
-struct Kernel {
-  const void* fn;
-  int smem;
-};
+// A kernel's entry (nullptr: not built).
+using Kernel = const void*;
 
 template <bool I8, int NC, int M, bool TIMED>
 Kernel kernel_of() {
-  return {(const void*)gramv3_kernel<I8, NC, M, TIMED>, kDynSmem<I8, NC>};
+  return (Kernel)gramv3_kernel<I8, NC, M, TIMED>;
 }
 
 // The kernel a launch with (nc, M, g_dtype) runs; the timed build is
@@ -667,10 +673,10 @@ Kernel kernel_of() {
 template <bool TIMED, bool I8, int NC>
 Kernel kernel_by_m(int M) {
   if constexpr (NC == 16) {
-    if constexpr (TIMED && I8) return {nullptr, 0};
-    else return M == 8 ? kernel_of<I8, NC, 8, TIMED>() : Kernel{nullptr, 0};
+    if constexpr (TIMED && I8) return nullptr;
+    else return M == 8 ? kernel_of<I8, NC, 8, TIMED>() : nullptr;
   } else if constexpr (TIMED) {
-    return M == 8 ? kernel_of<I8, NC, 8, true>() : Kernel{nullptr, 0};
+    return M == 8 ? kernel_of<I8, NC, 8, true>() : nullptr;
   } else {
     switch (M) {
       case 8: return kernel_of<I8, NC, 8, false>();
@@ -678,7 +684,7 @@ Kernel kernel_by_m(int M) {
       case 32: return kernel_of<I8, NC, 32, false>();
       case 64: return kernel_of<I8, NC, 64, false>();
     }
-    return {nullptr, 0};
+    return nullptr;
   }
 }
 
@@ -690,27 +696,19 @@ Kernel kernel_by_nc(int nc, int M) {
     case 8: return kernel_by_m<TIMED, I8, 8>(M);
     case 16: return kernel_by_m<TIMED, I8, 16>(M);
   }
-  return {nullptr, 0};
+  return nullptr;
 }
 
 template <bool TIMED>
 Kernel kernel_for(int nc, int M, int g_dtype) {
   return g_dtype == 1 ? kernel_by_nc<TIMED, true>(nc, M)
-                      : g_dtype == 0 ? kernel_by_nc<TIMED, false>(nc, M) : Kernel{nullptr, 0};
+                      : g_dtype == 0 ? kernel_by_nc<TIMED, false>(nc, M) : nullptr;
 }
 
-// Allows the kernel its dynamic shared memory above the default 48 KB (on
-// the current device; a few host microseconds, so every launch sets it).
-int allow_smem(const Kernel& k) {
-  return k.smem ? (int)cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            k.smem)
-                : 0;
-}
-
-int launch(const Kernel& k, const void* xc, const void* idx0, const void* ss0, const void* gt,
+int launch(Kernel k, const void* xc, const void* idx0, const void* ss0, const void* gt,
            void* out, int B, int R, int passes, const void* pool_masks, long long* stages,
            cudaStream_t stream) {
-  if (!k.fn || passes > kMaxPasses || passes < 0 || R < 1) return (int)cudaErrorInvalidValue;
+  if (!k || passes > kMaxPasses || passes < 0 || R < 1) return (int)cudaErrorInvalidValue;
   Args a;
   a.xc = (const float*)xc;
   a.idx0 = (const int32_t*)idx0;
@@ -723,10 +721,8 @@ int launch(const Kernel& k, const void* xc, const void* idx0, const void* ss0, c
   a.stages = stages;
   const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
   if (blocks == 0) return (int)cudaGetLastError();
-  const int err = allow_smem(k);
-  if (err) return err;
   void* args[] = {&a};
-  return (int)cudaLaunchKernel(k.fn, dim3(blocks), dim3(kThreads), args, (size_t)k.smem, stream);
+  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace
@@ -760,23 +756,39 @@ extern "C" int qtt_gramv3_timed_launch(const void* xc, const void* idx0, const v
                 pool_masks, (long long*)stages, (cudaStream_t)stream);
 }
 
+// How the kernel that a launch with (nc, g_dtype) runs gets a step's table
+// rows: 1 where every candidate loads all nc of them (kAllRows), 0 where
+// the rows every candidate shares are staged once a step, -1 for no such
+// kernel.
+extern "C" int qtt_gramv3_all_rows(int nc, int g_dtype) {
+  if (g_dtype != 0 && g_dtype != 1) return -1;
+  const bool i8 = g_dtype == 1;
+  switch (nc) {
+    case 2: return i8 ? kAllRows<true, 2> : kAllRows<false, 2>;
+    case 4: return i8 ? kAllRows<true, 4> : kAllRows<false, 4>;
+    case 8: return i8 ? kAllRows<true, 8> : kAllRows<false, 8>;
+    case 16: return i8 ? kAllRows<true, 16> : kAllRows<false, 16>;
+  }
+  return -1;
+}
+
 // Registers a thread and resident blocks an SM of the kernel that a launch
 // with (nc, M, g_dtype) runs, the timed build's where timed != 0: out[0]
-// registers, out[1] blocks an SM, out[2] threads a block.
+// registers, out[1] blocks an SM, out[2] threads a block, out[3] shared
+// memory a block (bytes).
 extern "C" int qtt_gramv3_occupancy(int nc, int M, int g_dtype, int timed, void* out) {
   const Kernel k = timed ? kernel_for<true>(nc, M, g_dtype) : kernel_for<false>(nc, M, g_dtype);
-  if (!k.fn) return (int)cudaErrorInvalidValue;
+  if (!k) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  int err = (int)cudaFuncGetAttributes(&attr, k.fn);
-  if (err) return err;
-  err = allow_smem(k);
+  int err = (int)cudaFuncGetAttributes(&attr, k);
   if (err) return err;
   int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn, kThreads, (size_t)k.smem);
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads, 0);
   if (err) return err;
   int* o = (int*)out;
   o[0] = attr.numRegs;
   o[1] = blocks;
   o[2] = kThreads;
+  o[3] = (int)attr.sharedSizeBytes;
   return 0;
 }

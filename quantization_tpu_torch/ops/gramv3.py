@@ -12,8 +12,11 @@ error, a step scores every codeword j of codebook t as
 where ``i`` is the candidate's current index at t, ``XC = x . W^T`` and
 ``Gt`` is the codeword Gram matrix with every diagonal block replaced by the
 broadcast row ``csq_t[j] / 2``.  The CUDA kernel (``csrc/gramv3.cu``) gives
-each frame one warp; at step t it loads the rows s >= t that every
-candidate shares once, and a candidate its own rows s < t.
+each frame one warp; at step t it stages the rows s >= t that every
+candidate shares once, and a candidate loads its own rows s < t.  bf16 at
+16 codebooks stages nothing: each candidate loads all its nc rows and the
+L1 cache serves the repeats (:func:`rows_path`, counted in
+:data:`ALL_ROWS_LAUNCHES`).
 :func:`gramv3_plain` is the same function in plain PyTorch, step for step,
 and is what a CPU tensor runs; :func:`gramv3_stages` runs the kernel's
 stage-timed build.
@@ -47,6 +50,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 import warnings
 from typing import Optional, Tuple
 
@@ -78,6 +82,26 @@ BUILT_M = {2: (8, 16, 32, 64), 4: (8, 16, 32, 64), 8: (8, 16, 32, 64), 16: (8,)}
 # the kernel's launches by codebooks, as ``GRAMV3_KERNEL.launches`` counts
 # them all
 NC_LAUNCHES: collections.Counter = collections.Counter()
+# the launches whose candidates each load all nc table rows (``rows_path``
+# is "all"), the stage-timed build's included
+ALL_ROWS_LAUNCHES = 0
+ALL_ROWS = CFunction("gramv3", "qtt_gramv3_all_rows", [ctypes.c_int] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_path(g_dtype: str, nc: int) -> str:
+    """How the kernel at ``nc`` codebooks with a ``g_dtype`` table gets a
+    step's table rows, as the built kernel reports it (``kAllRows`` in
+    csrc/gramv3.cu; it builds the library): "all" (every candidate loads
+    all nc of its rows, the L1 cache serving the repeats, and the kernel
+    takes no shared memory; bf16 at 16 codebooks) or "staged" (the rows
+    that every candidate shares loaded once a step, as f32 rows in shared
+    memory for bf16 or one register sum for int8, and a candidate's own
+    rows loaded as it is scored)."""
+    got = ALL_ROWS(nc, G_DTYPES[g_dtype])
+    if got < 0:
+        raise ValueError(f"no gramv3 kernel at {nc} codebooks with a {g_dtype} table")
+    return "all" if got else "staged"
 
 
 def GRAMV3_SUPPORTED(config: QuantizerConfig) -> bool:
@@ -339,11 +363,14 @@ def gramv3_plain(problem: Gramv3Problem) -> torch.Tensor:
 def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
     """Check the call's tensors of ``problem`` and launch ``kernel`` on them
     and its table (checked at its build) with the ``extra`` arguments before
-    the stream (the ``gramv3.launch`` span, with the table's dtype and the
-    codebooks); counts it in :data:`NC_LAUNCHES`; returns the (B, nc)
-    indexes."""
+    the stream (the ``gramv3.launch`` span, with the table's dtype, the
+    codebooks and, once the tensors pass, how the kernel gets the rows,
+    ``rows`` from :func:`rows_path`); counts it in
+    :data:`NC_LAUNCHES` and, where it loads all rows,
+    :data:`ALL_ROWS_LAUNCHES`; returns the (B, nc) indexes."""
+    global ALL_ROWS_LAUNCHES
     nc = problem.gt.shape[0]
-    with span("gramv3.launch", g_dtype=problem.g_dtype, nc=nc):
+    with span("gramv3.launch", g_dtype=problem.g_dtype, nc=nc) as sp:
         xc, idx0, ss0, gt = problem.xc, problem.idx0, problem.ss0, problem.gt
         K = nc * CS
         B = xc.shape[0]
@@ -360,6 +387,8 @@ def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
             raise ValueError(f"the gramv3 kernel at {nc} codebooks is built for M in "
                              f"{BUILT_M[nc]}, got M={problem.M}")
         on_one_device("gramv3_cuda", xc, idx0, ss0, gt)
+        rows = rows_path(problem.g_dtype, nc)
+        sp.set(rows=rows)
         out = torch.empty(B, nc, dtype=torch.int32, device=xc.device)
         words = (ctypes.c_uint32 * max(problem.passes, 1))(*problem.masks)
         kernel(
@@ -368,6 +397,8 @@ def _launch(problem: Gramv3Problem, kernel: CudaKernel, *extra) -> torch.Tensor:
             G_DTYPES[problem.g_dtype], *extra, torch.cuda.current_stream(xc.device).cuda_stream,
         )
         NC_LAUNCHES[nc] += 1
+        if rows == "all":
+            ALL_ROWS_LAUNCHES += 1
         return out
 
 
@@ -395,15 +426,16 @@ def gramv3_stages(problem: Gramv3Problem) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def gramv3_occupancy(problem: Gramv3Problem, timed: bool = False) -> dict:
-    """Registers a thread, threads a block and resident blocks an SM of the
-    kernel that ``problem`` launches (of its stage-timed build where
-    ``timed``), as the CUDA runtime reports them."""
-    out = (ctypes.c_int * 3)()
+    """Registers a thread, threads a block, resident blocks an SM and
+    shared memory a block of the kernel that ``problem`` launches (of its
+    stage-timed build where ``timed``), as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 4)()
     err = OCCUPANCY(problem.gt.shape[0], problem.M, G_DTYPES[problem.g_dtype], int(timed),
                     ctypes.addressof(out))
     if err:
         raise RuntimeError(f"qtt_gramv3_occupancy failed: CUDA error {err}")
-    return {"registers": out[0], "blocks_per_sm": out[1], "threads_per_block": out[2]}
+    return {"registers": out[0], "blocks_per_sm": out[1], "threads_per_block": out[2],
+            "smem_bytes": out[3]}
 
 
 def gramv3_encode_indexes(

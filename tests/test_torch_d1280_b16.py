@@ -170,3 +170,31 @@ def test_the_rung_is_the_first_beam_whose_guard_rows_hold_the_bar():
     assert verify.combined_margin_pct("gramv3_bf16_alt3_d1280_b16") > 1.0
     for name in (r.name for r in quality_guard.GRAMV3_CANDIDATES[(1280, 16)]):
         assert verify.kernel_verified(name) and verify.quality_delta_pct(name) is not None
+
+
+def test_all_rows_counter_and_the_launch_span_rows_attr():
+    """Which K3 launches load all nc rows a candidate (no staged rows): a
+    plain integer counts them, and the ``gramv3.launch`` span's ``rows``
+    says which path ran, both documented; the path is the built kernel's
+    answer (``rows_path``), asked only once the tensors pass, so a CPU
+    problem is refused before any count moves or ``rows`` is set."""
+    from quantization_tpu_torch.utils import spans
+
+    assert type(tg3.ALL_ROWS_LAUNCHES) is int
+    assert tg3.ALL_ROWS.symbol == "qtt_gramv3_all_rows"
+    for doc in (tg3.__doc__, tg3.rows_path.__doc__, tg3._launch.__doc__):
+        assert "all" in doc
+    assert '"staged"' in tg3.rows_path.__doc__ and "kAllRows" in tg3.rows_path.__doc__
+    assert "ALL_ROWS_LAUNCHES" in tg3._launch.__doc__ and "rows_path" in tg3._launch.__doc__
+    params, config, _, x = _seeded(4, 128, frames=8)
+    problem = tg3.gramv3_problem(params, config, x, passes=1)
+    all_rows, nc16 = tg3.ALL_ROWS_LAUNCHES, tg3.NC_LAUNCHES[16]
+    spans.start()
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            tg3.gramv3_cuda(problem)
+    finally:
+        records = spans.stop()
+    assert (tg3.ALL_ROWS_LAUNCHES, tg3.NC_LAUNCHES[16]) == (all_rows, nc16)
+    assert [r.attrs for r in records if r.name == "gramv3.launch"] == [
+        {"g_dtype": "bf16", "nc": 16}]

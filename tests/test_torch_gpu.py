@@ -1060,17 +1060,45 @@ def test_profile_device_ops_holds_the_kernel_in_every_table(cuda, caplog):
     print(f"profile_device_ops: {len(caplog.records)} empty windows traced again in 40 traces")
 
 
-# d1280 / 16 B: K3 at 16 codebooks (its one beam width, M=8)
+# d1280 / 16 B: K3 at 16 codebooks (its one beam width, M=8); with a bf16
+# table every candidate loads all 16 of its rows, with int8 the shared rows
+# are summed once a step
 @pytest.mark.gpu
+@pytest.mark.parametrize("pool_mask", ["altparity", None])  # None: every step a pool step
+@pytest.mark.parametrize("passes", [3, 4, 5])
 @pytest.mark.parametrize("B", [1, 63, 8192, 8193])
 @pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
-def test_cuda_gramv3_at_16_codebooks_equals_plain(cuda, g_dtype, B):
-    problem = _gramv3_case(cuda, 16, 1280, B, seed=16, M=8, R=4, passes=3,
-                           pool_mask="altparity", g_dtype=g_dtype)
-    before = tg3.NC_LAUNCHES[16]
+def test_cuda_gramv3_at_16_codebooks_equals_plain(cuda, g_dtype, B, passes, pool_mask):
+    problem = _gramv3_case(cuda, 16, 1280, B, seed=16, M=8, R=4, passes=passes,
+                           pool_mask=pool_mask, g_dtype=g_dtype)
+    before, all_rows = tg3.NC_LAUNCHES[16], tg3.ALL_ROWS_LAUNCHES
     got = _launched_once(tg3.GRAMV3_KERNEL, lambda: tg3.gramv3_cuda(problem))
     assert tg3.NC_LAUNCHES[16] == before + 1
+    assert tg3.ALL_ROWS_LAUNCHES == all_rows + (g_dtype == "bf16")
     assert torch.equal(got, tg3.gramv3_plain(problem))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_dtype", ["bf16", "int8"])
+def test_cuda_gramv3_at_8_codebooks_leaves_the_all_rows_count(cuda, g_dtype):
+    problem = _gramv3_case(cuda, 8, 512, 1001, M=8, R=4, passes=3, pool_mask="altparity",
+                           g_dtype=g_dtype)
+    all_rows = tg3.ALL_ROWS_LAUNCHES
+    spans.start()
+    got = _launched_once(tg3.GRAMV3_KERNEL, lambda: tg3.gramv3_cuda(problem))
+    records = spans.stop()
+    assert tg3.ALL_ROWS_LAUNCHES == all_rows
+    assert [r.attrs for r in records if r.name == "gramv3.launch"] == [
+        {"g_dtype": g_dtype, "nc": 8, "rows": "staged"}]
+    assert torch.equal(got, tg3.gramv3_plain(problem))
+
+
+@pytest.mark.gpu
+def test_cuda_gramv3_rows_path_is_the_built_kernels(cuda):
+    # the built library answers: bf16 at 16 codebooks alone loads all rows
+    assert [(g, nc) for g in tg3.G_DTYPES for nc in (2, 4, 8, 16)
+            if tg3.rows_path(g, nc) == "all"] == [("bf16", 16)]
+    assert tg3.ALL_ROWS(3, tg3.G_DTYPES["bf16"]) == -1 and tg3.ALL_ROWS(16, 2) == -1
 
 
 @pytest.mark.gpu
@@ -1083,12 +1111,15 @@ def test_cuda_gramv3_at_16_codebooks_refuses_other_beam_widths(cuda):
 @pytest.mark.gpu
 def test_cuda_gramv3_at_16_codebooks_stage_timed_build_same_indexes(cuda):
     problem = _gramv3_case(cuda, 16, 1280, 1000, M=8, R=4, passes=2, pool_mask="altparity")
+    all_rows = tg3.ALL_ROWS_LAUNCHES
     got, stages = _launched_once(tg3.GRAMV3_TIMED_KERNEL, lambda: tg3.gramv3_stages(problem))
+    assert tg3.ALL_ROWS_LAUNCHES == all_rows + 1  # the timed build loads all rows too
     assert torch.equal(got, tg3.gramv3_cuda(problem))
     assert stages.shape == (1000 // tg3.FRAMES_PER_BLOCK, len(tg3.STAGES) + 2)
     assert bool((stages > 0).all())
     occ = tg3.gramv3_occupancy(problem)
-    assert occ["blocks_per_sm"] >= 1 and occ["threads_per_block"] == 128
+    assert occ["blocks_per_sm"] >= 2 and occ["threads_per_block"] == 128
+    assert occ["smem_bytes"] == 0  # no staged rows, no shared memory
 
 
 @pytest.mark.gpu
@@ -1099,13 +1130,14 @@ def test_d1280_b16_main_path_runs_k3_at_16_codebooks(cuda):
     name, passes, kw = tcodec.auto_choice(q.config, x, 5)
     assert name == "gramv3_bf16_alt4_d1280_b16"
     tg3.TABLES_CACHE.clear()
-    before = tg3.NC_LAUNCHES[16]
+    before, all_rows = tg3.NC_LAUNCHES[16], tg3.ALL_ROWS_LAUNCHES
     spans.start()
     got = _launched_once(tg3.GRAMV3_KERNEL, lambda: q.encode(x, as_bytes=False))
     records = spans.stop()
     assert tg3.NC_LAUNCHES[16] == before + 1
+    assert tg3.ALL_ROWS_LAUNCHES == all_rows + 1
     assert [r.attrs for r in records if r.name == "gramv3.launch"] == [
-        {"g_dtype": kw["g_dtype"], "nc": 16}]
+        {"g_dtype": kw["g_dtype"], "nc": 16, "rows": "all"}]
     # the bf16 table, 16 x 4,096 x 256 x 2 bytes
     assert [r.attrs for r in records if r.name == "gramv3.tables"] == [
         {"table_bytes": 16 * 4096 * 256 * 2}]
